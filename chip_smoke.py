@@ -7,25 +7,41 @@ Phases (any failure exits non-zero, and the last line is then not printed):
 
 1. build both CUDA kernels from ``vc2tpu_torch/csrc`` with nvcc (timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
-   wavelets forward and inverse, at the 1080p planes and sub-lattices, a
-   shape that is not a tile multiple and tiny planes (integer ==);
+   wavelets forward and inverse: one plane at the 1080p planes and
+   sub-lattices, a shape that is not a tile multiple and tiny planes; the
+   three 1080p 4:2:2 planes in one launch, read in place from their
+   stride-2 sub-lattices and at stride 1 under a compact overlay, as the
+   inverse runs them; and narrow planes at strides 2 and 4 whose widths
+   take the 4-byte paths (integer ==);
 3. hold the unpack kernel against its plain version on the 1080p fixtures'
-   payloads and on a seeded random-bytes payload (integer ==);
+   payloads (every CTA's byte window staged in shared memory), on a
+   fixture payload cut short (regions past the payload end), on a seeded
+   random-bytes payload whose CTAs span more than a window (peeks from
+   device memory) and on lanes too many for the shared tile (integer ==);
 4. the main path: reset the launch counters, decode the committed 1080p
    HQ fixtures (``vc2tpu_torch/testdata``) with ``Decoder()`` and check each
    output's SHA-256 against the JAX package's decode, and the counters
-   (lift: 6 launches a picture); then decode every non-fragmented HQ golden
-   of ``tests/golden`` byte-identically;
+   (lift: 2 launches a picture, one a level for the three planes; unpack:
+   1); then decode every non-fragmented HQ golden of ``tests/golden``
+   byte-identically;
 5. times on the card: end-to-end frames/s, the per-stage breakdown of one
    1080p picture, and each kernel's time beside its bound and its plain
    version's time.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
-(nvidia-smi), and last ``{"ok": true, "device": {...}}``.
+(nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
+``ms`` is its device time alone: the card sleeps while the host queues the
+launches (``time_device(queued=True)``).
+
+    python3 chip_smoke.py --time-kernels-of DIR
+
+prints only the kernel times of the checkout at DIR (this checkout's API
+or the earlier one), to compare two checkouts on one card.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import io
 import json
@@ -40,10 +56,15 @@ MEM_RATE = 3.35e12        # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 OP_RATE = 67e12           # H100 SXM non-tensor fp32 op/s; no higher for int32
 REPS = 7                  # samples of a stage or kernel time
 E2E_REPS = 40             # end-to-end samples: p75 has 10 samples beyond it
+KERNEL_INNER = 20         # back-to-back calls in one queued kernel sample
 # lift check shapes: the 1080p 4:2:2 planes and their level-1 sub-lattices,
-# a plane that is not a multiple of the 32x64 tile, and tiny planes
+# a plane that is not a multiple of any tile, and tiny planes
 LIFT_SHAPES = [(1080, 1920), (1080, 960), (540, 960), (540, 480), (130, 194),
                (2, 2), (4, 8), (16, 16), (32, 64)]
+# planes of one launch: the 1080p 4:2:2 picture, and narrow planes whose
+# level widths are not multiples of 4 at stride 2 or 4
+LEVEL_PLANES = [(1080, 1920), (1080, 960), (1080, 960)]
+SMALL_PLANES = [(136, 200), (136, 104), (8, 8)]
 RANDOM_ROWS = 64800       # slices of the random-bytes unpack check (1080p)
 TESTDATA = os.path.join(ROOT, "vc2tpu_torch", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -67,15 +88,41 @@ def bound_ms(nbytes: float, nops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_device(torch, fn, inner: int = 1, reps: int = REPS) -> float:
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms(torch) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    b.synchronize()
+    return 1e7 / a.elapsed_time(b)
+
+
+def time_device(torch, fn, inner: int = 1, reps: int = REPS,
+                queued: bool = False) -> float:
     """Median ms of one call of ``fn``, by CUDA events around ``inner``
-    back-to-back calls, after a warm-up."""
+    back-to-back calls, after a warm-up. The events also count the time
+    the card waits for the host to issue the work. With ``queued`` the card
+    first sleeps (twice the host's time to issue the calls, plus 1 ms)
+    while the host issues them, so the events time the device's work
+    alone."""
     fn()
     torch.cuda.synchronize()
+    cycles = 0
+    if queued:
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        cycles = int((2 * host_ms + 1) * sleep_cycles_per_ms(torch))
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if cycles:
+            torch.cuda._sleep(cycles)
         a.record()
         for _ in range(inner):
             fn()
@@ -160,7 +207,92 @@ def pictures_of(stream: bytes, device):
     return out
 
 
-def main() -> int:
+def kernel_times(torch, job, dev) -> dict:
+    """Times of one 1080p picture's lift launches and unpack launch at the
+    main path's shapes: ``*_ms`` queued (the device's time alone),
+    ``*_host_ms`` as the host issues them (lift: one call each; unpack: 10
+    back to back), ``*_plain_ms`` of the plain versions. Works on this
+    checkout's API and on the earlier one (a lift launch for each plane and
+    level, on sub-lattices copied beforehand), so two checkouts can be
+    compared on one card."""
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import lifting, matrices
+
+    pre, geo = job.pre, job.geo
+    kernel, depth = pre.wavelet_kernel, pre.depth
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
+    clen = fields[1:].contiguous()
+    dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
+    lanes = du.unpack_hq(pay, dstart, clen, ly, lc)
+    planes = pipe.dequantise_planes(lanes, fields[0],
+                                    matrices.quant_matrix(kernel, depth),
+                                    depth, geo)
+    if hasattr(lifting, "lift_levels"):
+        def lift_picture(fn):
+            def run():
+                coarse = None
+                for level in range(depth - 1, -1, -1):
+                    coarse = fn(planes, kernel, True, 1 << level, coarse)
+            return run
+
+        lift = lift_picture(lifting.lift_levels)
+        lift_plain = lift_picture(lifting.lift_levels_plain)
+    else:
+        inputs = [p[::1 << lv, ::1 << lv].contiguous() for p in planes
+                  for lv in range(depth - 1, -1, -1)]
+
+        def lift():
+            return [lifting.lift_level(x, kernel, True) for x in inputs]
+
+        def lift_plain():
+            return [lifting.lift_level_plain(x, kernel, True) for x in inputs]
+
+    def unpack():
+        return du.unpack_hq(pay, dstart, clen, ly, lc)
+
+    return {
+        "lift_ms": time_device(torch, lift, KERNEL_INNER, queued=True),
+        "lift_host_ms": time_device(torch, lift),
+        "lift_plain_ms": time_device(torch, lift_plain),
+        "unpack_ms": time_device(torch, unpack, KERNEL_INNER, queued=True),
+        "unpack_host_ms": time_device(torch, unpack, 10),
+        "unpack_plain_ms": time_device(
+            torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly, lc)),
+        "plane_samples": [p.numel() for p in planes],
+    }
+
+
+def time_kernels_of(path: str) -> int:
+    """``--time-kernels-of DIR``: kernel_times of the checkout at DIR (its
+    vc2tpu_torch and 1080p ConstQ fixture) as one JSON line."""
+    path = os.path.abspath(path)
+    sys.path.insert(0, path)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from vc2tpu_torch.wavelet import lifting
+
+    check(os.path.abspath(lifting.__file__).startswith(path + os.sep),
+          f"vc2tpu_torch was not imported from {path}")
+    with open(os.path.join(path, "vc2tpu_torch", "testdata",
+                           "constq_1080p.vc2"), "rb") as f:
+        _dec, _pos, job = pictures_of(f.read(), torch.device("cuda"))[0]
+    times = kernel_times(torch, job, torch.device("cuda"))
+    print(json.dumps({"checkout": path, "card": card_line(), **times}))
+    return 0
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--time-kernels-of"] and len(argv) == 2:
+        return time_kernels_of(argv[1])
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -186,7 +318,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    libs = build.build("lift_level", "hq_unpack")
+    libs = build.build(lifting.kernel_source(), "hq_unpack")
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
 
@@ -211,6 +343,35 @@ def main() -> int:
                                 f"invert={invert}: max |err| {err}")
                 lift_err = max(lift_err, err)
                 n_cmp += 1
+    # several planes in one launch, strided input, overlays
+    def rand_plane(shape):
+        return torch.as_tensor(rng.integers(-(1 << 20), (1 << 20) + 1, shape)
+                               .astype(np.int32), device=dev)
+
+    level_cases = [("1080p 4:2:2", LEVEL_PLANES, 2, False),
+                   ("1080p 4:2:2", LEVEL_PLANES, 1, True),
+                   ("narrow", SMALL_PLANES, 2, False),
+                   ("narrow", SMALL_PLANES, 2, True),
+                   ("narrow", SMALL_PLANES, 4, True)]
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for label, shapes, stride, with_overlay in level_cases:
+            planes = [rand_plane(sh) for sh in shapes]
+            overlays = ([rand_plane((h // (2 * stride), w // (2 * stride)))
+                         for h, w in shapes] if with_overlay else None)
+            for invert in (False, True):
+                got = lifting.lift_levels(planes, kernel, invert, stride,
+                                          overlays)
+                want = lifting.lift_levels_plain(planes, kernel, invert,
+                                                 stride, overlays)
+                torch.cuda.synchronize()
+                err = max(max_err(torch, g, w) for g, w in zip(got, want))
+                check(err == 0, f"lift_levels {kernel.name} {label} stride "
+                                f"{stride} overlay={with_overlay} invert="
+                                f"{invert}: max |err| {err}")
+                lift_err = max(lift_err, err)
+                n_cmp += 1
     print(f"lift kernel == plain: {n_cmp} cases, max |err| {lift_err}")
 
     # 3. unpack kernel against its plain version
@@ -230,6 +391,9 @@ def main() -> int:
             ly = job.geo.luma_slice[0] * job.geo.luma_slice[1]
             lc = job.geo.chroma_slice[0] * job.geo.chroma_slice[1]
             unpack_cases.append((key, pay, dstart, clen, ly, lc))
+    key, pay, dstart, clen, ly, lc = unpack_cases[0]
+    unpack_cases.append(("cut_short", pay[:-200].clone(), dstart, clen, ly,
+                         lc))
     n = RANDOM_ROWS
     pay = torch.as_tensor(rng.integers(0, 256, 1 << 20, dtype=np.uint8),
                           device=dev)
@@ -239,7 +403,15 @@ def main() -> int:
                          torch.as_tensor(starts.astype(np.int32), device=dev),
                          torch.as_tensor(lens.astype(np.int32), device=dev),
                          32, 16))
+    # lanes too many for the shared tile: written straight to device memory
+    starts = np.sort(rng.integers(0, (1 << 16) - 64, 3 * 96)).reshape(3, 96)
+    unpack_cases.append(("wide_lanes", pay[:1 << 16].clone(),
+                         torch.as_tensor(starts.astype(np.int32), device=dev),
+                         torch.as_tensor(rng.integers(0, 64, (3, 96))
+                                         .astype(np.int32), device=dev),
+                         16384, 8192))
     unpack_err = 0
+    n_staged = n_global = n_direct = 0
     for key, pay, dstart, clen, ly, lc in unpack_cases:
         got = du.unpack_hq(pay, dstart, clen, ly, lc)
         want = du.unpack_hq_plain(pay, dstart, clen, ly, lc)
@@ -247,13 +419,23 @@ def main() -> int:
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
         check(err == 0, f"unpack_hq {key}: max |err| {err}")
         unpack_err = max(unpack_err, err)
+        s, lanes_staged = du.unpack_plan(ly, lc)
+        staged = du.cta_windows(dstart, clen, s)[2]
+        n_staged += int(staged.sum().item())
+        n_global += int((~staged).sum().item())
+        n_direct += not lanes_staged
+        print(f"  unpack {key}: {staged.numel()} CTAs, "
+              f"{int((~staged).sum().item())} peek from device memory, "
+              f"lanes staged in shared memory: {lanes_staged}")
+    check(n_staged > 0 and n_global > 0 and n_direct > 0,
+          "the unpack cases miss the staged or the device-memory branch")
     print(f"unpack kernel == plain: {len(unpack_cases)} payloads, "
           f"max |err| {unpack_err}")
 
     # 4. the main path: decode the 1080p fixtures through Decoder(); the
     # counts are zeroed just before it and read just after
     n_pictures = sum(len(pictures_of(d, dev)) for d in streams.values())
-    lifting.lift_level.launches = 0
+    lifting.lift_levels.launches = 0
     du.unpack_hq.launches = 0
     for key, data in streams.items():
         sink = io.BytesIO()
@@ -262,13 +444,13 @@ def main() -> int:
         check(digest == fixtures[key]["decoded_sha256"],
               f"{key}: decoded SHA-256 {digest} differs from the JAX "
               f"package's {fixtures[key]['decoded_sha256']}")
-    launches = {"lift_level": lifting.lift_level.launches,
+    launches = {"lift_level": lifting.lift_levels.launches,
                 "hq_unpack": du.unpack_hq.launches}
     print(f"main path: {n_pictures} 1080p pictures, SHA-256 equal to the "
           f"JAX package's decode; launches {launches}")
-    check(launches["lift_level"] == 6 * n_pictures,
+    check(launches["lift_level"] == 2 * n_pictures,
           f"lift_level launched {launches['lift_level']} times, "
-          f"expected {6 * n_pictures}")
+          f"expected {2 * n_pictures}")
     check(launches["hq_unpack"] == n_pictures,
           f"hq_unpack launched {launches['hq_unpack']} times")
 
@@ -341,7 +523,7 @@ def main() -> int:
         ev[3].record()
         planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth, geo)
         ev[4].record()
-        planes = [lifting.inverse_plane(p, kernel, depth) for p in planes]
+        planes = lifting.inverse_planes(planes, kernel, depth)
         ev[5].record()
         words = pipe.format_planes(planes, out_geom, hdr.bitdepth)
         ev[6].record()
@@ -356,59 +538,35 @@ def main() -> int:
               "device: component offsets",
               "device: unpack kernel",
               "device: dequantise + lanes_to_plane",
-              "device: inverse_plane (lift kernels + sub-lattice copies)",
+              "device: inverse_planes (2 lift launches)",
               "device: crop + format",
               "device: D2H copy of the output bytes"]
     for i, lab in enumerate(labels):
         stages[lab] = statistics.median(r[i] for r in rows)
 
-    # the lift kernel alone at the main path's shapes, and the sub-lattice
-    # copies in and out of the level-1 lifts
-    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
-    clen = fields[1:]
-    lanes = du.unpack_hq(pay, du.hq_component_offsets(
-        clen, pre.slice_prefix, job.start), clen, ly, lc)
-    planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth, geo)
-    level_inputs = []
-    for p in planes:
-        for level in range(depth - 1, -1, -1):
-            s = 1 << level
-            level_inputs.append(p[::s, ::s].contiguous())
-
-    def lift_picture(fn):
-        return lambda: [fn(x, kernel, True) for x in level_inputs]
-
-    lift_ms = time_device(torch, lift_picture(lifting.lift_level))
-    lift_plain_ms = time_device(torch, lift_picture(lifting.lift_level_plain))
-
-    def copies():
-        for p in planes:
-            for level in range(depth - 1, 0, -1):
-                s = 1 << level
-                sub = p[::s, ::s].contiguous()
-                p[::s, ::s] = sub
-
-    stages["device: of which the lift kernels (6 launches)"] = lift_ms
-    stages["device: of which the sub-lattice copies"] = time_device(
-        torch, copies)
+    times = kernel_times(torch, job, dev)
+    stages[f"device: of which the lift launches ({depth}, host-issued)"] = (
+        times["lift_host_ms"])
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
+    print(f"kernel times: {json.dumps(times)} ({card})")
+    lift_ms, lift_plain_ms = times["lift_ms"], times["lift_plain_ms"]
+    unpack_ms, unpack_plain_ms = times["unpack_ms"], times["unpack_plain_ms"]
 
     # kernel table: time, plain time, bound
-    lift_bytes = sum(8 * x.numel() for x in level_inputs)
+    # each level's samples read once and written once
+    level_sizes = [n >> (2 * level) for n in times["plane_samples"]
+                   for level in range(depth)]
+    lift_bytes = sum(8 * n for n in level_sizes)
     lift_ops = 0
-    for x in level_inputs:
+    for n in level_sizes:
         for (_t, _s, taps, _a, _sh) in lifting.ladder(kernel, True):
-            lift_ops += 2 * (x.numel() // 2) * (2 * len(taps) + 3)
-        lift_ops += 2 * x.numel()                    # rounded unshift
+            lift_ops += 2 * (n // 2) * (2 * len(taps) + 3)
+        lift_ops += 2 * n                            # rounded unshift
     lift_bound, lift_by = bound_ms(lift_bytes, lift_ops)
 
     key, pay, dstart, clen, ly_, lc_ = unpack_cases[0]
     check(key == "constq_1080p", "fixture order")
-    unpack_ms = time_device(torch, lambda: du.unpack_hq(pay, dstart, clen,
-                                                        ly_, lc_), inner=10)
-    unpack_plain_ms = time_device(
-        torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly_, lc_))
     lanes = du.unpack_hq(pay, dstart, clen, ly_, lc_)
     nrows = 3 * dstart.shape[1]
     unpack_bytes = (int(clen.sum().item()) + 8 * nrows
@@ -446,4 +604,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

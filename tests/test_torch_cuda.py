@@ -49,6 +49,35 @@ def test_lift_kernel_matches_plain(kernel, cuda):
             assert torch.equal(got, want), (shape, invert)
 
 
+def _plane(rng, shape, cuda):
+    x = rng.integers(-(1 << 20), (1 << 20) + 1, shape).astype(np.int32)
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_lift_levels_match_plain(kernel, cuda):
+    """Three planes in one launch, read in place from the stride-s
+    sub-lattice, with and without a compact (even, even) overlay."""
+    rng = np.random.default_rng(100 + int(kernel))
+    for shapes, stride, overlay in [
+            ([(1080, 1920), (1080, 960), (1080, 960)], 2, False),
+            ([(1080, 1920), (1080, 960), (1080, 960)], 1, True),
+            ([(136, 200), (136, 104), (8, 8)], 2, True),
+            ([(136, 200), (136, 104), (8, 8)], 4, True),
+            ([(132, 196)], 1, True)]:
+        planes = [_plane(rng, sh, cuda) for sh in shapes]
+        overlays = ([_plane(rng, (h // (2 * stride), w // (2 * stride)), cuda)
+                     for h, w in shapes] if overlay else None)
+        for invert in (False, True):
+            got = lifting.lift_levels(planes, kernel, invert, stride,
+                                      overlays)
+            want = lifting.lift_levels_plain(planes, kernel, invert, stride,
+                                             overlays)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (shapes, stride, overlay, invert)
+
+
 def _pack(vals):
     """Interleaved exp-Golomb codes (reference VLC.cpp:54-94), 1-padded."""
     bits = []
@@ -80,32 +109,60 @@ def _code_rows():
                _pack([0 if i % 2 else big for i in range(24)]),
                _pack([(1 << k) - 1 for k in range(24)]),
                np.zeros(7, np.uint8), np.full(64, 0xFF, np.uint8),
-               np.zeros(0, np.uint8)]
+               np.zeros(0, np.uint8),
+               np.zeros(16, np.uint8),          # no follow bit in 64 bits
+               _pack([5, -3, 0, 0, 0, 7]), _pack([0] * 30 + [1])]
     starts, pos = [], 0
     for r in regions:
         starts.append(pos)
         pos += len(r) + 1
     payload = np.concatenate([np.concatenate([r, [0]]) for r in regions])
     lens = [len(r) for r in regions]
-    return (payload.astype(np.uint8), np.asarray(starts).reshape(3, 2),
-            np.asarray(lens).reshape(3, 2))
+    return (payload.astype(np.uint8), np.asarray(starts).reshape(3, 3),
+            np.asarray(lens).reshape(3, 3))
 
 
-@pytest.mark.parametrize("case", ["random_bytes", "codes"])
+def _chained_rows(rng, n):
+    """Regions laid end to end in slice order over several CTAs, the last
+    one running past the payload end."""
+    lens = rng.integers(0, 40, (n, 3))
+    ends = np.cumsum(lens.reshape(-1) + 1)
+    starts = (ends - lens.reshape(-1)).reshape(n, 3).T
+    lens = lens.T.copy()
+    lens[2, -1] = 64
+    payload = rng.integers(0, 256, int(starts[2, -1]) + 5, dtype=np.uint8)
+    return payload, np.ascontiguousarray(starts), lens
+
+
+@pytest.mark.parametrize("case", ["random_bytes", "codes", "chained",
+                                  "codes_cut_short", "wide_lanes"])
 def test_unpack_kernel_matches_plain(case, cuda):
-    if case == "random_bytes":
+    lanes = 24
+    if case == "random_bytes":         # CTAs over the window: device memory
         payload, starts, lens = _random_rows(np.random.default_rng(5), 2000,
                                              1 << 16)
+    elif case == "wide_lanes":         # no lane tile: straight to memory
+        payload, starts, lens = _random_rows(np.random.default_rng(7), 40,
+                                             1 << 12)
+        lanes = 20000
+    elif case == "chained":            # staged windows, past the end
+        payload, starts, lens = _chained_rows(np.random.default_rng(6), 1000)
     else:
         payload, starts, lens = _code_rows()
+        if case == "codes_cut_short":
+            payload = payload[:-40].copy()
     args = (torch.from_numpy(payload).to(cuda),
             torch.from_numpy(starts.astype(np.int32)).to(cuda),
-            torch.from_numpy(lens.astype(np.int32)).to(cuda), 24, 24)
+            torch.from_numpy(lens.astype(np.int32)).to(cuda), lanes, lanes)
     got = du.unpack_hq(*args)
     want = du.unpack_hq_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    s, lanes_staged = du.unpack_plan(lanes, lanes)
+    assert lanes_staged == (case != "wide_lanes")
+    staged = du.cta_windows(args[1], args[2], s)[2]
+    assert bool(staged.all()) == (case != "random_bytes")
 
 
 def test_unpack_kernel_on_golden_payloads(cuda):
@@ -143,9 +200,9 @@ def test_golden_decodes_through_the_kernels(case, cuda):
         data = f.read()
     with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
         want = f.read()
-    lifts, unpacks = lifting.lift_level.launches, du.unpack_hq.launches
+    lifts, unpacks = lifting.lift_levels.launches, du.unpack_hq.launches
     sink = io.BytesIO()
     assert Decoder(sink=sink).run(data) == 0
     assert sink.getvalue() == want
-    assert lifting.lift_level.launches > lifts
+    assert lifting.lift_levels.launches > lifts
     assert du.unpack_hq.launches > unpacks

@@ -14,6 +14,7 @@ from vc2tpu_torch.cli import decode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import build
 from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.wavelet import lifting
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -78,8 +79,19 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
-def test_libraries_are_keyed_by_source_hash():
-    paths = {build.library_path(n) for n in ("lift_level", "hq_unpack")}
+@pytest.mark.parametrize("case", ["sources", "generated_header"])
+def test_libraries_are_keyed_by_source_hash(case):
+    if case == "sources":
+        srcs = [lifting.kernel_source(), "hq_unpack"]
+    else:
+        # the same .cu with a changed generated ladder header
+        src = lifting.kernel_source()
+        (fname, text), = src.headers
+        changed = text.replace("Step<1, -1, 1, 1, 0, 1, 1, 1>",
+                               "Step<1, -1, 1, 1, 0, 1, 1, 2>")
+        assert changed != text
+        srcs = [src, build.Source(src.name, ((fname, changed),))]
+    paths = {build.library_path(s) for s in srcs}
     assert len(paths) == 2
     for p in paths:
         assert os.path.dirname(p) == build.BUILD_DIR

@@ -5,6 +5,7 @@ the CUDA kernel's tiling that pins its halo. The kernel itself is held
 against the plain version by tests/test_torch_cuda.py (on the card)."""
 
 import functools
+import re
 
 import numpy as np
 import jax
@@ -17,6 +18,7 @@ from vc2tpu.wavelet import lifting as jl
 from vc2tpu.wavelet import pallas_lift
 
 from vc2tpu_torch.core.config import WaveletKernel as TK
+from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.wavelet import lifting as tl
 
 KERNELS = [k for k in JK if k != JK.NullKernel]
@@ -88,34 +90,135 @@ def test_wavelet_pad_matches_vc2tpu():
                           want)
 
 
-def _tiled_model(x, kernel, invert, th=32, tw=64):
-    """The CUDA kernel's decomposition on the CPU: each th x tw tile is the
-    plain lift of its region (the tile plus ``halo`` samples on every side,
-    clipped to the plane), which is what a CTA computes in shared memory."""
-    h, w = x.shape
-    halo = tl.halo(kernel)
-    out = torch.empty_like(x)
+def _parity_lift(reg, kernel, invert):
+    """The kernel's arithmetic on one region held as four parity planes
+    q[row parity][column parity]: the horizontal ladder runs on the pairs
+    (q[a][0], q[a][1]), the vertical one on (q[0][b], q[1][b])."""
+    steps = tl.ladder(kernel, invert)
+    shift = tl.TRANSFORM_SHIFT[kernel]
+    v = reg.to(torch.int64)
+    if not invert and shift:
+        v = wrap32(v << shift)
+    q = [[v[a::2, b::2] for b in (0, 1)] for a in (0, 1)]
+
+    def rows():
+        for a in (0, 1):
+            q[a][0], q[a][1] = tl._apply_steps(q[a][0], q[a][1], steps, 1)
+
+    def cols():
+        for b in (0, 1):
+            q[0][b], q[1][b] = tl._apply_steps(q[0][b], q[1][b], steps, 0)
+
+    if invert:
+        cols()
+        rows()
+    else:
+        rows()
+        cols()
+    out = torch.empty_like(v)
+    for a in (0, 1):
+        for b in (0, 1):
+            out[a::2, b::2] = q[a][b]
+    if invert and shift:
+        out = wrap32(out + (1 << (shift - 1))) >> shift
+    return out.to(torch.int32)
+
+
+def _kernel_model(plane, kernel, invert, stride, overlay, th, tw):
+    """One CTA grid of csrc/lift_level.cu on the CPU: every th x tw tile of
+    the level's (h, w) = plane[::stride, ::stride] is the parity-split lift
+    of its region (tile plus ``halo`` rows and ``col_halo`` columns,
+    clipped), whose samples come from the strided plane and, at (even,
+    even), from the compact overlay; the tile is written to a compact
+    (h, w) result."""
+    hr = tl.halo(kernel)
+    h, w = plane.shape[0] // stride, plane.shape[1] // stride
+    out = torch.empty((h, w), dtype=torch.int32)
     for ty in range(0, h, th):
         for tx in range(0, w, tw):
-            r0, r1 = max(0, ty - halo), min(h, ty + th + halo)
-            c0, c1 = max(0, tx - halo), min(w, tx + tw + halo)
-            reg = tl.lift_level_plain(x[r0:r1, c0:c1].contiguous(), kernel,
-                                      invert)
+            r0, r1, c0, c1 = tl.tile_region(ty, tx, th, tw, h, w, hr)
+            reg = plane[r0 * stride:r1 * stride:stride,
+                        c0 * stride:c1 * stride:stride].clone()
+            if overlay is not None:
+                reg[::2, ::2] = overlay[r0 // 2:r1 // 2, c0 // 2:c1 // 2]
+            lifted = _parity_lift(reg, kernel, invert)
             hh, ww = min(th, h - ty), min(tw, w - tx)
-            out[ty:ty + hh, tx:tx + ww] = reg[ty - r0:ty - r0 + hh,
-                                              tx - c0:tx - c0 + ww]
+            out[ty:ty + hh, tx:tx + ww] = lifted[ty - r0:ty - r0 + hh,
+                                                 tx - c0:tx - c0 + ww]
     return out
 
 
 @pytest.mark.parametrize("kernel", [TK(int(k)) for k in KERNELS], ids=IDS)
 def test_kernel_tiling_halo_is_exact(kernel):
-    assert tl.halo(kernel) % 2 == 0
-    assert 32 + 2 * tl.halo(kernel) <= 96          # shared memory <= 48 KB
+    hr = tl.halo(kernel)
+    assert hr % 2 == 0
+    for th, tw in tl.tiles(hr):
+        assert th % 2 == 0 and tw % 8 == 0
+        assert tl.smem_bytes(th, tw, hr) <= tl.SMEM_LIMIT
+    sizes = [(1080, 1920), (1080, 960), (1080, 960)]
+    assert tl.smem_bytes(*tl.tile_shape(sizes, hr), hr) <= tl.SMEM_LIMIT
     for i, shape in enumerate([(2, 2), (66, 130), (100, 194), (34, 66)]):
         x = torch.from_numpy(_rand(shape, 20 + i))
-        for invert in (False, True):
-            assert torch.equal(_tiled_model(x, kernel, invert),
-                               tl.lift_level_plain(x, kernel, invert))
+        for th, tw in tl.tiles(hr):
+            for invert in (False, True):
+                assert torch.equal(
+                    _kernel_model(x, kernel, invert, 1, None, th, tw),
+                    tl.lift_level_plain(x, kernel, invert)), (shape, th, tw)
+
+
+@pytest.mark.parametrize("kernel", [TK(int(k)) for k in KERNELS], ids=IDS)
+def test_kernel_levels_without_copies_are_exact(kernel):
+    """The inverse's levels as the card runs them: each level reads the
+    plane's strided sub-lattice and the coarser level's compact result as
+    its (even, even) overlay, and writes a compact plane; equal to
+    inverse_planes (copy and scatter) at depths 1-3, planes down to 2x2."""
+    hr = tl.halo(kernel)
+    cases = [((2, 2), (2, 2), 1), ((4, 8), (4, 4), 2),
+             ((72, 136), (72, 64), 3), ((104, 200), (104, 100), 2)]
+    for i, (shape, shape2, depth) in enumerate(cases):
+        planes = [torch.from_numpy(_rand(shape, 40 + i)),
+                  torch.from_numpy(_rand(shape2, 50 + i))]
+        want = tl.inverse_planes(planes, kernel, depth)
+        coarse = None
+        for level in range(depth - 1, -1, -1):
+            s = 1 << level
+            sizes = [(p.shape[0] // s, p.shape[1] // s) for p in planes]
+            th, tw = tl.tile_shape(sizes, hr)
+            level_want = tl.lift_levels_plain(planes, kernel, True, s, coarse)
+            coarse = [_kernel_model(p, kernel, True, s, o, th, tw)
+                      for p, o in zip(planes, coarse or [None, None])]
+            for got, w in zip(coarse, level_want):
+                assert torch.equal(got, w), (shape, depth, level)
+        for got, w in zip(coarse, want):
+            assert torch.equal(got, w), (shape, depth)
+        # a forward level read in place from the sub-lattice, smallest tile
+        s = 1 << (depth - 1)
+        th, tw = tl.tiles(hr)[-1]
+        assert torch.equal(
+            _kernel_model(planes[0], kernel, False, s, None, th, tw),
+            tl.lift_levels_plain(planes[:1], kernel, False, s)[0])
+
+
+@pytest.mark.parametrize("kernel", list(TK), ids=[k.name for k in TK])
+def test_ladder_header_decodes_to_steps(kernel):
+    """lift_ladders.h, generated from _STEPS, holds every ladder exactly:
+    parsing it back gives ladder(kernel, invert) and the transform shift."""
+    text = tl.ladder_header()
+    for invert in (False, True):
+        name = f"lift_{kernel.name}_{'inv' if invert else 'fwd'}"
+        m = re.search(rf"using {name} = Ladder<(\d+), (\d+)(.*)>;", text)
+        assert m, name
+        assert int(m.group(1)) == int(invert)
+        assert int(m.group(2)) == tl.TRANSFORM_SHIFT[kernel]
+        steps = []
+        for args in re.findall(r"Step<([^>]*)>", m.group(3)):
+            v = [int(a) for a in args.split(",")]
+            taps = tuple(zip(v[4::2], v[5::2]))
+            steps.append(("o" if v[0] else "e", v[1], taps, v[2], v[3]))
+        assert tuple(steps) == tl.ladder(kernel, invert)
+        case = 2 * int(kernel) + int(invert)
+        assert f"case {case}: return f({name}{{}});" in text
+    assert tl.ladder(kernel, False) == tl._STEPS[kernel]
 
 
 def test_lift_wrapper_refuses_other_devices():

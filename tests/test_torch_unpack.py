@@ -238,3 +238,139 @@ def test_unpack_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError):
         tdu.unpack_hq(pay.to("meta"), torch.zeros((3, 2), dtype=torch.int32),
                       torch.zeros((3, 2), dtype=torch.int32), 4, 4)
+
+
+def _kernel_model(payload, dstart, clen, ly, lc):
+    """csrc/hq_unpack.cu on the CPU: each CTA's regions are decoded from
+    peeks of its staged window (``cta_windows``: big-endian words of the
+    bytes it spans, 0xFF past the payload end) or, for a CTA whose window
+    is over the budget, of the whole payload with the same rule; every
+    staged peek is also checked against the whole-payload peek. The
+    decode loop is the kernel's: one peek for every code that ends inside
+    it, runs of zero codes counted at once into zeroed lanes. Returns the
+    lanes and the CTAs' staged flags."""
+    pl = payload.numpy()
+    nbytes = len(pl)
+    n = dstart.shape[1]
+    s, _stage = tdu.unpack_plan(ly, lc)
+    lo16, span, staged = tdu.cta_windows(dstart, clen, s)
+
+    def global_word(k):
+        return int.from_bytes(bytes(int(pl[b]) if b < nbytes else 0xFF
+                                    for b in range(4 * k, 4 * k + 4)), "big")
+
+    def peek(word, p, bound):
+        k, o = p >> 5, p & 31
+        w0, w1, w2 = word(k), word(k + 1), word(k + 2)
+        w = ((((w0 << 32) | w1) << o) >> 32 & 0xFFFFFFFF) << 32
+        w |= (((w1 << 32) | w2) << o) >> 32 & 0xFFFFFFFF
+        if bound - p < 64:
+            w |= (1 << 64) - 1 >> (bound - p)
+        return w
+
+    follow = int("10" * 32, 2)
+    m64 = (1 << 64) - 1
+
+    def clz(x):
+        return 64 - x.bit_length()
+
+    out = [np.zeros((n, ly), np.int64), np.zeros((n, lc), np.int64),
+           np.zeros((n, lc), np.int64)]
+    for cta in range(-(-n // s)):
+        base = int(lo16[cta])
+        win = bytes(int(pl[b]) if b < nbytes else 0xFF
+                    for b in range(base, base + int(span[cta])))
+
+        def window_word(k, win=win, base=base):
+            i = 4 * k - base
+            assert 0 <= i and i + 4 <= len(win), "peek outside the window"
+            return int.from_bytes(win[i:i + 4], "big")
+
+        for c in range(3):
+            for i in range(cta * s, min(n, (cta + 1) * s)):
+                # the kernel's loop: w holds stream bits [p, p + avail)
+                p = 8 * int(dstart[c, i])
+                bound = p + 8 * int(clen[c, i])
+                nd, w, avail, lanes = 0, 0, 0, out[c].shape[1]
+                while nd < lanes and p < bound:
+                    ones = clz(~w & m64)
+                    if ones:                 # a run of zero codes
+                        k = min(ones, lanes - nd)
+                        nd, p, avail = nd + k, p + k, avail - k
+                        w = (w << k) & m64
+                        continue
+                    z = clz(w & follow)
+                    if z + 2 > avail:
+                        if avail < 64:
+                            w = peek(global_word, p, bound)
+                            if staged[cta]:
+                                assert peek(window_word, p, bound) == w
+                            avail = 64
+                            continue
+                        z = 62
+                    ndata = z >> 1
+                    even = int("".join(str(w >> (2 * j) & 1)
+                                       for j in range(31, -1, -1)), 2)
+                    mag = ((1 << ndata) | (even >> (32 - ndata))) - 1
+                    val = -mag if (w >> (62 - z)) & 1 else mag
+                    out[c][i, nd] = (val + (1 << 31)) % (1 << 32) - (1 << 31)
+                    nd, p, avail = nd + 1, p + z + 2, avail - z - 2
+                    w = (w << (z + 2)) & m64
+    return [torch.from_numpy(o.astype(np.int32)) for o in out], staged
+
+
+def _window_case(case):
+    """(payload, dstart, clen, ly, lc) of one window-model case."""
+    rng = np.random.default_rng(11)
+    if case == "encoded":
+        pl, n, lanes = _slices(300, 2, 3, False)
+        _q, dstart, cbytes, _end = t_scan(pl.tobytes(), n, 2, 3)
+        return pl, dstart, cbytes, lanes[0], lanes[1]
+    if case in ROW_CASES:                # long codes, 1-fill, random bits
+        payload, starts, lens, L = _rows_case(case)
+        k = -(-len(starts) // 3)
+        st, ln = np.zeros(3 * k, np.int64), np.zeros(3 * k, np.int64)
+        st[:len(starts)], ln[:len(lens)] = starts, lens
+        return payload, st.reshape(3, k), ln.reshape(3, k), L, L
+    if case == "no_terminator":          # 64 bits with no follow bit set
+        pl = np.zeros(48, np.uint8)
+        pl[20] = 0x55
+        return (pl, np.array([[0, 9], [17, 30], [40, 47]]),
+                np.array([[9, 8], [13, 10], [7, 9]]), 6, 6)
+    if case == "over_budget":            # regions far apart: one window
+        n, size = 40, 3 * tdu.WINDOW_BYTES
+        starts = np.sort(rng.integers(0, size - 64, 3 * n)).reshape(3, n)
+        lens = rng.integers(0, 40, (3, n))
+        pl = rng.integers(0, 256, size, dtype=np.uint8)
+        return pl, starts, lens, 16, 8
+    # slices laid end to end over several CTAs; the last region runs past
+    # the payload end
+    n = 2 * tdu.SLICES_PER_CTA + 37
+    lens = rng.integers(0, 12, (n, 3))
+    lens[::5] = 0                        # empty regions
+    ends = np.cumsum(lens.reshape(-1) + 1)
+    starts = (ends - lens.reshape(-1)).reshape(n, 3).T
+    lens = lens.T.copy()
+    lens[2, -1] = 24
+    pl = rng.integers(0, 256, int(starts[2, -1]) + 9, dtype=np.uint8)
+    return pl, starts, lens, 12, 6
+
+
+@pytest.mark.parametrize("case", ["encoded", "over_budget", "past_end",
+                                  "random_bytes", "all_long", "ramp",
+                                  "all_zero_bytes", "no_terminator"])
+def test_unpack_kernel_windows_are_exact(case):
+    pl, dstart, clen, ly, lc = _window_case(case)
+    args = (torch.from_numpy(pl), torch.from_numpy(dstart.astype(np.int32)),
+            torch.from_numpy(clen.astype(np.int32)))
+    got, staged = _kernel_model(*args, ly, lc)
+    want = tdu.unpack_hq_plain(*args, ly, lc)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case == "over_budget":
+        assert not staged.any()
+    else:
+        assert staged.all()
+    if case == "past_end":
+        assert len(staged) > 2
+        assert int(dstart[2, -1]) + int(clen[2, -1]) > len(pl)

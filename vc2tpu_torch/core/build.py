@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into ``_build/lib<name>-<hash>.so`` inside this package, at first use. The
-hash covers the source and the compiler flags, so a stale library is never
-loaded. The library is opened with ctypes; the wrappers set ``argtypes``.
+into ``_build/lib<name>-<hash>.so`` inside this package, at first use. A
+kernel may include headers generated from Python tables (``Source.headers``:
+file name and text); they are written next to the library and put on the
+include path. The hash covers the source, the generated headers and the
+compiler flags, so a stale library is never loaded. The library is opened
+with ctypes; the wrappers set ``argtypes``.
 
 A missing ``nvcc`` or a failed build raises: there is no other route.
 """
@@ -11,6 +14,7 @@ A missing ``nvcc`` or a failed build raises: there is no other route.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -22,6 +26,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+
+
+@dataclasses.dataclass(frozen=True)
+class Source:
+    """A kernel source ``csrc/<name>.cu`` and the headers generated for it,
+    as ((file name, text), ...)."""
+
+    name: str
+    headers: tuple = ()
 
 
 def nvcc_path() -> str:
@@ -36,52 +49,65 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
+def _as_source(src) -> Source:
+    return src if isinstance(src, Source) else Source(src)
+
+
+def library_path(src) -> str:
+    src = _as_source(src)
+    with open(os.path.join(CSRC, f"{src.name}.cu"), "rb") as f:
         h = hashlib.sha256(f.read())
+    for fname, text in src.headers:
+        h.update(fname.encode() + b"\0" + text.encode() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{src.name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
-    """Start the nvcc build of ``name`` unless its library exists.
+def _start(src: Source):
+    """Start the nvcc build of ``src`` unless its library exists.
     Returns (path, process or None)."""
-    out = library_path(name)
+    out = library_path(src)
     if os.path.exists(out):
         return out, None
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    gen = f"{tmp}.include"
+    os.makedirs(gen, exist_ok=True)
+    for fname, text in src.headers:
+        with open(os.path.join(gen, fname), "w") as f:
+            f.write(text)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", gen, "-o", tmp,
+           os.path.join(CSRC, f"{src.name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
-    return out, (proc, tmp)
+    return out, (proc, tmp, gen)
 
 
-def build(*names: str) -> list[str]:
-    """Build the named kernels, all nvcc processes running at once.
-    Returns the library paths; raises RuntimeError on a failed build."""
-    started = [(name, *_start(name)) for name in names]
+def build(*sources) -> list[str]:
+    """Build the named kernels (names or ``Source``s), all nvcc processes
+    running at once. Returns the library paths; raises RuntimeError on a
+    failed build."""
+    started = [(src, *_start(src)) for src in map(_as_source, sources)]
     errors = []
-    for name, out, job in started:
+    for src, out, job in started:
         if job is None:
             continue
-        proc, tmp = job
+        proc, tmp, gen = job
         log = proc.communicate()[0].decode(errors="replace")
+        shutil.rmtree(gen, ignore_errors=True)
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for {src.name}.cu:\n{log}")
             if os.path.exists(tmp):
                 os.remove(tmp)
             continue
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
-    return [out for _name, out, _job in started]
+    return [out for _src, out, _job in started]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of kernel ``name``, built first if it is missing. The
-    wrappers call this once (they cache the configured library)."""
-    (path,) = build(name)
+def load(src) -> ctypes.CDLL:
+    """The library of kernel ``src`` (a name or a ``Source``), built first
+    if it is missing. The wrappers call this once (they cache the
+    configured library)."""
+    (path,) = build(src)
     return ctypes.CDLL(path)

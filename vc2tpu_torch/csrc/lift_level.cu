@@ -1,33 +1,55 @@
 // One 2-D integer lifting level of a VC-2 wavelet, in place-layout
-// (interleaved even/odd samples), for sm_90a.
+// (interleaved even/odd samples), for up to three planes in one launch,
+// for sm_90a.
 //
 // Replaces: vc2tpu/wavelet/pallas_lift.py::lift_level (the Pallas kernel,
 // pl.pallas_call in _build), which computes vc2tpu.wavelet.lifting.lift_level.
 // Forward: << TRANSFORM_SHIFT, the horizontal ladder, then the vertical
 // ladder. Inverse: the vertical ladder, the horizontal ladder, then the
-// rounded unshift. The ladder (steps, taps, rounding) arrives as a
-// LiftSteps table built in Python from lifting._STEPS, so all seven
-// wavelets run through this one kernel.
+// rounded unshift. Each wavelet's ladder is a compile-time type from the
+// generated lift_ladders.h (written from lifting._STEPS at build time), so
+// steps, taps, coefficients and rounding are constants and the tap loops
+// unroll.
 //
-// Bound on the card: device memory. Each level reads and writes the plane
-// once (8 bytes a sample); the arithmetic is a few integer operations a
-// tap. At 1080p 4:2:2 a picture's two levels move ~41 MB, ~12 us at
-// 3.35 TB/s.
+// Bound on the card: device memory. Each level reads and writes its
+// samples once (8 bytes a sample); the arithmetic is a few integer
+// operations a tap. At 1080p 4:2:2 a picture's two levels move ~41 MB,
+// ~12 us at 3.35 TB/s.
 //
-// Design: one CTA per TILE_H x TILE_W output tile. The CTA loads the tile
-// plus a halo on all four sides (the ladder's contamination reach, from
-// lifting.halo) into shared memory, runs every step of the first ladder
-// over every row (or column) it holds, halo included, then the second
-// ladder, and writes back only the tile. The Pallas kernel held full-width
-// row strips in VMEM and needed only a row halo; a 1920-wide strip does not
-// fit a CTA's shared memory, so here the column halo is new work.
+// Design:
+// - One grid over the tiles of all the planes of a level (a plane table
+//   passed by value); a CTA finds its plane and tile with one division.
+// - A level at stride s reads its input in place from the plane's
+//   x[::s, ::s] sub-lattice, and the (even, even) samples from the coarser
+//   level's compact result (the overlay) when there is one. It writes a
+//   compact plane, so no CTA writes where a neighbour still reads its halo,
+//   and the level needs no sub-lattice copy or scatter.
+// - The CTA loads its output tile plus a halo (lifting.halo rows,
+//   col_halo columns: rounded up to 4 so a region starts 16-byte aligned)
+//   into shared memory split by parity: four planes q[row parity][column
+//   parity]. A horizontal tap then reads consecutive words of one parity
+//   plane along a row, a vertical tap consecutive words of a row of
+//   another: unit-stride and free of bank conflicts.
+// - A CTA's 256 threads walk the region's index space with strides; a
+//   region is 2^k columns wide, so a thread's row and column follow from
+//   its index by shifts and masks: no per-element division. A horizontal
+//   step keeps a thread on one column (its clamped tap indices computed
+//   once); a vertical step gives a thread a run of rows and keeps the
+//   taps' sources in a sliding register window: one shared load an output.
+// - Global loads are 16-byte (4 samples at stride 1, one even/odd pair of
+//   the stride-2 sub-lattice), issued BATCH at a time before any is used;
+//   stores are 16-byte; other strides and unaligned widths take 4-byte
+//   accesses.
+// - Regions are large (up to 64 x 256 samples, dynamic shared memory
+//   above 48 KB) to cut the halo's re-reads, and a multiple of 64 columns
+//   wide, so a warp's loads and taps along a row fill its 32 lanes; the
+//   wrapper picks the region so the grid still fills the card.
 //
 // Edges: a tap's source index clamps per parity. Tiles and halos are even,
 // so a region's parity indices are [0, n/2 - 1] in local coordinates, and
 // clamping there equals the global clamp wherever the region touches the
 // picture edge; elsewhere the clamp only touches halo samples that the
-// halo keeps away from the tile. Planes down to 2x2 work: a region never
-// extends past the picture.
+// halo keeps away from the tile.
 //
 // Integers: XLA int32 wraps, C++ signed overflow does not, so products and
 // sums are formed in uint32_t and only the rounding shift is applied to the
@@ -36,157 +58,350 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+template <int PT, int SIGN, int ADD, int SHIFT, int... OFF_COEFF>
+struct Step {};
+
+template <int INV, int TSHIFT, class... STEPS>
+struct Ladder {};
+
+#include "lift_ladders.h"
+
 namespace {
 
-constexpr int MAX_STEPS = 4;
-constexpr int MAX_TAPS = 8;
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 64;
-constexpr int THREADS = 256;
+constexpr int MAX_PLANES = 3;
+constexpr int LOG_NT = 8;
+constexpr int NT = 1 << LOG_NT;  // threads of a CTA
+constexpr int BATCH = 4;     // global loads a thread issues before it waits
+constexpr int MIN_CTAS = 6;  // CTAs an SM holds at once: <= 40 registers
 
 }  // namespace
 
-// Mirror of lifting._LiftSteps.
-struct LiftSteps {
-  int n_steps;
-  int target[MAX_STEPS];  // parity the step writes: 1 odd, 0 even
-  int sign[MAX_STEPS];
-  int n_taps[MAX_STEPS];
-  int off[MAX_STEPS][MAX_TAPS];
-  int coeff[MAX_STEPS][MAX_TAPS];
-  int add[MAX_STEPS];
-  int shift[MAX_STEPS];
+// Mirror of lifting._LiftPlane: one plane of a level.
+struct LiftPlane {
+  const int32_t* src;      // the whole plane
+  const int32_t* overlay;  // compact (h/2, w/2) even-even samples, or null
+  int32_t* dst;            // compact (h, w) result
+  long long src_ld;        // elements between the level's rows
+  int src_step;            // elements between the level's columns
+  int h, w;                // the level's size
+  int tiles_x;
+  int tile0;               // first tile of this plane in the grid
+};
+
+// Mirror of lifting._LiftTable.
+struct LiftTable {
+  int n, n_tiles, th, tw, halo;
+  LiftPlane p[MAX_PLANES];
 };
 
 namespace {
 
-__device__ __forceinline__ int clamp_index(int v, int hi) {
+__host__ __device__ constexpr int col_halo(int h) { return (h + 3) & ~3; }
+
+__device__ __forceinline__ int clampi(int v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ uint32_t step_delta(uint32_t acc, int add,
-                                               int shift) {
+// A step's taps as compile-time (offset, coefficient) pairs.
+template <int... OC>
+struct Taps {
+  static constexpr int n = sizeof...(OC) / 2;
+  __host__ __device__ static constexpr int at(int k) {
+    constexpr int a[] = {OC...};
+    return a[k];
+  }
+  __host__ __device__ static constexpr int off(int t) { return at(2 * t); }
+  __host__ __device__ static constexpr int coeff(int t) {
+    return at(2 * t + 1);
+  }
+  __host__ __device__ static constexpr int lo() {
+    int m = off(0);
+    for (int t = 1; t < n; ++t) m = off(t) < m ? off(t) : m;
+    return m;
+  }
+  __host__ __device__ static constexpr int hi() {
+    int m = off(0);
+    for (int t = 1; t < n; ++t) m = off(t) > m ? off(t) : m;
+    return m;
+  }
+};
+
+template <int SIGN, int ADD, int SHIFT>
+__device__ __forceinline__ uint32_t update(uint32_t v, uint32_t acc) {
   // JAX: delta = (acc + add) >> shift if shift else acc
-  if (shift == 0) return acc;
-  return (uint32_t)(((int32_t)(acc + (uint32_t)add)) >> shift);
+  uint32_t d = acc;
+  if constexpr (SHIFT != 0)
+    d = (uint32_t)(((int32_t)(acc + (uint32_t)ADD)) >> SHIFT);
+  return SIGN > 0 ? v + d : v - d;
 }
 
-__device__ __forceinline__ uint32_t apply_sign(uint32_t v, uint32_t delta,
-                                               int sign) {
-  return sign > 0 ? v + delta : v - delta;
-}
+// The region in shared memory: parity plane (a, b) holds local sample
+// (2i + a, 2j + b) at q(a, b)[i * ldq + j]. The full region is rh rows by
+// 2^lw columns (ldq = 2^(lw - 1) <= NT / 2); this CTA's is nr x nc,
+// clipped to the plane. A thread's place in it follows from its index by
+// shifts and masks.
+struct Region {
+  uint32_t* base;
+  int qsz, ldq, lw, rh, nr, nc;
+  __device__ uint32_t* q(int a, int b) const {
+    return base + (2 * a + b) * qsz;
+  }
+};
 
-// Step k along rows: updates the target-parity columns of every row.
-__device__ void row_step(uint32_t* s, int nr, int nc, int ld,
-                         const LiftSteps& st, int k) {
-  const int pt = st.target[k];
-  const int ps = 1 - pt;
-  const int np = nc >> 1;
-  const int nt = st.n_taps[k];
-  for (int idx = threadIdx.x; idx < nr * np; idx += blockDim.x) {
-    const int r = idx / np;
-    const int i = idx - r * np;
-    uint32_t* row = s + r * ld;
+// Horizontal step: the target-parity columns of every row. A thread keeps
+// one column j (its taps' clamped indices computed once) and one row
+// parity, and walks the rows NT / ldq apart.
+template <int PT, int SIGN, int ADD, int SHIFT, int... OC>
+__device__ __forceinline__ void row_step(const Region& g,
+                                         Step<PT, SIGN, ADD, SHIFT, OC...>) {
+  using T = Taps<OC...>;
+  const int np = g.nc >> 1, lp = g.lw - 1;
+  const int j = threadIdx.x & (g.ldq - 1);
+  if (j >= np) return;
+  int idx[T::n];
+#pragma unroll
+  for (int t = 0; t < T::n; ++t) idx[t] = clampi(j + T::off(t), np - 1);
+  int r = threadIdx.x >> lp;
+  const int rstep = NT >> lp;  // even: the row parity stays
+  const int pstep = (rstep >> 1) * g.ldq;
+  const uint32_t* src = g.q(r & 1, 1 - PT) + (r >> 1) * g.ldq;
+  uint32_t* dst = g.q(r & 1, PT) + (r >> 1) * g.ldq + j;
+  for (; r < g.nr; r += rstep, src += pstep, dst += pstep) {
     uint32_t acc = 0;
-    for (int t = 0; t < nt; ++t) {
-      const int j = clamp_index(i + st.off[k][t], np - 1);
-      acc += (uint32_t)st.coeff[k][t] * row[2 * j + ps];
-    }
-    uint32_t* tgt = row + 2 * i + pt;
-    *tgt = apply_sign(*tgt, step_delta(acc, st.add[k], st.shift[k]),
-                      st.sign[k]);
+#pragma unroll
+    for (int t = 0; t < T::n; ++t) acc += (uint32_t)T::coeff(t) * src[idx[t]];
+    *dst = update<SIGN, ADD, SHIFT>(*dst, acc);
   }
 }
 
-// Step k along columns: updates the target-parity rows of every column.
-__device__ void col_step(uint32_t* s, int nr, int nc, int ld,
-                         const LiftSteps& st, int k) {
-  const int pt = st.target[k];
-  const int ps = 1 - pt;
-  const int np = nr >> 1;
-  const int nt = st.n_taps[k];
-  for (int idx = threadIdx.x; idx < np * nc; idx += blockDim.x) {
-    const int i = idx / nc;
-    const int c = idx - i * nc;
+// Vertical step: the target-parity rows of every column. NT / 2^lw threads
+// share a column (j, parity b), each walking a run of consecutive rows
+// with the taps' source values in a sliding register window: one shared
+// load per output.
+template <int PT, int SIGN, int ADD, int SHIFT, int... OC>
+__device__ __forceinline__ void col_step(const Region& g,
+                                         Step<PT, SIGN, ADD, SHIFT, OC...>) {
+  using T = Taps<OC...>;
+  constexpr int LO = T::lo(), SPAN = T::hi() - T::lo() + 1;
+  const int np = g.nr >> 1, ncp = g.nc >> 1, lp = g.lw - 1;
+  const int j = threadIdx.x & (g.ldq - 1), b = (threadIdx.x >> lp) & 1;
+  if (j >= ncp) return;
+  const int lper = LOG_NT - g.lw;  // log2 of the threads on a column
+  const int run = (np + (1 << lper) - 1) >> lper;
+  int i = (threadIdx.x >> g.lw) * run;
+  const int i1 = min(np, i + run);
+  const int ld = g.ldq;
+  const uint32_t* src = g.q(1 - PT, b) + j;
+  uint32_t* dst = g.q(PT, b) + j;
+  uint32_t w[SPAN];
+#pragma unroll
+  for (int k = 1; k < SPAN; ++k)
+    w[k] = src[clampi(i + LO + k - 1, np - 1) * ld];
+  for (; i < i1; ++i) {
+#pragma unroll
+    for (int k = 0; k + 1 < SPAN; ++k) w[k] = w[k + 1];
+    w[SPAN - 1] = src[clampi(i + LO + SPAN - 1, np - 1) * ld];
     uint32_t acc = 0;
-    for (int t = 0; t < nt; ++t) {
-      const int j = clamp_index(i + st.off[k][t], np - 1);
-      acc += (uint32_t)st.coeff[k][t] * s[(2 * j + ps) * ld + c];
-    }
-    uint32_t* tgt = s + (2 * i + pt) * ld + c;
-    *tgt = apply_sign(*tgt, step_delta(acc, st.add[k], st.shift[k]),
-                      st.sign[k]);
+#pragma unroll
+    for (int t = 0; t < T::n; ++t)
+      acc += (uint32_t)T::coeff(t) * w[T::off(t) - LO];
+    dst[i * ld] = update<SIGN, ADD, SHIFT>(dst[i * ld], acc);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-lift_level_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
-                  int h, int w, LiftSteps st, int invert, int tshift,
-                  int halo) {
-  extern __shared__ uint32_t s[];
-  const int ty0 = blockIdx.y * TILE_H;
-  const int tx0 = blockIdx.x * TILE_W;
-  const int r0 = max(0, ty0 - halo);
-  const int r1 = min(h, ty0 + TILE_H + halo);
-  const int c0 = max(0, tx0 - halo);
-  const int c1 = min(w, tx0 + TILE_W + halo);
-  const int nr = r1 - r0;
-  const int nc = c1 - c0;
-  const int ld = TILE_W + 2 * halo;
+template <class... S>
+__device__ __forceinline__ void rows(const Region& g) {
+  ((row_step(g, S{}), __syncthreads()), ...);
+}
 
-  const int pre = invert ? 0 : tshift;
-  for (int idx = threadIdx.x; idx < nr * nc; idx += blockDim.x) {
-    const int r = idx / nc;
-    const int c = idx - r * nc;
-    s[r * ld + c] = (uint32_t)x[(size_t)(r0 + r) * w + (c0 + c)] << pre;
+template <class... S>
+__device__ __forceinline__ void cols(const Region& g) {
+  ((col_step(g, S{}), __syncthreads()), ...);
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+template <int INV, int TSHIFT, class... S>
+__device__ __forceinline__ void lift_tile(Ladder<INV, TSHIFT, S...>,
+                                          const LiftTable& t) {
+  extern __shared__ __align__(16) uint32_t smem[];
+
+  // this CTA's plane and tile
+  LiftPlane P = t.p[0];
+#pragma unroll
+  for (int k = 1; k < MAX_PLANES; ++k)
+    if (k < t.n && (int)blockIdx.x >= t.p[k].tile0) P = t.p[k];
+  const int tile = (int)blockIdx.x - P.tile0;
+  const int ty = tile / P.tiles_x;
+  const int ty0 = ty * t.th;
+  const int tx0 = (tile - ty * P.tiles_x) * t.tw;
+
+  const int hc = col_halo(t.halo);
+  const int r0 = max(0, ty0 - t.halo), r1 = min(P.h, ty0 + t.th + t.halo);
+  const int c0 = max(0, tx0 - hc), c1 = min(P.w, tx0 + t.tw + hc);
+  Region g;
+  g.base = smem;
+  g.rh = t.th + 2 * t.halo;
+  g.ldq = (t.tw >> 1) + hc;
+  g.lw = 32 - __clz(g.ldq);  // ldq is a power of 2
+  g.qsz = (g.rh >> 1) * g.ldq;
+  g.nr = r1 - r0;
+  g.nc = c1 - c0;
+  const int ncp = g.nc >> 1;
+  const int lp = g.lw - 1, lv = g.lw - 2;  // log2 pairs, quads in a row
+  const int pre = INV ? 0 : TSHIFT;
+  const bool ovl = P.overlay != nullptr;
+
+  // load: the sub-lattice's samples, deinterleaved into the parity planes;
+  // the even-even plane from the overlay when there is one. Each thread
+  // issues BATCH 16-byte loads before it stores any of them.
+  const int32_t* src = P.src + (long long)r0 * P.src_ld
+                       + (long long)c0 * P.src_step;
+  const bool vec = aligned16(P.src) && (P.src_ld & 3) == 0;
+  if (vec && ((P.src_step == 1 && (P.w & 3) == 0) || P.src_step == 2)) {
+    // stride 1: a load is 4 samples (two pairs); stride 2: one pair
+    const int l = P.src_step == 1 ? lv : lp;
+    const int nx = P.src_step == 1 ? g.nc >> 2 : ncp;
+    for (int k0 = threadIdx.x; k0 < (g.rh << l); k0 += BATCH * NT) {
+      int4 x[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int k = k0 + u * NT, r = k >> l, v = k & ((1 << l) - 1);
+        if (r < g.nr && v < nx)
+          x[u] = __ldg((const int4*)(src + r * P.src_ld) + v);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int k = k0 + u * NT, r = k >> l, v = k & ((1 << l) - 1);
+        if (r < g.nr && v < nx) {
+          const int off = (r >> 1) * g.ldq;
+          uint32_t* e = g.q(r & 1, 0) + off;
+          uint32_t* o = g.q(r & 1, 1) + off;
+          const bool keep_e = !(ovl && (r & 1) == 0);
+          if (P.src_step == 1) {
+            if (keep_e)
+              *(uint2*)(e + 2 * v) = make_uint2((uint32_t)x[u].x << pre,
+                                                (uint32_t)x[u].z << pre);
+            *(uint2*)(o + 2 * v) = make_uint2((uint32_t)x[u].y << pre,
+                                              (uint32_t)x[u].w << pre);
+          } else {
+            if (keep_e) e[v] = (uint32_t)x[u].x << pre;
+            o[v] = (uint32_t)x[u].z << pre;
+          }
+        }
+      }
+    }
+  } else {
+    const long long st = P.src_step;
+    for (int k = threadIdx.x; k < (g.rh << lp); k += NT) {
+      const int r = k >> lp, j = k & (g.ldq - 1);
+      if (r < g.nr && j < ncp) {
+        const int32_t* row = src + r * P.src_ld;
+        const int off = (r >> 1) * g.ldq;
+        if (!(ovl && (r & 1) == 0))
+          g.q(r & 1, 0)[off + j] = (uint32_t)__ldg(row + 2 * j * st) << pre;
+        g.q(r & 1, 1)[off + j] = (uint32_t)__ldg(row + (2 * j + 1) * st)
+                                 << pre;
+      }
+    }
+  }
+  if (ovl) {
+    const int old = P.w >> 1;
+    const int32_t* osrc = P.overlay + (long long)(r0 >> 1) * old + (c0 >> 1);
+    uint32_t* e = g.q(0, 0);
+    if ((old & 1) == 0 && (ncp & 1) == 0 && ((uintptr_t)P.overlay & 7) == 0) {
+      for (int k = threadIdx.x; k < ((g.rh >> 1) << lv); k += NT) {
+        const int i = k >> lv, v = k & ((1 << lv) - 1);
+        if (i < (g.nr >> 1) && v < (ncp >> 1)) {
+          const int2 x = __ldg((const int2*)(osrc + (long long)i * old) + v);
+          *(uint2*)(e + i * g.ldq + 2 * v) =
+              make_uint2((uint32_t)x.x << pre, (uint32_t)x.y << pre);
+        }
+      }
+    } else {
+      for (int k = threadIdx.x; k < ((g.rh >> 1) << lp); k += NT) {
+        const int i = k >> lp, j = k & (g.ldq - 1);
+        if (i < (g.nr >> 1) && j < ncp)
+          e[i * g.ldq + j] = (uint32_t)__ldg(osrc + (long long)i * old + j)
+                             << pre;
+      }
+    }
   }
   __syncthreads();
 
-  if (!invert) {
-    for (int k = 0; k < st.n_steps; ++k) {
-      row_step(s, nr, nc, ld, st, k);
-      __syncthreads();
-    }
-    for (int k = 0; k < st.n_steps; ++k) {
-      col_step(s, nr, nc, ld, st, k);
-      __syncthreads();
-    }
+  if constexpr (INV) {
+    cols<S...>(g);
+    rows<S...>(g);
   } else {
-    for (int k = 0; k < st.n_steps; ++k) {
-      col_step(s, nr, nc, ld, st, k);
-      __syncthreads();
-    }
-    for (int k = 0; k < st.n_steps; ++k) {
-      row_step(s, nr, nc, ld, st, k);
-      __syncthreads();
-    }
+    rows<S...>(g);
+    cols<S...>(g);
   }
 
-  const int th = min(TILE_H, h - ty0);
-  const int tw = min(TILE_W, w - tx0);
-  const uint32_t round = (invert && tshift) ? (1u << (tshift - 1)) : 0u;
-  const int post = invert ? tshift : 0;
-  for (int idx = threadIdx.x; idx < th * tw; idx += blockDim.x) {
-    const int r = idx / tw;
-    const int c = idx - r * tw;
-    uint32_t v = s[(ty0 - r0 + r) * ld + (tx0 - c0 + c)];
-    y[(size_t)(ty0 + r) * w + (tx0 + c)] = ((int32_t)(v + round)) >> post;
+  // store the tile: interleave the parity planes back, unshift if inverse
+  const int th = min(t.th, P.h - ty0);
+  const int tw = min(t.tw, P.w - tx0);
+  const int lr0 = ty0 - r0, lq0 = (tx0 - c0) >> 1;
+  constexpr int post = INV ? TSHIFT : 0;
+  constexpr uint32_t rnd = post ? (1u << (post > 0 ? post - 1 : 0)) : 0u;
+  int32_t* dst = P.dst + (long long)ty0 * P.w + tx0;
+  if ((P.w & 3) == 0 && aligned16(P.dst)) {
+    for (int k = threadIdx.x; k < (th << lv); k += NT) {
+      const int r = k >> lv, v = k & ((1 << lv) - 1);
+      if (v < (tw >> 2)) {
+        const int lr = lr0 + r, off = (lr >> 1) * g.ldq + lq0 + 2 * v;
+        const uint2 a = *(const uint2*)(g.q(lr & 1, 0) + off);
+        const uint2 b = *(const uint2*)(g.q(lr & 1, 1) + off);
+        *((int4*)(dst + (long long)r * P.w) + v) =
+            make_int4(((int32_t)(a.x + rnd)) >> post,
+                      ((int32_t)(b.x + rnd)) >> post,
+                      ((int32_t)(a.y + rnd)) >> post,
+                      ((int32_t)(b.y + rnd)) >> post);
+      }
+    }
+  } else {
+    for (int k = threadIdx.x; k < (th << lp); k += NT) {
+      const int r = k >> lp, j = k & (g.ldq - 1);
+      if (j < (tw >> 1)) {
+        const int lr = lr0 + r, off = (lr >> 1) * g.ldq + lq0 + j;
+        int32_t* out = dst + (long long)r * P.w + 2 * j;
+        out[0] = ((int32_t)(g.q(lr & 1, 0)[off] + rnd)) >> post;
+        out[1] = ((int32_t)(g.q(lr & 1, 1)[off] + rnd)) >> post;
+      }
+    }
   }
+}
+
+template <class L>
+__global__ void __launch_bounds__(NT, MIN_CTAS)
+lift_level_kernel(const LiftTable t) {
+  lift_tile(L{}, t);
+}
+
+template <class L>
+int launch(const LiftTable& t, cudaStream_t stream) {
+  const size_t smem = (size_t)(t.th + 2 * t.halo) *
+                      (t.tw + 2 * col_halo(t.halo)) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lift_level_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  lift_level_kernel<L><<<t.n_tiles, NT, smem, stream>>>(t);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int lift_level_launch(const void* x, void* y, int h, int w,
-                                 const LiftSteps* steps, int invert,
-                                 int tshift, int halo, void* stream) {
-  if (steps->n_steps > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < steps->n_steps; ++k)
-    if (steps->n_taps[k] > MAX_TAPS) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(TILE_H + 2 * halo) * (TILE_W + 2 * halo) * sizeof(uint32_t);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H);
-  lift_level_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (int32_t*)y, h, w, *steps, invert, tshift, halo);
-  return (int)cudaGetLastError();
+extern "C" int lift_level_launch(const LiftTable* t, int kernel, int invert,
+                                 void* stream) {
+  const int rw = t->tw + 2 * col_halo(t->halo);
+  if (t->n < 1 || t->n > MAX_PLANES || t->n_tiles < 1 || (t->th & 1) ||
+      (t->tw & 7) || (t->halo & 1) || rw < 8 || rw > NT || (rw & (rw - 1)))
+    return (int)cudaErrorInvalidValue;
+  return with_ladder(kernel, invert, [&](auto ladder) {
+    return launch<decltype(ladder)>(*t, (cudaStream_t)stream);
+  });
 }

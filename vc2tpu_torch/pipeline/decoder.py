@@ -7,7 +7,7 @@ the HQ picture tail of the reference decoder
 
     upload (one H2D of the payload, one of the slice fields)
     -> component offsets -> unpack kernel -> dequantise
-    -> lanes_to_plane -> inverse_plane (lift kernel per level)
+    -> lanes_to_plane -> inverse_planes (one lift launch a level)
     -> crop -> clip, offset, MSB-justify, big-endian bytes (uint8)
 
 The stages are separate functions so a profiler can time each; the caller
@@ -109,5 +109,5 @@ def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
     lc = geo.chroma_slice[0] * geo.chroma_slice[1]
     lanes = device_unpack.unpack_hq(pay, dstart, clen, ly, lc)
     planes = dequantise_planes(lanes, fields[0], qmatrix, depth, geo)
-    planes = [lifting.inverse_plane(p, kernel, depth) for p in planes]
+    planes = lifting.inverse_planes(planes, kernel, depth)
     return format_planes(planes, out_geometry, bitdepth)

@@ -103,13 +103,55 @@ def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
             out[2 * n:, :lc].contiguous())
 
 
+# The kernel's plan: one CTA for each run of SLICES_PER_CTA slices (3 threads
+# a slice, one for each component region; 32 was fastest of 16-128 on the
+# 1080p fixture). It stages the payload bytes its regions span in a
+# WINDOW_BYTES window of shared memory when they fit, and its lanes in a
+# tile of rows of an odd pitch (so a warp's stores of one lane index fall
+# in 32 different banks) when the tile fits LANE_TILE_BYTES; else it writes
+# lanes straight to device memory from DIRECT_SLICES slices a CTA.
+SLICES_PER_CTA = 32
+DIRECT_SLICES = 32
+WINDOW_BYTES = 8192
+LANE_TILE_BYTES = 98304
+
+
+def unpack_plan(ly: int, lc: int) -> tuple:
+    """(slices a CTA, lanes staged in shared memory?) for these lane
+    counts."""
+    row = 4 * ((ly | 1) + 2 * (lc | 1))
+    s = min(SLICES_PER_CTA, LANE_TILE_BYTES // row)
+    return (s, True) if s >= 1 else (DIRECT_SLICES, False)
+
+
+def cta_windows(dstart: torch.Tensor, clen: torch.Tensor, s: int):
+    """The byte window of every CTA of slices [c * s, (c + 1) * s): the
+    16-byte-aligned start of its non-empty regions, the bytes it stages
+    (to 16 past the aligned end, for the peeks' look-ahead) and whether
+    they fit WINDOW_BYTES (else its peeks read device memory). Returns
+    (lo16, span, staged), int64/bool [ceil(N / s)]."""
+    n = dstart.shape[1]
+    pad = -n % s
+    lo = torch.nn.functional.pad(dstart.to(torch.int64), (0, pad))
+    ln = torch.nn.functional.pad(clen.to(torch.int64), (0, pad))
+    hi = lo + ln
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(ln > 0, lo, big).reshape(3, -1, s).amin(dim=(0, 2))
+    hi = torch.where(ln > 0, hi, -1).reshape(3, -1, s).amax(dim=(0, 2))
+    empty = hi < 0
+    lo16 = torch.where(empty, 0, lo & ~15)
+    span = torch.where(empty, 0, ((hi + 15) & ~15) + 16 - lo16)
+    return lo16, span, span <= WINDOW_BYTES
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("hq_unpack")
     lib.hq_unpack_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.hq_unpack_launch.restype = ctypes.c_int
     return lib
 
@@ -132,16 +174,20 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
     if not (payload.is_contiguous() and dstart.is_contiguous()
             and clen.is_contiguous()):
         raise ValueError("unpack_hq: inputs must be contiguous")
+    if payload.data_ptr() % 16:
+        payload = payload.clone()          # the kernel loads 16-byte words
     n = dstart.shape[1]
     qy = torch.empty((n, ly), dtype=torch.int32, device=payload.device)
     qu = torch.empty((n, lc), dtype=torch.int32, device=payload.device)
     qv = torch.empty((n, lc), dtype=torch.int32, device=payload.device)
     if n == 0:
         return qy, qu, qv
+    s, stage = unpack_plan(ly, lc)
     rc = _lib().hq_unpack_launch(
         payload.data_ptr(), payload.numel(), dstart.data_ptr(),
         clen.data_ptr(), n, ly, lc, qy.data_ptr(), qu.data_ptr(),
-        qv.data_ptr(), torch.cuda.current_stream(payload.device).cuda_stream)
+        qv.data_ptr(), s, WINDOW_BYTES, int(stage),
+        torch.cuda.current_stream(payload.device).cuda_stream)
     if rc:
         raise RuntimeError(f"hq_unpack kernel launch failed: CUDA error {rc}")
     unpack_hq.launches += 1

@@ -1,17 +1,22 @@
 """Integer lifting wavelet transforms on the in-place interleaved layout.
 
 Port of ``vc2tpu.wavelet.lifting`` (the in-place route) and of its Pallas
-kernel ``vc2tpu.wavelet.pallas_lift.lift_level``. One transform level is
-``lift_level``: a CUDA kernel (``csrc/lift_level.cu``) for a CUDA tensor,
-its plain PyTorch version ``lift_level_plain`` for a CPU tensor. The
-reference's loops are at src/Library/src/WaveletTransform.cpp:478-1265.
+kernel ``vc2tpu.wavelet.pallas_lift.lift_level``. One transform level of
+one or more planes is ``lift_levels``: a CUDA kernel
+(``csrc/lift_level.cu``, one launch for all the planes) for CUDA tensors,
+the plain PyTorch version ``lift_level_plain`` for CPU tensors;
+``lift_level`` is its one-plane case. The reference's loops are at
+src/Library/src/WaveletTransform.cpp:478-1265.
 
 * every lifting pass updates one parity from clamped-shifted views of the
   other parity; source indices clamp to [0, n-1] in even/odd index space,
   which reproduces the reference's clamped taps (WaveletTransform.cpp:
   495-498, 936-943);
-* a level at stride ``s`` lifts the ``x[::s, ::s]`` sub-lattice: a strided
-  view copied to a contiguous plane, lifted, and written back;
+* a level at stride ``s`` lifts the ``x[::s, ::s]`` sub-lattice. On the
+  card the kernel reads it in place and writes a compact plane; the inverse
+  passes each level's compact result to the next finer level as an
+  overlay of that level's (even, even) samples, so no sub-lattice is copied
+  or scattered. On the CPU the sub-lattice is copied;
 * arithmetic is int32 with wrap-around and arithmetic shifts, as in C. The
   plain version forms it in int64 and wraps explicitly.
 """
@@ -130,25 +135,27 @@ def lift_level_plain(x: torch.Tensor, kernel: WaveletKernel,
     return v.to(torch.int32)
 
 
+def level_input(plane: torch.Tensor, stride: int = 1,
+                overlay: torch.Tensor | None = None) -> torch.Tensor:
+    """The plane one level lifts: ``plane[::stride, ::stride]``, with its
+    (even, even) samples taken from ``overlay`` (the coarser level's
+    compact result) when one is given. A contiguous copy."""
+    x = plane[::stride, ::stride]
+    if overlay is not None:
+        x = x.clone()
+        x[::2, ::2] = overlay
+    return x.contiguous()
+
+
+def lift_levels_plain(planes, kernel: WaveletKernel, invert: bool = False,
+                      stride: int = 1, overlays=None) -> list:
+    """Plain version of ``lift_levels``, on any device."""
+    overlays = overlays or [None] * len(planes)
+    return [lift_level_plain(level_input(p, stride, o), kernel, invert)
+            for p, o in zip(planes, overlays)]
+
+
 # --- the CUDA kernel ----------------------------------------------------------
-
-MAX_STEPS, MAX_TAPS = 4, 8
-
-
-class _LiftSteps(ctypes.Structure):
-    """Mirror of ``struct LiftSteps`` in csrc/lift_level.cu."""
-
-    _fields_ = [
-        ("n_steps", ctypes.c_int),
-        ("target", ctypes.c_int * MAX_STEPS),
-        ("sign", ctypes.c_int * MAX_STEPS),
-        ("n_taps", ctypes.c_int * MAX_STEPS),
-        ("off", (ctypes.c_int * MAX_TAPS) * MAX_STEPS),
-        ("coeff", (ctypes.c_int * MAX_TAPS) * MAX_STEPS),
-        ("add", ctypes.c_int * MAX_STEPS),
-        ("shift", ctypes.c_int * MAX_STEPS),
-    ]
-
 
 def true_reach(steps) -> int:
     """Exact interleaved contamination reach of one ladder (a port of
@@ -188,62 +195,217 @@ def halo(kernel: WaveletKernel) -> int:
     return reach + (reach & 1)
 
 
-@functools.lru_cache(maxsize=None)
-def _steps_struct(kernel: WaveletKernel, invert: bool) -> _LiftSteps:
-    s = _LiftSteps()
-    steps = ladder(kernel, invert)
-    s.n_steps = len(steps)
-    for k, (target, sign, taps, add, sh) in enumerate(steps):
-        s.target[k] = 1 if target == "o" else 0
-        s.sign[k] = sign
-        s.n_taps[k] = len(taps)
-        for t, (off, coeff) in enumerate(taps):
-            s.off[k][t] = off
-            s.coeff[k][t] = coeff
-        s.add[k] = add
-        s.shift[k] = sh
-    return s
+def col_halo(h: int) -> int:
+    """The column halo: ``h`` rounded up to a multiple of 4, so a region's
+    first column is 16-byte aligned wherever its tile's is."""
+    return (h + 3) & ~3
+
+
+# Regions (rows, columns of samples a CTA holds), largest first. A region
+# is 2^k (at least 64) columns wide: the kernel maps threads to it with
+# shifts, and each of its parity planes fills a warp's 32 lanes along a
+# row. A launch takes the largest region whose tiles still give every SM
+# of the H100 (132) three CTAs.
+REGIONS = ((64, 256), (64, 128), (32, 128), (32, 64))
+MIN_CTAS = 3 * 132
+MAX_PLANES = 3
+SMEM_LIMIT = 232448            # bytes of shared memory a CTA may opt into
+
+
+def tiles(hr: int) -> list:
+    """The output tiles (rows, columns) for halo ``hr``, largest first: each
+    region less its halos, leaving out a region whose halos would take more
+    than half of it."""
+    hc = col_halo(hr)
+    return [(rh - 2 * hr, rw - 2 * hc) for rh, rw in REGIONS
+            if 4 * hr <= rh and 4 * hc <= rw]
+
+
+def tile_shape(sizes, hr: int) -> tuple:
+    """The output tile of one launch over planes of the given (h, w) sizes
+    with halo ``hr``: the largest that gives MIN_CTAS tiles."""
+    options = tiles(hr)
+    for th, tw in options:
+        if sum(-(-h // th) * -(-w // tw) for h, w in sizes) >= MIN_CTAS:
+            return th, tw
+    return options[-1]
+
+
+def tile_region(ty0: int, tx0: int, th: int, tw: int, h: int, w: int,
+                hr: int) -> tuple:
+    """(r0, r1, c0, c1): the samples the CTA of the tile at (ty0, tx0)
+    loads, the tile plus ``hr`` rows and ``col_halo(hr)`` columns on every
+    side, clipped to the (h, w) plane."""
+    hc = col_halo(hr)
+    return (max(0, ty0 - hr), min(h, ty0 + th + hr),
+            max(0, tx0 - hc), min(w, tx0 + tw + hc))
+
+
+def smem_bytes(th: int, tw: int, hr: int) -> int:
+    """Shared memory of one CTA: the largest region, as four parity
+    planes of (rows / 2) x (columns / 2) words."""
+    return 4 * (th + 2 * hr) * (tw + 2 * col_halo(hr))
+
+
+def ladder_header() -> str:
+    """``lift_ladders.h`` for csrc/lift_level.cu: every wavelet's forward
+    and inverse ladder as compile-time types, generated from ``_STEPS``
+    (via ``ladder``) and ``TRANSFORM_SHIFT``, and the switch that picks
+    one by (wavelet, direction)."""
+    lines = ["// Generated from vc2tpu_torch.wavelet.lifting._STEPS and",
+             "// matrices.TRANSFORM_SHIFT by lifting.ladder_header().",
+             "// Ladder<invert, transform shift, Step...>;",
+             "// Step<target parity, sign, add, shift, offset, coeff, ...>.",
+             "#pragma once", ""]
+    cases = []
+    for kernel in WaveletKernel:
+        for invert in (False, True):
+            steps = []
+            for target, sign, taps, add, sh in ladder(kernel, invert):
+                args = [1 if target == "o" else 0, sign, add, sh]
+                args += [v for tap in taps for v in tap]
+                steps.append("Step<" + ", ".join(map(str, args)) + ">")
+            name = f"lift_{kernel.name}_{'inv' if invert else 'fwd'}"
+            head = [str(int(invert)), str(TRANSFORM_SHIFT[kernel])]
+            lines.append(f"using {name} = Ladder<"
+                         + ", ".join(head + steps) + ">;")
+            cases.append(f"    case {2 * int(kernel) + int(invert)}: "
+                         f"return f({name}{{}});")
+    lines += ["", "template <class F>",
+              "int with_ladder(int kernel, int invert, F&& f) {",
+              "  switch (2 * kernel + invert) {", *cases,
+              "    default: return (int)cudaErrorInvalidValue;", "  }", "}",
+              ""]
+    return "\n".join(lines)
+
+
+def kernel_source() -> build.Source:
+    return build.Source("lift_level", (("lift_ladders.h", ladder_header()),))
+
+
+class _LiftPlane(ctypes.Structure):
+    """Mirror of ``struct LiftPlane`` in csrc/lift_level.cu."""
+
+    _fields_ = [
+        ("src", ctypes.c_void_p),
+        ("overlay", ctypes.c_void_p),
+        ("dst", ctypes.c_void_p),
+        ("src_ld", ctypes.c_longlong),
+        ("src_step", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("tiles_x", ctypes.c_int),
+        ("tile0", ctypes.c_int),
+    ]
+
+
+class _LiftTable(ctypes.Structure):
+    """Mirror of ``struct LiftTable`` in csrc/lift_level.cu."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("n_tiles", ctypes.c_int),
+        ("th", ctypes.c_int),
+        ("tw", ctypes.c_int),
+        ("halo", ctypes.c_int),
+        ("p", _LiftPlane * MAX_PLANES),
+    ]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = build.load("lift_level")
+    lib = build.load(kernel_source())
     lib.lift_level_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(_LiftSteps), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(_LiftTable), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.lift_level_launch.restype = ctypes.c_int
     return lib
 
 
-def lift_level(x: torch.Tensor, kernel: WaveletKernel,
-               invert: bool = False) -> torch.Tensor:
-    """One 2-D lifting level of a contiguous int32 (h, w) plane (h, w even).
-    A CUDA tensor goes through the kernel of csrc/lift_level.cu; a CPU
-    tensor through lift_level_plain."""
-    if x.device.type == "cpu":
-        return lift_level_plain(x, kernel, invert)
-    if x.device.type != "cuda":
-        raise ValueError(f"lift_level: unsupported device {x.device}")
-    if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("lift_level: needs a contiguous 2-D int32 tensor, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    h, w = x.shape
-    if h < 2 or w < 2 or h % 2 or w % 2:
-        raise ValueError(f"lift_level: plane {h}x{w} is not even-sized")
-    out = torch.empty_like(x)
-    rc = _lib().lift_level_launch(
-        x.data_ptr(), out.data_ptr(), h, w,
-        ctypes.byref(_steps_struct(kernel, invert)), int(invert),
-        TRANSFORM_SHIFT[kernel], halo(kernel),
-        torch.cuda.current_stream(x.device).cuda_stream)
+def _check_level(planes, stride: int, overlays):
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"lift_levels: 1 to {MAX_PLANES} planes, "
+                         f"got {len(planes)}")
+    if stride < 1 or stride & (stride - 1):
+        raise ValueError(f"lift_levels: stride {stride} is not a power of 2")
+    for p, o in zip(planes, overlays):
+        if p.device != planes[0].device:
+            raise ValueError("lift_levels: planes on different devices")
+        if p.dtype != torch.int32 or p.dim() != 2 or not p.is_contiguous():
+            raise ValueError("lift_levels: needs contiguous 2-D int32 planes,"
+                             f" got {p.dtype} {tuple(p.shape)}")
+        H, W = p.shape
+        if H < 2 * stride or W < 2 * stride or H % (2 * stride) or \
+                W % (2 * stride):
+            raise ValueError(f"lift_levels: plane {H}x{W} at stride {stride}"
+                             " is not even-sized")
+        if o is not None and (
+                o.device != p.device or o.dtype != torch.int32
+                or not o.is_contiguous()
+                or tuple(o.shape) != (H // (2 * stride), W // (2 * stride))):
+            raise ValueError("lift_levels: the overlay must be a contiguous "
+                             "int32 plane of the level's (even, even) "
+                             "samples")
+
+
+def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
+                stride: int = 1, overlays=None) -> list:
+    """One 2-D lifting level of each plane's ``plane[::stride, ::stride]``
+    sub-lattice (planes: contiguous int32 (H, W), H and W multiples of
+    2 * stride), with the (even, even) samples of that sub-lattice taken
+    from ``overlays[i]`` where it is not None. Returns compact
+    (H / stride, W / stride) planes.
+
+    CUDA planes go through csrc/lift_level.cu, all in one launch, reading
+    the sub-lattice and the overlay in place; CPU planes through
+    ``lift_level`` (its plain route) on a copied sub-lattice."""
+    planes = list(planes)
+    overlays = list(overlays) if overlays else [None] * len(planes)
+    dev = planes[0].device if planes else None
+    if dev is not None and dev.type == "cpu":
+        return [lift_level(level_input(p, stride, o), kernel, invert)
+                for p, o in zip(planes, overlays)]
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"lift_levels: unsupported device {dev}")
+    _check_level(planes, stride, overlays)
+    sizes = [(p.shape[0] // stride, p.shape[1] // stride) for p in planes]
+    hr = halo(kernel)
+    th, tw = tile_shape(sizes, hr)
+    if smem_bytes(th, tw, hr) > SMEM_LIMIT:
+        raise ValueError(f"lift_levels: {kernel.name} tiles exceed shared "
+                         "memory")
+    table = _LiftTable(n=len(planes), th=th, tw=tw, halo=hr)
+    outs, tile0 = [], 0
+    for i, (p, o, (h, w)) in enumerate(zip(planes, overlays, sizes)):
+        out = torch.empty((h, w), dtype=torch.int32, device=dev)
+        outs.append(out)
+        tiles_x = -(-w // tw)
+        table.p[i] = _LiftPlane(
+            src=p.data_ptr(), overlay=o.data_ptr() if o is not None else None,
+            dst=out.data_ptr(), src_ld=stride * p.shape[1], src_step=stride,
+            h=h, w=w, tiles_x=tiles_x, tile0=tile0)
+        tile0 += tiles_x * -(-h // th)
+    table.n_tiles = tile0
+    rc = _lib().lift_level_launch(ctypes.byref(table), int(kernel),
+                                  int(invert),
+                                  torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"lift_level kernel launch failed: CUDA error {rc}")
-    lift_level.launches += 1
-    return out
+    lift_levels.launches += 1
+    return outs
 
 
-lift_level.launches = 0
+lift_levels.launches = 0
+
+
+def lift_level(x: torch.Tensor, kernel: WaveletKernel,
+               invert: bool = False) -> torch.Tensor:
+    """One 2-D lifting level of a contiguous int32 (h, w) plane (h, w even):
+    the one-plane case of ``lift_levels``. A CUDA tensor goes through the
+    kernel of csrc/lift_level.cu; a CPU tensor through lift_level_plain."""
+    if x.device.type == "cpu":
+        return lift_level_plain(x, kernel, invert)
+    return lift_levels([x], kernel, invert)[0]
 
 
 # --- whole-plane transforms ---------------------------------------------------
@@ -270,23 +432,28 @@ def forward_plane(plane: torch.Tensor, kernel: WaveletKernel,
         if s == 1:
             x = lift_level(x, kernel)
         else:
-            x[::s, ::s] = lift_level(x[::s, ::s].contiguous(), kernel)
+            x[::s, ::s] = lift_levels([x], kernel, stride=s)[0]
     return x
+
+
+def inverse_planes(transforms, kernel: WaveletKernel, depth: int) -> list:
+    """Inverse DWT of several planes at once, counterpart of reference
+    WaveletTransform.cpp:321-342: one ``lift_levels`` call a level, coarsest
+    first, each level's compact result the overlay of the next. On the card
+    that is one kernel launch a level for all the planes. Caller crops
+    padding; the inputs are not modified."""
+    xs = [t if t.dtype == torch.int32 and t.is_contiguous()
+          else t.to(torch.int32).contiguous() for t in transforms]
+    if depth == 0:
+        return xs
+    coarse = None
+    for level in range(depth - 1, -1, -1):
+        coarse = lift_levels(xs, kernel, True, stride=1 << level,
+                             overlays=coarse)
+    return coarse
 
 
 def inverse_plane(transform: torch.Tensor, kernel: WaveletKernel,
                   depth: int) -> torch.Tensor:
-    """Inverse DWT, counterpart of reference WaveletTransform.cpp:321-342.
-    The coarser levels update ``transform`` in place (it is the caller's
-    scratch plane; this saves a plane-sized copy). Caller crops padding."""
-    x = transform
-    if x.dtype != torch.int32 or not x.is_contiguous():
-        x = x.to(torch.int32).contiguous()
-    for level in range(depth - 1, -1, -1):
-        s = 1 << level
-        if s == 1:
-            x = lift_level(x, kernel, invert=True)
-        else:
-            x[::s, ::s] = lift_level(x[::s, ::s].contiguous(), kernel,
-                                     invert=True)
-    return x
+    """Inverse DWT of one plane (``inverse_planes`` of one)."""
+    return inverse_planes([transform], kernel, depth)[0]
