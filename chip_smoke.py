@@ -30,13 +30,11 @@ Phases (any failure exits non-zero, and the last line is then not printed):
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
-``ms`` is its device time alone: the card sleeps while the host queues the
-launches (``time_device(queued=True)``).
-
-    python3 chip_smoke.py --time-kernels-of DIR
-
-prints only the kernel times of the checkout at DIR (this checkout's API
-or the earlier one), to compare two checkouts on one card.
+``ms`` is one picture's launches timed with CUDA events as the host issues
+them, so it counts the wrapper's time to issue a launch where that is
+longer than the card's to run it; ``device_ms`` is the card's time alone:
+the card sleeps while the host queues the launches
+(``time_device(queued=True)``).
 """
 
 from __future__ import annotations
@@ -209,12 +207,9 @@ def pictures_of(stream: bytes, device):
 
 def kernel_times(torch, job, dev) -> dict:
     """Times of one 1080p picture's lift launches and unpack launch at the
-    main path's shapes: ``*_ms`` queued (the device's time alone),
-    ``*_host_ms`` as the host issues them (lift: one call each; unpack: 10
-    back to back), ``*_plain_ms`` of the plain versions. Works on this
-    checkout's API and on the earlier one (a lift launch for each plane and
-    level, on sub-lattices copied beforehand), so two checkouts can be
-    compared on one card."""
+    main path's shapes: ``*_ms`` as the host issues them (the lift's levels
+    once; the unpack 10 times back to back), ``*_device_ms`` queued (the
+    device's time alone), ``*_plain_ms`` of the plain versions."""
     from vc2tpu_torch.pipeline import decoder as pipe
     from vc2tpu_torch.vlc import device_unpack as du
     from vc2tpu_torch.wavelet import lifting, matrices
@@ -230,66 +225,33 @@ def kernel_times(torch, job, dev) -> dict:
     planes = pipe.dequantise_planes(lanes, fields[0],
                                     matrices.quant_matrix(kernel, depth),
                                     depth, geo)
-    if hasattr(lifting, "lift_levels"):
-        def lift_picture(fn):
-            def run():
-                coarse = None
-                for level in range(depth - 1, -1, -1):
-                    coarse = fn(planes, kernel, True, 1 << level, coarse)
-            return run
+    def lift_picture(fn):
+        def run():
+            coarse = None
+            for level in range(depth - 1, -1, -1):
+                coarse = fn(planes, kernel, True, 1 << level, coarse)
+        return run
 
-        lift = lift_picture(lifting.lift_levels)
-        lift_plain = lift_picture(lifting.lift_levels_plain)
-    else:
-        inputs = [p[::1 << lv, ::1 << lv].contiguous() for p in planes
-                  for lv in range(depth - 1, -1, -1)]
-
-        def lift():
-            return [lifting.lift_level(x, kernel, True) for x in inputs]
-
-        def lift_plain():
-            return [lifting.lift_level_plain(x, kernel, True) for x in inputs]
+    lift = lift_picture(lifting.lift_levels)
 
     def unpack():
         return du.unpack_hq(pay, dstart, clen, ly, lc)
 
     return {
-        "lift_ms": time_device(torch, lift, KERNEL_INNER, queued=True),
-        "lift_host_ms": time_device(torch, lift),
-        "lift_plain_ms": time_device(torch, lift_plain),
-        "unpack_ms": time_device(torch, unpack, KERNEL_INNER, queued=True),
-        "unpack_host_ms": time_device(torch, unpack, 10),
+        "lift_ms": time_device(torch, lift),
+        "lift_device_ms": time_device(torch, lift, KERNEL_INNER, queued=True),
+        "lift_plain_ms": time_device(
+            torch, lift_picture(lifting.lift_levels_plain)),
+        "unpack_ms": time_device(torch, unpack, 10),
+        "unpack_device_ms": time_device(torch, unpack, KERNEL_INNER,
+                                        queued=True),
         "unpack_plain_ms": time_device(
             torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly, lc)),
         "plane_samples": [p.numel() for p in planes],
     }
 
 
-def time_kernels_of(path: str) -> int:
-    """``--time-kernels-of DIR``: kernel_times of the checkout at DIR (its
-    vc2tpu_torch and 1080p ConstQ fixture) as one JSON line."""
-    path = os.path.abspath(path)
-    sys.path.insert(0, path)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    from vc2tpu_torch.wavelet import lifting
-
-    check(os.path.abspath(lifting.__file__).startswith(path + os.sep),
-          f"vc2tpu_torch was not imported from {path}")
-    with open(os.path.join(path, "vc2tpu_torch", "testdata",
-                           "constq_1080p.vc2"), "rb") as f:
-        _dec, _pos, job = pictures_of(f.read(), torch.device("cuda"))[0]
-    times = kernel_times(torch, job, torch.device("cuda"))
-    print(json.dumps({"checkout": path, "card": card_line(), **times}))
-    return 0
-
-
 def main(argv) -> int:
-    if argv[:1] == ["--time-kernels-of"] and len(argv) == 2:
-        return time_kernels_of(argv[1])
     if argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -318,7 +280,7 @@ def main(argv) -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    libs = build.build(lifting.kernel_source(), "hq_unpack")
+    libs = build.build(lifting.kernel_source(), du.kernel_source())
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
 
@@ -413,19 +375,24 @@ def main(argv) -> int:
     unpack_err = 0
     n_staged = n_global = n_direct = 0
     for key, pay, dstart, clen, ly, lc in unpack_cases:
-        got = du.unpack_hq(pay, dstart, clen, ly, lc)
+        s, lanes_staged = du.unpack_plan(ly, lc)
+        # each CTA's branch, as the kernel reports it (1: window staged)
+        staged = torch.full((-(-dstart.shape[1] // s),), 2,
+                            dtype=torch.uint8, device=dev)
+        got = du.unpack_hq(pay, dstart, clen, ly, lc, staged=staged)
         want = du.unpack_hq_plain(pay, dstart, clen, ly, lc)
         torch.cuda.synchronize()
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
         check(err == 0, f"unpack_hq {key}: max |err| {err}")
+        check(int(staged.max().item()) <= 1,
+              f"unpack_hq {key}: a CTA left its branch flag unset")
         unpack_err = max(unpack_err, err)
-        s, lanes_staged = du.unpack_plan(ly, lc)
-        staged = du.cta_windows(dstart, clen, s)[2]
-        n_staged += int(staged.sum().item())
-        n_global += int((~staged).sum().item())
+        k_staged = int(staged.sum().item())
+        n_staged += k_staged
+        n_global += staged.numel() - k_staged
         n_direct += not lanes_staged
         print(f"  unpack {key}: {staged.numel()} CTAs, "
-              f"{int((~staged).sum().item())} peek from device memory, "
+              f"{staged.numel() - k_staged} peek from device memory, "
               f"lanes staged in shared memory: {lanes_staged}")
     check(n_staged > 0 and n_global > 0 and n_direct > 0,
           "the unpack cases miss the staged or the device-memory branch")
@@ -546,12 +513,10 @@ def main(argv) -> int:
 
     times = kernel_times(torch, job, dev)
     stages[f"device: of which the lift launches ({depth}, host-issued)"] = (
-        times["lift_host_ms"])
+        times["lift_ms"])
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
-    lift_ms, lift_plain_ms = times["lift_ms"], times["lift_plain_ms"]
-    unpack_ms, unpack_plain_ms = times["unpack_ms"], times["unpack_plain_ms"]
 
     # kernel table: time, plain time, bound
     # each level's samples read once and written once
@@ -581,19 +546,22 @@ def main(argv) -> int:
          "source": "vc2tpu_torch/csrc/lift_level.cu",
          "replaces": "vc2tpu/wavelet/pallas_lift.py:235",
          "launches": launches["lift_level"], "max_abs_err": lift_err,
-         "ms": lift_ms, "plain_ms": lift_plain_ms, "bound_ms": lift_bound,
+         "ms": times["lift_ms"], "device_ms": times["lift_device_ms"],
+         "plain_ms": times["lift_plain_ms"], "bound_ms": lift_bound,
          "bound_by": lift_by, "library_ms": None},
         {"name": "hq_unpack", "route": "cuda",
          "source": "vc2tpu_torch/csrc/hq_unpack.cu",
          "replaces": "vc2tpu/vlc/device_unpack.py:107",
          "launches": launches["hq_unpack"], "max_abs_err": unpack_err,
-         "ms": unpack_ms, "plain_ms": unpack_plain_ms,
+         "ms": times["unpack_ms"], "device_ms": times["unpack_device_ms"],
+         "plain_ms": times["unpack_plain_ms"],
          "bound_ms": unpack_bound, "bound_by": unpack_by,
          "library_ms": None},
     ]
     for k in kernels:
-        print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture, "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
+        print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture "
+              f"(device alone {k['device_ms']:.4f} ms), bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, launches {k['launches']} ({card})")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

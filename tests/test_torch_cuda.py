@@ -154,14 +154,16 @@ def test_unpack_kernel_matches_plain(case, cuda):
     args = (torch.from_numpy(payload).to(cuda),
             torch.from_numpy(starts.astype(np.int32)).to(cuda),
             torch.from_numpy(lens.astype(np.int32)).to(cuda), lanes, lanes)
-    got = du.unpack_hq(*args)
+    s, lanes_staged = du.unpack_plan(lanes, lanes)
+    staged = torch.full((-(-starts.shape[1] // s),), 2, dtype=torch.uint8,
+                        device=cuda)
+    got = du.unpack_hq(*args, staged=staged)
     want = du.unpack_hq_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    s, lanes_staged = du.unpack_plan(lanes, lanes)
     assert lanes_staged == (case != "wide_lanes")
-    staged = du.cta_windows(args[1], args[2], s)[2]
+    assert int(staged.max()) <= 1           # every CTA set its flag
     assert bool(staged.all()) == (case != "random_bytes")
 
 

@@ -82,7 +82,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("case", ["sources", "generated_header"])
 def test_libraries_are_keyed_by_source_hash(case):
     if case == "sources":
-        srcs = [lifting.kernel_source(), "hq_unpack"]
+        srcs = [lifting.kernel_source(), build.Source("hq_unpack")]
     else:
         # the same .cu with a changed generated ladder header
         src = lifting.kernel_source()

@@ -23,6 +23,7 @@ from vc2tpu_torch.wavelet import lifting as tl
 
 KERNELS = [k for k in JK if k != JK.NullKernel]
 IDS = [k.name for k in KERNELS]
+H100_SMS = 132
 
 
 # one compile per (shape, kernel, depth) instead of one per eager op
@@ -156,7 +157,8 @@ def test_kernel_tiling_halo_is_exact(kernel):
         assert th % 2 == 0 and tw % 8 == 0
         assert tl.smem_bytes(th, tw, hr) <= tl.SMEM_LIMIT
     sizes = [(1080, 1920), (1080, 960), (1080, 960)]
-    assert tl.smem_bytes(*tl.tile_shape(sizes, hr), hr) <= tl.SMEM_LIMIT
+    th_tw = tl.tile_shape(sizes, hr, tl.CTAS_PER_SM * H100_SMS)
+    assert tl.smem_bytes(*th_tw, hr) <= tl.SMEM_LIMIT
     for i, shape in enumerate([(2, 2), (66, 130), (100, 194), (34, 66)]):
         x = torch.from_numpy(_rand(shape, 20 + i))
         for th, tw in tl.tiles(hr):
@@ -183,7 +185,7 @@ def test_kernel_levels_without_copies_are_exact(kernel):
         for level in range(depth - 1, -1, -1):
             s = 1 << level
             sizes = [(p.shape[0] // s, p.shape[1] // s) for p in planes]
-            th, tw = tl.tile_shape(sizes, hr)
+            th, tw = tl.tile_shape(sizes, hr, tl.CTAS_PER_SM * H100_SMS)
             level_want = tl.lift_levels_plain(planes, kernel, True, s, coarse)
             coarse = [_kernel_model(p, kernel, True, s, o, th, tw)
                       for p, o in zip(planes, coarse or [None, None])]

@@ -238,11 +238,35 @@ def test_unpack_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError):
         tdu.unpack_hq(pay.to("meta"), torch.zeros((3, 2), dtype=torch.int32),
                       torch.zeros((3, 2), dtype=torch.int32), 4, 4)
+    with pytest.raises(ValueError):       # CTA flags need the kernel
+        tdu.unpack_hq(pay, torch.zeros((3, 2), dtype=torch.int32),
+                      torch.zeros((3, 2), dtype=torch.int32), 4, 4,
+                      staged=torch.zeros(1, dtype=torch.uint8))
+
+
+def _cta_windows(dstart, clen, s):
+    """The kernel's byte window of every CTA of slices [c * s, (c + 1) * s):
+    the 16-byte-aligned start of its non-empty regions, the bytes it stages
+    (to 16 past the aligned end, for the peeks' look-ahead) and whether they
+    fit WINDOW_BYTES (else its peeks read device memory). Returns (lo16,
+    span, staged), int64/bool [ceil(N / s)]."""
+    n = dstart.shape[1]
+    pad = -n % s
+    lo = torch.nn.functional.pad(dstart.to(torch.int64), (0, pad))
+    ln = torch.nn.functional.pad(clen.to(torch.int64), (0, pad))
+    hi = lo + ln
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(ln > 0, lo, big).reshape(3, -1, s).amin(dim=(0, 2))
+    hi = torch.where(ln > 0, hi, -1).reshape(3, -1, s).amax(dim=(0, 2))
+    empty = hi < 0
+    lo16 = torch.where(empty, 0, lo & ~15)
+    span = torch.where(empty, 0, ((hi + 15) & ~15) + 16 - lo16)
+    return lo16, span, span <= tdu.WINDOW_BYTES
 
 
 def _kernel_model(payload, dstart, clen, ly, lc):
     """csrc/hq_unpack.cu on the CPU: each CTA's regions are decoded from
-    peeks of its staged window (``cta_windows``: big-endian words of the
+    peeks of its staged window (``_cta_windows``: big-endian words of the
     bytes it spans, 0xFF past the payload end) or, for a CTA whose window
     is over the budget, of the whole payload with the same rule; every
     staged peek is also checked against the whole-payload peek. The
@@ -253,7 +277,7 @@ def _kernel_model(payload, dstart, clen, ly, lc):
     nbytes = len(pl)
     n = dstart.shape[1]
     s, _stage = tdu.unpack_plan(ly, lc)
-    lo16, span, staged = tdu.cta_windows(dstart, clen, s)
+    lo16, span, staged = _cta_windows(dstart, clen, s)
 
     def global_word(k):
         return int.from_bytes(bytes(int(pl[b]) if b < nbytes else 0xFF

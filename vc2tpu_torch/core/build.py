@@ -49,12 +49,7 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def _as_source(src) -> Source:
-    return src if isinstance(src, Source) else Source(src)
-
-
-def library_path(src) -> str:
-    src = _as_source(src)
+def library_path(src: Source) -> str:
     with open(os.path.join(CSRC, f"{src.name}.cu"), "rb") as f:
         h = hashlib.sha256(f.read())
     for fname, text in src.headers:
@@ -82,11 +77,10 @@ def _start(src: Source):
     return out, (proc, tmp, gen)
 
 
-def build(*sources) -> list[str]:
-    """Build the named kernels (names or ``Source``s), all nvcc processes
-    running at once. Returns the library paths; raises RuntimeError on a
-    failed build."""
-    started = [(src, *_start(src)) for src in map(_as_source, sources)]
+def build(*sources: Source) -> list[str]:
+    """Build the kernels, all nvcc processes running at once. Returns the
+    library paths; raises RuntimeError on a failed build."""
+    started = [(src, *_start(src)) for src in sources]
     errors = []
     for src, out, job in started:
         if job is None:
@@ -105,9 +99,8 @@ def build(*sources) -> list[str]:
     return [out for _src, out, _job in started]
 
 
-def load(src) -> ctypes.CDLL:
-    """The library of kernel ``src`` (a name or a ``Source``), built first
-    if it is missing. The wrappers call this once (they cache the
-    configured library)."""
+def load(src: Source) -> ctypes.CDLL:
+    """The library of kernel ``src``, built first if it is missing. The
+    wrappers call this once (they cache the configured library)."""
     (path,) = build(src)
     return ctypes.CDLL(path)

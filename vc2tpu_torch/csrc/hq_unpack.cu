@@ -28,7 +28,8 @@
 //   A 64-bit peek is then three aligned words and two __funnelshift_l. A
 //   window over WINDOW_BYTES (regions far apart, which the contract
 //   allows) is not staged: that CTA's peeks read the same words from
-//   device memory, with the same 0xFF rule.
+//   device memory, with the same 0xFF rule. Where the caller passes a
+//   flag array, each CTA writes there which of the two it took.
 // - One peek serves every code that ends inside its 64 bits, and a run
 //   of zero codes (single 1 bits, most of a picture's coefficients) is
 //   counted with one __clzll and stores nothing: the lane tile was zeroed.
@@ -198,7 +199,7 @@ hq_unpack_kernel(const uint8_t* __restrict__ payload, long long nbytes,
                  const int32_t* __restrict__ clen, int n, int ly, int lc,
                  int32_t* __restrict__ qy, int32_t* __restrict__ qu,
                  int32_t* __restrict__ qv, int s, int win_bytes,
-                 int stage) {
+                 int stage, uint8_t* __restrict__ staged_flags) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ long long s_lo, s_hi;
   uint32_t* win = smem;
@@ -244,6 +245,7 @@ hq_unpack_kernel(const uint8_t* __restrict__ payload, long long nbytes,
   const long long lo16 = any ? (s_lo & ~15ll) : 0;
   const long long span = any ? ((s_hi + 15) & ~15ll) + 16 - lo16 : 0;
   const bool staged = span <= win_bytes;
+  if (staged_flags != nullptr && t == 0) staged_flags[blockIdx.x] = staged;
   if (staged) {
     for (int c = t; c < (int)(span >> 4); c += blockDim.x) {
       const long long b = lo16 + 16ll * c;
@@ -290,7 +292,7 @@ extern "C" int hq_unpack_launch(const void* payload, long long nbytes,
                                 const void* dstart, const void* clen, int n,
                                 int ly, int lc, void* qy, void* qu, void* qv,
                                 int s, int win_bytes, int stage,
-                                void* stream) {
+                                void* staged_flags, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (s < 1 || s > MAX_SLICES || win_bytes < 0 || (win_bytes & 15) ||
       ((uintptr_t)payload & 15))
@@ -308,6 +310,6 @@ extern "C" int hq_unpack_launch(const void* payload, long long nbytes,
   hq_unpack_kernel<<<(n + s - 1) / s, threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)payload, nbytes, (const int32_t*)dstart,
       (const int32_t*)clen, n, ly, lc, (int32_t*)qy, (int32_t*)qu,
-      (int32_t*)qv, s, win_bytes, stage);
+      (int32_t*)qv, s, win_bytes, stage, (uint8_t*)staged_flags);
   return (int)cudaGetLastError();
 }

@@ -109,9 +109,8 @@ def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
 # WINDOW_BYTES window of shared memory when they fit, and its lanes in a
 # tile of rows of an odd pitch (so a warp's stores of one lane index fall
 # in 32 different banks) when the tile fits LANE_TILE_BYTES; else it writes
-# lanes straight to device memory from DIRECT_SLICES slices a CTA.
+# lanes straight to device memory.
 SLICES_PER_CTA = 32
-DIRECT_SLICES = 32
 WINDOW_BYTES = 8192
 LANE_TILE_BYTES = 98304
 
@@ -121,52 +120,44 @@ def unpack_plan(ly: int, lc: int) -> tuple:
     counts."""
     row = 4 * ((ly | 1) + 2 * (lc | 1))
     s = min(SLICES_PER_CTA, LANE_TILE_BYTES // row)
-    return (s, True) if s >= 1 else (DIRECT_SLICES, False)
+    return (s, True) if s >= 1 else (SLICES_PER_CTA, False)
 
 
-def cta_windows(dstart: torch.Tensor, clen: torch.Tensor, s: int):
-    """The byte window of every CTA of slices [c * s, (c + 1) * s): the
-    16-byte-aligned start of its non-empty regions, the bytes it stages
-    (to 16 past the aligned end, for the peeks' look-ahead) and whether
-    they fit WINDOW_BYTES (else its peeks read device memory). Returns
-    (lo16, span, staged), int64/bool [ceil(N / s)]."""
-    n = dstart.shape[1]
-    pad = -n % s
-    lo = torch.nn.functional.pad(dstart.to(torch.int64), (0, pad))
-    ln = torch.nn.functional.pad(clen.to(torch.int64), (0, pad))
-    hi = lo + ln
-    big = torch.iinfo(torch.int64).max
-    lo = torch.where(ln > 0, lo, big).reshape(3, -1, s).amin(dim=(0, 2))
-    hi = torch.where(ln > 0, hi, -1).reshape(3, -1, s).amax(dim=(0, 2))
-    empty = hi < 0
-    lo16 = torch.where(empty, 0, lo & ~15)
-    span = torch.where(empty, 0, ((hi + 15) & ~15) + 16 - lo16)
-    return lo16, span, span <= WINDOW_BYTES
+def kernel_source() -> build.Source:
+    return build.Source("hq_unpack")
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = build.load("hq_unpack")
+    lib = build.load(kernel_source())
     lib.hq_unpack_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.hq_unpack_launch.restype = ctypes.c_int
     return lib
 
 
 def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
-              clen: torch.Tensor, ly: int, lc: int):
+              clen: torch.Tensor, ly: int, lc: int,
+              staged: torch.Tensor | None = None):
     """Decode every slice component of an HQ picture.
 
     payload: uint8 [P] (the bytes the offsets index).
     dstart: int32 [3, N] absolute byte offset of each component's region.
     clen: int32 [3, N] region length in bytes (the bound).
+    staged: None, or (CUDA only) a uint8 tensor of one byte a CTA
+    (ceil(N / s), s from ``unpack_plan``) that the kernel sets to 1 where
+    the CTA staged its payload window in shared memory, 0 where its peeks
+    read device memory.
     Returns (qy [N, ly], qu [N, lc], qv [N, lc]) int32 in lane order. A CUDA
     payload goes through the kernel of csrc/hq_unpack.cu; a CPU payload
     through unpack_hq_plain."""
     if payload.device.type == "cpu":
+        if staged is not None:
+            raise ValueError("unpack_hq: staged flags come from the CUDA "
+                             "kernel only")
         return unpack_hq_plain(payload, dstart, clen, ly, lc)
     if payload.device.type != "cuda":
         raise ValueError(f"unpack_hq: unsupported device {payload.device}")
@@ -183,10 +174,16 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
     if n == 0:
         return qy, qu, qv
     s, stage = unpack_plan(ly, lc)
+    if staged is not None and (
+            staged.device != payload.device or staged.dtype != torch.uint8
+            or not staged.is_contiguous() or staged.numel() != -(-n // s)):
+        raise ValueError("unpack_hq: staged must be a contiguous uint8 "
+                         f"tensor of {-(-n // s)} CTAs on {payload.device}")
     rc = _lib().hq_unpack_launch(
         payload.data_ptr(), payload.numel(), dstart.data_ptr(),
         clen.data_ptr(), n, ly, lc, qy.data_ptr(), qu.data_ptr(),
         qv.data_ptr(), s, WINDOW_BYTES, int(stage),
+        staged.data_ptr() if staged is not None else None,
         torch.cuda.current_stream(payload.device).cuda_stream)
     if rc:
         raise RuntimeError(f"hq_unpack kernel launch failed: CUDA error {rc}")

@@ -205,9 +205,9 @@ def col_halo(h: int) -> int:
 # is 2^k (at least 64) columns wide: the kernel maps threads to it with
 # shifts, and each of its parity planes fills a warp's 32 lanes along a
 # row. A launch takes the largest region whose tiles still give every SM
-# of the H100 (132) three CTAs.
+# of the card CTAS_PER_SM CTAs.
 REGIONS = ((64, 256), (64, 128), (32, 128), (32, 64))
-MIN_CTAS = 3 * 132
+CTAS_PER_SM = 3
 MAX_PLANES = 3
 SMEM_LIMIT = 232448            # bytes of shared memory a CTA may opt into
 
@@ -221,12 +221,12 @@ def tiles(hr: int) -> list:
             if 4 * hr <= rh and 4 * hc <= rw]
 
 
-def tile_shape(sizes, hr: int) -> tuple:
+def tile_shape(sizes, hr: int, min_ctas: int) -> tuple:
     """The output tile of one launch over planes of the given (h, w) sizes
-    with halo ``hr``: the largest that gives MIN_CTAS tiles."""
+    with halo ``hr``: the largest that gives ``min_ctas`` tiles."""
     options = tiles(hr)
     for th, tw in options:
-        if sum(-(-h // th) * -(-w // tw) for h, w in sizes) >= MIN_CTAS:
+        if sum(-(-h // th) * -(-w // tw) for h, w in sizes) >= min_ctas:
             return th, tw
     return options[-1]
 
@@ -322,30 +322,44 @@ def _lib():
     return lib
 
 
-def _check_level(planes, stride: int, overlays):
-    if not 1 <= len(planes) <= MAX_PLANES:
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(shapes: tuple, stride: int, kernel: int, sms: int) -> tuple:
+    """(plane table with its pointers 0, as bytes; the level's (h, w)
+    sizes) of one launch over planes of the given (H, W) shapes at
+    ``stride`` on a card of ``sms`` SMs. Raises ValueError where the kernel
+    cannot take them. Cached: the decoder asks for the same few plans every
+    picture."""
+    if not 1 <= len(shapes) <= MAX_PLANES:
         raise ValueError(f"lift_levels: 1 to {MAX_PLANES} planes, "
-                         f"got {len(planes)}")
+                         f"got {len(shapes)}")
     if stride < 1 or stride & (stride - 1):
         raise ValueError(f"lift_levels: stride {stride} is not a power of 2")
-    for p, o in zip(planes, overlays):
-        if p.device != planes[0].device:
-            raise ValueError("lift_levels: planes on different devices")
-        if p.dtype != torch.int32 or p.dim() != 2 or not p.is_contiguous():
-            raise ValueError("lift_levels: needs contiguous 2-D int32 planes,"
-                             f" got {p.dtype} {tuple(p.shape)}")
-        H, W = p.shape
-        if H < 2 * stride or W < 2 * stride or H % (2 * stride) or \
-                W % (2 * stride):
-            raise ValueError(f"lift_levels: plane {H}x{W} at stride {stride}"
-                             " is not even-sized")
-        if o is not None and (
-                o.device != p.device or o.dtype != torch.int32
-                or not o.is_contiguous()
-                or tuple(o.shape) != (H // (2 * stride), W // (2 * stride))):
-            raise ValueError("lift_levels: the overlay must be a contiguous "
-                             "int32 plane of the level's (even, even) "
-                             "samples")
+    for shape in shapes:
+        if len(shape) != 2 or shape[0] < 2 * stride or shape[1] < 2 * stride \
+                or shape[0] % (2 * stride) or shape[1] % (2 * stride):
+            raise ValueError(f"lift_levels: plane {tuple(shape)} at stride "
+                             f"{stride} is not 2-D and even-sized")
+    sizes = tuple((H // stride, W // stride) for H, W in shapes)
+    kernel = WaveletKernel(kernel)
+    hr = halo(kernel)
+    th, tw = tile_shape(sizes, hr, CTAS_PER_SM * sms)
+    if smem_bytes(th, tw, hr) > SMEM_LIMIT:
+        raise ValueError(f"lift_levels: {kernel.name} tiles exceed shared "
+                         "memory")
+    table = _LiftTable(n=len(shapes), th=th, tw=tw, halo=hr)
+    tile0 = 0
+    for i, ((H, W), (h, w)) in enumerate(zip(shapes, sizes)):
+        tiles_x = -(-w // tw)
+        table.p[i] = _LiftPlane(src_ld=stride * W, src_step=stride, h=h, w=w,
+                                tiles_x=tiles_x, tile0=tile0)
+        tile0 += tiles_x * -(-h // th)
+    table.n_tiles = tile0
+    return bytes(table), sizes
 
 
 def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
@@ -359,35 +373,34 @@ def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
     CUDA planes go through csrc/lift_level.cu, all in one launch, reading
     the sub-lattice and the overlay in place; CPU planes through
     ``lift_level`` (its plain route) on a copied sub-lattice."""
-    planes = list(planes)
-    overlays = list(overlays) if overlays else [None] * len(planes)
-    dev = planes[0].device if planes else None
+    overlays = overlays or [None] * len(planes)
+    dev = planes[0].device if len(planes) else None
     if dev is not None and dev.type == "cpu":
         return [lift_level(level_input(p, stride, o), kernel, invert)
                 for p, o in zip(planes, overlays)]
     if dev is None or dev.type != "cuda":
         raise ValueError(f"lift_levels: unsupported device {dev}")
-    _check_level(planes, stride, overlays)
-    sizes = [(p.shape[0] // stride, p.shape[1] // stride) for p in planes]
-    hr = halo(kernel)
-    th, tw = tile_shape(sizes, hr)
-    if smem_bytes(th, tw, hr) > SMEM_LIMIT:
-        raise ValueError(f"lift_levels: {kernel.name} tiles exceed shared "
-                         "memory")
-    table = _LiftTable(n=len(planes), th=th, tw=tw, halo=hr)
-    outs, tile0 = [], 0
-    for i, (p, o, (h, w)) in enumerate(zip(planes, overlays, sizes)):
+    index, kernel = dev.index, int(kernel)
+    template, sizes = _plan(tuple([p.shape for p in planes]), stride, kernel,
+                            _sm_count(index))
+    table = _LiftTable.from_buffer_copy(template)
+    outs = []
+    for entry, p, o, (h, w) in zip(table.p, planes, overlays, sizes):
+        if p.get_device() != index or p.dtype != torch.int32 or \
+                not p.is_contiguous():
+            raise ValueError("lift_levels: needs contiguous int32 planes on "
+                             f"one device, got {p.dtype} on {p.device}")
+        if o is not None:
+            if o.get_device() != index or o.dtype != torch.int32 or \
+                    not o.is_contiguous() or o.shape != (h // 2, w // 2):
+                raise ValueError("lift_levels: the overlay must be a "
+                                 "contiguous int32 plane of the level's "
+                                 "(even, even) samples")
+            entry.overlay = o.data_ptr()
         out = torch.empty((h, w), dtype=torch.int32, device=dev)
+        entry.src, entry.dst = p.data_ptr(), out.data_ptr()
         outs.append(out)
-        tiles_x = -(-w // tw)
-        table.p[i] = _LiftPlane(
-            src=p.data_ptr(), overlay=o.data_ptr() if o is not None else None,
-            dst=out.data_ptr(), src_ld=stride * p.shape[1], src_step=stride,
-            h=h, w=w, tiles_x=tiles_x, tile0=tile0)
-        tile0 += tiles_x * -(-h // th)
-    table.n_tiles = tile0
-    rc = _lib().lift_level_launch(ctypes.byref(table), int(kernel),
-                                  int(invert),
+    rc = _lib().lift_level_launch(ctypes.byref(table), kernel, int(invert),
                                   torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"lift_level kernel launch failed: CUDA error {rc}")
