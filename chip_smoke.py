@@ -5,36 +5,49 @@
 
 Phases (any failure exits non-zero, and the last line is then not printed):
 
-1. build both CUDA kernels from ``vc2tpu_torch/csrc`` with nvcc (timed);
+1. build the three CUDA kernels and the host chain scan from
+   ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at once;
+   timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
    wavelets forward and inverse: one plane at the 1080p planes and
    sub-lattices, a shape that is not a tile multiple and tiny planes; the
    three 1080p 4:2:2 planes in one launch, read in place from their
    stride-2 sub-lattices and at stride 1 under a compact overlay, as the
-   inverse runs them; and narrow planes at strides 2 and 4 whose widths
-   take the 4-byte paths (integer ==);
+   inverse runs them; narrow planes at strides 2 and 4 whose widths take
+   the 4-byte paths; and ``forward_planes`` of three 1080p 4:2:2 planes
+   against the same on the CPU (integer ==);
 3. hold the unpack kernel against its plain version on the 1080p fixtures'
    payloads (every CTA's byte window staged in shared memory), on a
    fixture payload cut short (regions past the payload end), on a seeded
    random-bytes payload whose CTAs span more than a window (peeks from
    device memory) and on lanes too many for the shared tile (integer ==);
-4. the main path: reset the launch counters, decode the committed 1080p
-   HQ fixtures (``vc2tpu_torch/testdata``) with ``Decoder()`` and check each
-   output's SHA-256 against the JAX package's decode, and the counters
-   (lift: 2 launches a picture, one a level for the three planes; unpack:
-   1); then decode every non-fragmented HQ golden of ``tests/golden``
-   byte-identically;
-5. times on the card: end-to-end frames/s, the per-stage breakdown of one
-   1080p picture, and each kernel's time beside its bound and its plain
+   the native chain scan against the Python loop on both fixtures;
+4. hold the pack kernel against its plain version (bytes, totals and
+   flags equal) on the 1080p ConstQ quantised lanes, seeded random lanes
+   with codes longer than 32 bits, all-zero slices, prefix 3 / scalar 2, a
+   CBR fill, slices larger than the kernel's window, and a case for each
+   flag; ``quant`` on the card against ``quant`` on the CPU;
+5. the main paths, each with the launch counters zeroed just before it and
+   read just after: decode the committed 1080p HQ fixtures
+   (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
+   package's decode; lift 2 launches a picture, unpack 1); encode the
+   1080p ConstQ input (``make_1080p.make_input``) with the encode CLI
+   (bytes equal to ``constq_1080p.vc2``, its decode at the recorded
+   SHA-256; lift 2, pack 2); then every non-fragmented HQ golden of
+   ``tests/golden`` decodes, and every ConstQ golden and ConstQ tap
+   encodes, byte-identically;
+6. times on the card: end-to-end decode and encode frames/s, the
+   per-stage breakdown of one 1080p picture each way, the device's idle
+   share, and each kernel's time beside its bound and its plain
    version's time.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
 ``ms`` is one picture's launches timed with CUDA events as the host issues
-them, so it counts the wrapper's time to issue a launch where that is
-longer than the card's to run it; ``device_ms`` is the card's time alone:
-the card sleeps while the host queues the launches
-(``time_device(queued=True)``).
+them (the pack's two launches with the synchronisation between them), so
+it counts the wrapper's time to issue a launch where that is longer than
+the card's to run it; ``device_ms`` is the card's time alone: the card
+sleeps while the host queues the launches (``time_device(queued=True)``).
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -104,7 +118,7 @@ def time_device(torch, fn, inner: int = 1, reps: int = REPS,
     the card waits for the host to issue the work. With ``queued`` the card
     first sleeps (twice the host's time to issue the calls, plus 1 ms)
     while the host issues them, so the events time the device's work
-    alone."""
+    alone; ``fn`` must then not synchronise."""
     fn()
     torch.cuda.synchronize()
     cycles = 0
@@ -175,6 +189,28 @@ def device_busy(torch, fn):
     return busy / 1e3, wall, by_name
 
 
+def report_busy(torch, label: str, fn, card: str):
+    prof = device_busy(torch, fn)
+    if prof is None:
+        print(f"device busy {label}: not measured (the profiler trace "
+              "holds no device events)")
+        return
+    busy, wall, by_name = prof
+    print(f"device busy {label}: {busy:.3f} ms of a {wall:.3f} ms "
+          f"profiled run, idle share {1 - busy / wall:.3f} ({card})")
+    for nm, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  device time {nm[:70]}: {t:.4f} ms")
+
+
+def report_rate(label: str, fn, card: str) -> float:
+    ts = sorted(host_samples(fn, E2E_REPS))
+    ms, p75 = statistics.median(ts), ts[int(0.75 * len(ts)) - 1]
+    print(f"end to end {label}: median {ms:.3f} ms/picture = "
+          f"{1e3 / ms:.2f} fps, p75 {p75:.3f} ms, min {ts[0]:.3f}, "
+          f"max {ts[-1]:.3f} ({len(ts)} runs after a warm-up; {card})")
+    return ms
+
+
 def max_err(torch, a, b) -> int:
     if a.numel() == 0:
         return 0
@@ -205,87 +241,33 @@ def pictures_of(stream: bytes, device):
     return out
 
 
-def kernel_times(torch, job, dev) -> dict:
-    """Times of one 1080p picture's lift launches and unpack launch at the
-    main path's shapes: ``*_ms`` as the host issues them (the lift's levels
-    once; the unpack 10 times back to back), ``*_device_ms`` queued (the
-    device's time alone), ``*_plain_ms`` of the plain versions."""
-    from vc2tpu_torch.pipeline import decoder as pipe
-    from vc2tpu_torch.vlc import device_unpack as du
-    from vc2tpu_torch.wavelet import lifting, matrices
-
-    pre, geo = job.pre, job.geo
-    kernel, depth = pre.wavelet_kernel, pre.depth
-    ly = geo.luma_slice[0] * geo.luma_slice[1]
-    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
-    clen = fields[1:].contiguous()
-    dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
-    lanes = du.unpack_hq(pay, dstart, clen, ly, lc)
-    planes = pipe.dequantise_planes(lanes, fields[0],
-                                    matrices.quant_matrix(kernel, depth),
-                                    depth, geo)
-    def lift_picture(fn):
-        def run():
-            coarse = None
-            for level in range(depth - 1, -1, -1):
-                coarse = fn(planes, kernel, True, 1 << level, coarse)
-        return run
-
-    lift = lift_picture(lifting.lift_levels)
-
-    def unpack():
-        return du.unpack_hq(pay, dstart, clen, ly, lc)
-
-    return {
-        "lift_ms": time_device(torch, lift),
-        "lift_device_ms": time_device(torch, lift, KERNEL_INNER, queued=True),
-        "lift_plain_ms": time_device(
-            torch, lift_picture(lifting.lift_levels_plain)),
-        "unpack_ms": time_device(torch, unpack, 10),
-        "unpack_device_ms": time_device(torch, unpack, KERNEL_INNER,
-                                        queued=True),
-        "unpack_plain_ms": time_device(
-            torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly, lc)),
-        "plane_samples": [p.numel() for p in planes],
-    }
+def golden_encode_args(meta: dict, case: str, tap: str | None) -> tuple:
+    """(argv, input path, reference path) of a golden encode: the JAX
+    package's golden test's command line."""
+    _, inp, extra = next(c for c in meta["cases"] if c[0] == case)
+    m = meta["inputs"][inp]
+    argv = ["-x", str(m["width"]), "-y", str(m["height"]), "-f", m["fmt"],
+            "-l", str(m["depth"]), "-n", "2", *extra]
+    ref = f"{case}.vc2" if tap is None else f"{case}.{tap.lower()}.raw"
+    if tap is not None:
+        argv += ["-o", tap]
+    return argv, os.path.join(GOLDEN, f"{inp}.16p2"), os.path.join(GOLDEN,
+                                                                   ref)
 
 
-def main(argv) -> int:
-    if argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    import torch
+def run_encode_cli(argv, src: str, out: str) -> bytes:
+    from vc2tpu_torch.cli import encode_stream
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    import numpy as np
+    check(encode_stream.main(argv + [src, out]) == 0,
+          f"encode {' '.join(argv)} failed")
+    with open(out, "rb") as f:
+        return f.read()
 
-    from vc2tpu_torch.cli.decode_stream import Decoder
-    from vc2tpu_torch.core import build
-    from vc2tpu_torch.core.config import PictureGeometry, WaveletKernel
-    from vc2tpu_torch.pipeline import decoder as pipe
-    from vc2tpu_torch.slices.hq import scan_hq_slice_offsets
-    from vc2tpu_torch.stream.dataunit import StreamReader
-    from vc2tpu_torch.vlc import device_unpack as du
-    from vc2tpu_torch.wavelet import lifting, matrices
 
-    dev = torch.device("cuda")
-    card = card_line()
-    name = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+def check_lift(torch, np, rng, dev) -> int:
+    from vc2tpu_torch.core.config import WaveletKernel
+    from vc2tpu_torch.wavelet import lifting
 
-    # 1. build
-    t0 = time.perf_counter()
-    libs = build.build(lifting.kernel_source(), du.kernel_source())
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{[os.path.basename(p) for p in libs]}")
-
-    # 2. lift kernel against its plain version
-    rng = np.random.default_rng(2042)
     lift_err = 0
     n_cmp = 0
     for kernel in WaveletKernel:
@@ -305,9 +287,9 @@ def main(argv) -> int:
                                 f"invert={invert}: max |err| {err}")
                 lift_err = max(lift_err, err)
                 n_cmp += 1
-    # several planes in one launch, strided input, overlays
-    def rand_plane(shape):
-        return torch.as_tensor(rng.integers(-(1 << 20), (1 << 20) + 1, shape)
+
+    def rand_plane(shape, span=1 << 20):
+        return torch.as_tensor(rng.integers(-span, span + 1, shape)
                                .astype(np.int32), device=dev)
 
     level_cases = [("1080p 4:2:2", LEVEL_PLANES, 2, False),
@@ -334,18 +316,39 @@ def main(argv) -> int:
                                 f"{invert}: max |err| {err}")
                 lift_err = max(lift_err, err)
                 n_cmp += 1
-    print(f"lift kernel == plain: {n_cmp} cases, max |err| {lift_err}")
+        # the encoder's transform: both levels of three 1080p planes of
+        # 10-bit samples, against the plain route on the CPU
+        planes = [rand_plane(sh, 512) for sh in LEVEL_PLANES]
+        got = lifting.forward_planes(planes, kernel, 2)
+        want = lifting.forward_planes([p.cpu() for p in planes], kernel, 2)
+        err = max(max_err(torch, g.cpu(), w) for g, w in zip(got, want))
+        check(err == 0, f"forward_planes {kernel.name} 1080p 4:2:2: max "
+                        f"|err| {err}")
+        lift_err = max(lift_err, err)
+        n_cmp += 1
+    print(f"lift kernel == plain: {n_cmp} cases (7 of them forward_planes "
+          f"at 1080p), max |err| {lift_err}")
+    return lift_err
 
-    # 3. unpack kernel against its plain version
-    with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
-        fixtures = json.load(f)["streams"]
-    streams = {}
-    for key, v in fixtures.items():
-        with open(os.path.join(TESTDATA, v["stream"]), "rb") as f:
-            streams[key] = f.read()
+
+def check_unpack(torch, np, rng, dev, streams):
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.slices.hq import (scan_hq_slice_offsets,
+                                        scan_hq_slice_offsets_plain)
+    from vc2tpu_torch.vlc import device_unpack as du
+
     unpack_cases = []
     for key, data in streams.items():
-        for _dec, _pos, job in pictures_of(data, dev):
+        for _dec, pos, job in pictures_of(data, dev):
+            unit = data[pos:]
+            args = (job.geo.n_slices, job.pre.slice_prefix,
+                    job.pre.slice_size_scalar, job.start)
+            native = scan_hq_slice_offsets(unit, *args)
+            plain = scan_hq_slice_offsets_plain(unit, *args)
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(native[:3], plain[:3])) and native[3] == plain[3],
+                  f"{key}: the native chain scan differs from the Python "
+                  "loop")
             pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
             clen = fields[1:].contiguous()
             dstart = du.hq_component_offsets(clen, job.pre.slice_prefix,
@@ -353,6 +356,8 @@ def main(argv) -> int:
             ly = job.geo.luma_slice[0] * job.geo.luma_slice[1]
             lc = job.geo.chroma_slice[0] * job.geo.chroma_slice[1]
             unpack_cases.append((key, pay, dstart, clen, ly, lc))
+    print(f"native chain scan == Python loop on {len(unpack_cases)} "
+          "fixture pictures")
     key, pay, dstart, clen, ly, lc = unpack_cases[0]
     unpack_cases.append(("cut_short", pay[:-200].clone(), dstart, clen, ly,
                          lc))
@@ -398,12 +403,195 @@ def main(argv) -> int:
           "the unpack cases miss the staged or the device-memory branch")
     print(f"unpack kernel == plain: {len(unpack_cases)} payloads, "
           f"max |err| {unpack_err}")
+    return unpack_err, unpack_cases
 
-    # 4. the main path: decode the 1080p fixtures through Decoder(); the
-    # counts are zeroed just before it and read just after
+
+def encode_1080p_lanes(torch, dev, picture):
+    """(encoder, quantised lanes, q indices, transform planes) of the
+    1080p ConstQ fixture's picture on the card."""
+    from vc2tpu_torch.cli import encode_stream
+    from vc2tpu_torch.pipeline import encoder as enc_mod
+
+    args = encode_stream.build_parser().parse_args(
+        fixture_encode_args() + ["in", "out"])
+    enc = enc_mod.Encoder(encode_stream.config_from_args(args), device=dev)
+    cfg, geo, d = enc.cfg, enc.geo, enc.cfg.wavelet_depth
+    planes = enc_mod.upload_picture(picture, cfg.bytes_per_sample, dev)
+    transform = enc_mod.analyse(planes, cfg.kernel, d)
+    q_idx = enc.q_indices()
+    lanes = enc_mod.quantise(enc_mod.planes_to_lanes(transform, geo, d),
+                             q_idx, enc.qmatrix, d, geo)
+    return enc, lanes, q_idx, transform
+
+
+def fixture_encode_args() -> list:
+    """The encode flags ``fixtures_1080p.json`` records for constq_1080p."""
+    with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
+        cmd = json.load(f)["streams"]["constq_1080p"]["encode"]
+    return cmd[cmd.index("vc2tpu.cli.encode_stream") + 1:-2]
+
+
+def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
+    """The pack kernel against its plain version, and quant on the card
+    against quant on the CPU. Returns (max |err|, number of cases)."""
+    from vc2tpu_torch.quant.quantiser import quant
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.vlc import device_pack as dp
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev)
+
+    def lanes_of(n, span, zero_frac):
+        out = []
+        for length, s in ((32, span), (16, span >> 2), (16, span >> 2)):
+            v = rng.integers(-s, s + 1, (n, length))
+            v[rng.random((n, length)) < zero_frac] = 0
+            out.append(t(v.astype(np.int32)))
+        return out
+
+    n = 64800
+    rand = lanes_of(n, 1 << 20, 0.5)
+    rand[0][::97, 5] = (1 << 30) + 12345           # codes of 62 bits
+    rand[0][::101, 7] = -(1 << 30) - 1
+    rand[1][::89, 3] = -(1 << 31)                  # |INT_MIN|: 64 bits
+    q_rand = t(rng.integers(0, 120, n).astype(np.int32))
+    small = lanes_of(n, 40, 0.6)
+    tiny = lanes_of(n, 8, 0.7)
+    zeros = [torch.zeros_like(x) for x in rand]
+    m = 64
+    big = [t(rng.integers(-(1 << 24), 1 << 24, (m, length)).astype(np.int32))
+           for length in (2048, 1024, 1024)]
+    q_m = t(np.zeros(m, np.int32))
+    budgets = layout.slice_bytes_map(270, 240, 270 * 240 * 40, 2).ravel()
+    wide = layout.slice_bytes_map(270, 240, 270 * 240 * 400, 1).ravel()
+    tight = layout.slice_bytes_map(270, 240, 270 * 240 * 8, 1).ravel()
+    cases = [  # name, lanes, q, prefix, scalar, CBR budgets, expected flags
+        ("1080p ConstQ lanes", lanes_1080p, q_1080p, 0, 1, None, 0),
+        ("random, codes over 32 bits", rand, q_rand, 0, 8, None, 0),
+        ("all-zero slices", zeros, q_rand, 0, 1, None, 0),
+        ("prefix 3 scalar 2", small, q_rand, 3, 2, None, 0),
+        ("CBR fill", tiny, q_rand, 1, 2, t(budgets), 0),
+        ("slices over the window", big, q_m, 1, 256, None, 0),
+        ("flag SCALAR", big, q_m, 0, 8, None, dp.FLAG_SCALAR),
+        ("flag QINDEX", small, q_rand + 200, 0, 1, None, dp.FLAG_QINDEX),
+        ("flag CBR_FIT", rand, q_rand, 0, 1, t(tight), dp.FLAG_CBR_FIT),
+        ("flag VLEN", small, q_rand, 0, 1, t(wide), dp.FLAG_VLEN),
+    ]
+    for name, lanes, q, prefix, scalar, sizes, want_flags in cases:
+        got, got_flags = dp.pack_hq(*lanes, q, prefix, scalar, sizes)
+        want, plain_flags = dp.pack_hq_plain(*lanes, q, prefix, scalar,
+                                             sizes)
+        torch.cuda.synchronize()
+        check(got_flags == plain_flags == want_flags,
+              f"pack_hq {name}: flags {got_flags}, plain {plain_flags}, "
+              f"expected {want_flags}")
+        check(got.shape == want.shape and bool(torch.equal(got, want)),
+              f"pack_hq {name}: buffers differ ({got.numel()} and "
+              f"{want.numel()} bytes)")
+        print(f"  pack {name}: {got.numel()} bytes equal, flags "
+              f"{got_flags}")
+    print(f"pack kernel == plain: {len(cases)} cases, bytes, totals and "
+          "flags equal")
+    # quant at every adjusted index, 1080p transform samples
+    for plane in transform:
+        v = plane.reshape(-1)[:1 << 20]
+        q = t(rng.integers(0, 120, v.numel()).astype(np.int32))
+        got = quant(v, q)
+        want = quant(v.cpu(), q.cpu())
+        check(torch.equal(got.cpu(), want), "quant on the card differs from "
+                                            "the CPU")
+    print("quant on the card == quant on the CPU: the 1080p transform's "
+          "three planes, q 0-119")
+    return 0, len(cases)
+
+
+def main(argv) -> int:
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.core import build
+    from vc2tpu_torch.core.config import ColourFormat, PictureGeometry
+    from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.pipeline import encoder as enc_mod
+    from vc2tpu_torch.slices import hq as slices_hq
+    from vc2tpu_torch.stream.dataunit import (PicturePreamble, StreamReader,
+                                              StreamWriter)
+    from vc2tpu_torch.vlc import device_pack as dp
+    from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import lifting, matrices
+
+    sys.path.insert(0, TESTDATA)
+    import make_1080p
+
+    dev = torch.device("cuda")
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    libs = build.build(lifting.kernel_source(), du.kernel_source(),
+                       dp.kernel_source(), slices_hq.scan_source())
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{[os.path.basename(p) for p in libs]}")
+
+    # 2. lift kernel (and forward_planes) against its plain version
+    rng = np.random.default_rng(2042)
+    lift_err = check_lift(torch, np, rng, dev)
+
+    # 3. unpack kernel against its plain version; the native chain scan
+    with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
+        fixtures = json.load(f)["streams"]
+    streams = {}
+    for key, v in fixtures.items():
+        with open(os.path.join(TESTDATA, v["stream"]), "rb") as f:
+            streams[key] = f.read()
+    unpack_err, unpack_cases = check_unpack(torch, np, rng, dev, streams)
+
+    # 4. pack kernel against its plain version, quant on the card
+    work = tempfile.TemporaryDirectory()
+    src_1080p = os.path.join(work.name, "hd.16p2")
+    make_1080p.make_input(src_1080p)
+    with open(src_1080p, "rb") as f:
+        input_1080p = f.read()
+    fmt = SampleFormat(word_width=2, bit_depth=10)
+    geometry = PictureGeometry.of(1080, 1920, ColourFormat.CF422)
+
+    def read_picture():
+        return PlanarReader(io.BytesIO(input_1080p), geometry,
+                            fmt).read_frame()
+
+    picture_1080p = read_picture()
+    encoder, lanes_1080p, q_1080p, transform = encode_1080p_lanes(
+        torch, dev, picture_1080p)
+    pack_err, _n_pack = check_pack(torch, np, rng, dev, lanes_1080p,
+                                   q_1080p, transform)
+
+    # 5. the main paths; the counts are zeroed just before each and read
+    # just after
+    def zero_counts():
+        lifting.lift_levels.launches = 0
+        du.unpack_hq.launches = 0
+        dp.pack_hq.launches = 0
+
+    def counts():
+        return {"lift_level": lifting.lift_levels.launches,
+                "hq_unpack": du.unpack_hq.launches,
+                "hq_pack": dp.pack_hq.launches}
+
     n_pictures = sum(len(pictures_of(d, dev)) for d in streams.values())
-    lifting.lift_levels.launches = 0
-    du.unpack_hq.launches = 0
+    zero_counts()
     for key, data in streams.items():
         sink = io.BytesIO()
         check(Decoder(sink=sink).run(data) == 0, f"decode {key} failed")
@@ -411,19 +599,39 @@ def main(argv) -> int:
         check(digest == fixtures[key]["decoded_sha256"],
               f"{key}: decoded SHA-256 {digest} differs from the JAX "
               f"package's {fixtures[key]['decoded_sha256']}")
-    launches = {"lift_level": lifting.lift_levels.launches,
-                "hq_unpack": du.unpack_hq.launches}
-    print(f"main path: {n_pictures} 1080p pictures, SHA-256 equal to the "
-          f"JAX package's decode; launches {launches}")
-    check(launches["lift_level"] == 2 * n_pictures,
-          f"lift_level launched {launches['lift_level']} times, "
-          f"expected {2 * n_pictures}")
-    check(launches["hq_unpack"] == n_pictures,
-          f"hq_unpack launched {launches['hq_unpack']} times")
+    decode_launches = counts()
+    print(f"main path decode: {n_pictures} 1080p pictures, SHA-256 equal to "
+          f"the JAX package's decode; launches {decode_launches}")
+    check(decode_launches["lift_level"] == 2 * n_pictures,
+          f"lift_level launched {decode_launches['lift_level']} times in the "
+          f"decode, expected {2 * n_pictures}")
+    check(decode_launches["hq_unpack"] == n_pictures,
+          f"hq_unpack launched {decode_launches['hq_unpack']} times")
+
+    out_1080p = os.path.join(work.name, "constq_1080p.vc2")
+    zero_counts()
+    stream = run_encode_cli(fixture_encode_args(), src_1080p, out_1080p)
+    encode_launches = counts()
+    check(stream == streams["constq_1080p"],
+          "the 1080p ConstQ encode differs from constq_1080p.vc2")
+    sink = io.BytesIO()
+    check(Decoder(sink=sink).run(stream) == 0, "decode of the encode failed")
+    digest = hashlib.sha256(sink.getvalue()).hexdigest()
+    check(digest == fixtures["constq_1080p"]["decoded_sha256"],
+          f"the decode of the 1080p encode has SHA-256 {digest}")
+    print(f"main path encode: the 1080p ConstQ picture, {len(stream)} bytes "
+          "equal to constq_1080p.vc2, its decode at the recorded SHA-256; "
+          f"launches {encode_launches}")
+    check(encode_launches["lift_level"] == 2,
+          f"lift_level launched {encode_launches['lift_level']} times in the "
+          "encode, expected 2")
+    check(encode_launches["hq_pack"] == 2,
+          f"hq_pack launched {encode_launches['hq_pack']} times, expected 2")
 
     with open(os.path.join(GOLDEN, "meta.json")) as f:
-        cases = [c[0] for c in json.load(f)["cases"]
-                 if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
+        meta = json.load(f)
+    cases = [c[0] for c in meta["cases"]
+             if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
     for case in cases:
         sink = io.BytesIO()
         with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
@@ -431,37 +639,51 @@ def main(argv) -> int:
         with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
             check(sink.getvalue() == f.read(),
                   f"golden {case}: output differs from the reference's")
-    print(f"goldens: {len(cases)} HQ cases byte-identical on the card")
+    print(f"goldens: {len(cases)} HQ cases decode byte-identically on the "
+          "card")
+    encodes = ([(c[0], None) for c in meta["cases"]
+                if c[0].startswith("constq")]
+               + [tuple(t) for t in meta["taps"] if t[0].startswith("constq")])
+    for case, tap in encodes:
+        argv, src, ref = golden_encode_args(meta, case, tap)
+        got = run_encode_cli(argv, src, os.path.join(work.name, "golden"))
+        with open(ref, "rb") as f:
+            check(got == f.read(), f"golden encode {case} {tap or 'Stream'}: "
+                                   "output differs from the reference's")
+    print(f"goldens: {sum(t is None for _c, t in encodes)} ConstQ streams and "
+          f"{sum(t is not None for _c, t in encodes)} ConstQ taps encode "
+          "byte-identically on the card")
 
-    # 5. times
+    # 6. times
     for key, data in streams.items():
         def decode_once():
             Decoder(sink=io.BytesIO()).run(data)
-        ts = sorted(host_samples(decode_once, E2E_REPS))
-        ms, p75 = statistics.median(ts), ts[int(0.75 * len(ts)) - 1]
-        print(f"end to end {key}: median {ms:.3f} ms/picture = "
-              f"{1e3 / ms:.2f} fps, p75 {p75:.3f} ms, min {ts[0]:.3f}, "
-              f"max {ts[-1]:.3f} ({len(ts)} runs after a warm-up; {card})")
-        prof = device_busy(torch, decode_once)
-        if prof is None:
-            print(f"device busy {key}: not measured (the profiler trace "
-                  "holds no device events)")
-            continue
-        busy, wall, by_name = prof
-        print(f"device busy {key}: {busy:.3f} ms of a {wall:.3f} ms "
-              f"profiled decode, idle share {1 - busy / wall:.3f} ({card})")
-        for nm, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"  device time {nm[:70]}: {t:.4f} ms")
+        report_rate(f"decode {key}", decode_once, card)
+        report_busy(torch, f"decode {key}", decode_once, card)
 
-    # per-stage breakdown of one 1080p ConstQ picture
+    cfg, geo = encoder.cfg, encoder.geo
+    preamble = PicturePreamble(
+        wavelet_kernel=cfg.kernel, depth=cfg.wavelet_depth,
+        slices_x=geo.x_slices, slices_y=geo.y_slices,
+        slice_prefix=cfg.slice_prefix, slice_size_scalar=cfg.slice_scalar)
+
+    def encode_once():
+        enc = encoder.encode_picture(read_picture())
+        StreamWriter(io.BytesIO()).write_picture(0, preamble, enc.payload)
+
+    report_rate("encode constq_1080p (read, encode, write a picture)",
+                encode_once, card)
+    report_busy(torch, "encode constq_1080p", encode_once, card)
+
+    # per-stage breakdown of one 1080p ConstQ picture, decode
     window = streams["constq_1080p"]
     dec, offset, job = pictures_of(window, dev)[0]
-    hdr, pre, geo = dec.hdr, job.pre, job.geo
+    hdr, pre, dgeo = dec.hdr, job.pre, job.geo
     kernel, depth = pre.wavelet_kernel, pre.depth
     qmatrix = matrices.quant_matrix(kernel, depth)
     out_geom = PictureGeometry.of(job.pic_h, hdr.width, hdr.chroma_format)
-    ly = geo.luma_slice[0] * geo.luma_slice[1]
-    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    ly = dgeo.luma_slice[0] * dgeo.luma_slice[1]
+    lc = dgeo.chroma_slice[0] * dgeo.chroma_slice[1]
     stages = {}
     unit = window[offset:]
 
@@ -472,13 +694,17 @@ def main(argv) -> int:
         rd.read_picture_number()
         rd.read_preamble(True)
 
-    stages["host: stream parse (picture header, preamble)"] = time_host(
-        parse_only)
-    stages["host: chain scan"] = time_host(
-        lambda: scan_hq_slice_offsets(unit, geo.n_slices, pre.slice_prefix,
-                                      pre.slice_size_scalar, job.start))
+    scan_args = (dgeo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
+                 job.start)
+    stages["decode host: stream parse (picture header, preamble)"] = (
+        time_host(parse_only))
+    stages["decode host: chain scan (native)"] = time_host(
+        lambda: slices_hq.scan_hq_slice_offsets(unit, *scan_args))
+    stages["decode host: chain scan (Python loop, the reference)"] = (
+        time_host(lambda: slices_hq.scan_hq_slice_offsets_plain(
+            unit, *scan_args), 3))
 
-    def staged():
+    def staged_decode():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
         ev[0].record()
         pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
@@ -488,35 +714,89 @@ def main(argv) -> int:
         ev[2].record()
         lanes = du.unpack_hq(pay, dstart, clen, ly, lc)
         ev[3].record()
-        planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth, geo)
+        planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth,
+                                        dgeo)
         ev[4].record()
         planes = lifting.inverse_planes(planes, kernel, depth)
         ev[5].record()
         words = pipe.format_planes(planes, out_geom, hdr.bitdepth)
         ev[6].record()
-        host = words.cpu()
+        words.cpu()
         ev[7].record()
         torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(7)], host
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(7)]
 
-    staged()
-    rows = [staged()[0] for _ in range(REPS)]
-    labels = ["device: H2D (payload + slice fields)",
-              "device: component offsets",
-              "device: unpack kernel",
-              "device: dequantise + lanes_to_plane",
-              "device: inverse_planes (2 lift launches)",
-              "device: crop + format",
-              "device: D2H copy of the output bytes"]
+    labels = ["decode device: H2D (payload + slice fields)",
+              "decode device: component offsets",
+              "decode device: unpack kernel",
+              "decode device: dequantise + lanes_to_plane",
+              "decode device: inverse_planes (2 lift launches)",
+              "decode device: crop + format",
+              "decode device: D2H copy of the output bytes"]
+    staged_decode()
+    rows = [staged_decode() for _ in range(REPS)]
     for i, lab in enumerate(labels):
         stages[lab] = statistics.median(r[i] for r in rows)
 
-    times = kernel_times(torch, job, dev)
-    stages[f"device: of which the lift launches ({depth}, host-issued)"] = (
-        times["lift_ms"])
+    # per-stage breakdown of one 1080p ConstQ picture, encode
+    edepth = cfg.wavelet_depth
+
+    def staged_encode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        ev[0].record()
+        planes = enc_mod.upload_picture(picture_1080p, cfg.bytes_per_sample,
+                                        dev)
+        ev[1].record()
+        tr = enc_mod.analyse(planes, cfg.kernel, edepth)
+        ev[2].record()
+        lanes = enc_mod.planes_to_lanes(tr, geo, edepth)
+        ev[3].record()
+        q_idx = encoder.q_indices()
+        qlanes = enc_mod.quantise(lanes, q_idx, encoder.qmatrix, edepth, geo)
+        ev[4].record()
+        comp, totals, flags_t = dp.launch_sizes(*qlanes, q_idx,
+                                                cfg.slice_prefix,
+                                                cfg.slice_scalar)
+        ev[5].record()
+        ends = torch.cumsum(totals, 0, dtype=torch.int64)
+        total, flags = torch.cat([ends[-1:],
+                                  flags_t.to(torch.int64)]).tolist()
+        ev[6].record()
+        check(flags == 0, "flags in the staged encode")
+        buf = dp.launch_write(*qlanes, q_idx, comp, totals, ends - totals,
+                              total, cfg.slice_prefix, cfg.slice_scalar)
+        ev[7].record()
+        buf.cpu()
+        ev[8].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(8)]
+
+    labels = ["encode device: H2D of the samples (int16)",
+              "encode device: pad + forward_planes (2 lift launches)",
+              "encode device: plane_to_lanes",
+              "encode device: quantise",
+              "encode device: pack launch 1 (sizes)",
+              "encode device: scan of the slice sizes + sync",
+              "encode device: pack launch 2 (write)",
+              "encode device: D2H of totals + payload"]
+    staged_encode()
+    rows = [staged_encode() for _ in range(REPS)]
+    for i, lab in enumerate(labels):
+        stages[lab] = statistics.median(r[i] for r in rows)
+    stages["encode host: read a picture (PlanarReader, NumPy)"] = time_host(
+        read_picture)
+    payload = encoder.encode_picture(picture_1080p).payload
+    stages["encode host: stream write (picture data unit)"] = time_host(
+        lambda: StreamWriter(io.BytesIO()).write_picture(0, preamble,
+                                                         payload))
+
+    times = kernel_times(torch, job, dev, lanes_1080p, q_1080p, cfg)
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
+    report_busy(torch, "pack_hq of the 1080p lanes",
+                lambda: dp.pack_hq(*lanes_1080p, q_1080p, cfg.slice_prefix,
+                                   cfg.slice_scalar), card)
 
     # kernel table: time, plain time, bound
     # each level's samples read once and written once
@@ -541,34 +821,132 @@ def main(argv) -> int:
     unpack_ops = 20 * sum(t.numel() for t in lanes) + 3 * ndata
     unpack_bound, unpack_by = bound_ms(unpack_bytes, unpack_ops)
 
+    # the pack: the lanes and q indices read once, the totals and the
+    # payload written once; ~20 integer operations a lane in each launch
+    n_lanes = sum(t.numel() for t in lanes_1080p)
+    n_slices = q_1080p.numel()
+    pack_bytes = 4 * n_lanes + 4 * n_slices + 4 * n_slices + times[
+        "pack_payload_bytes"]
+    pack_bound, pack_by = bound_ms(pack_bytes, 40 * n_lanes)
+
+    def launches(k):
+        return decode_launches[k] + encode_launches[k]
+
     kernels = [
         {"name": "lift_level", "route": "cuda",
          "source": "vc2tpu_torch/csrc/lift_level.cu",
          "replaces": "vc2tpu/wavelet/pallas_lift.py:235",
-         "launches": launches["lift_level"], "max_abs_err": lift_err,
+         "launches": launches("lift_level"),
+         "launches_by_path": {"decode": decode_launches["lift_level"],
+                              "encode": encode_launches["lift_level"]},
+         "max_abs_err": lift_err,
          "ms": times["lift_ms"], "device_ms": times["lift_device_ms"],
          "plain_ms": times["lift_plain_ms"], "bound_ms": lift_bound,
          "bound_by": lift_by, "library_ms": None},
         {"name": "hq_unpack", "route": "cuda",
          "source": "vc2tpu_torch/csrc/hq_unpack.cu",
          "replaces": "vc2tpu/vlc/device_unpack.py:107",
-         "launches": launches["hq_unpack"], "max_abs_err": unpack_err,
+         "launches": launches("hq_unpack"),
+         "launches_by_path": {"decode": decode_launches["hq_unpack"],
+                              "encode": encode_launches["hq_unpack"]},
+         "max_abs_err": unpack_err,
          "ms": times["unpack_ms"], "device_ms": times["unpack_device_ms"],
          "plain_ms": times["unpack_plain_ms"],
          "bound_ms": unpack_bound, "bound_by": unpack_by,
+         "library_ms": None},
+        {"name": "hq_pack", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/hq_pack.cu",
+         "replaces": "vc2tpu/vlc/device_pack.py:133",
+         "launches": launches("hq_pack"),
+         "launches_by_path": {"decode": decode_launches["hq_pack"],
+                              "encode": encode_launches["hq_pack"]},
+         "max_abs_err": pack_err,
+         "ms": times["pack_ms"], "device_ms": times["pack_device_ms"],
+         "plain_ms": times["pack_plain_ms"],
+         "bound_ms": pack_bound, "bound_by": pack_by,
          "library_ms": None},
     ]
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture "
               f"(device alone {k['device_ms']:.4f} ms), bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
-              f"{k['plain_ms']:.4f} ms, launches {k['launches']} ({card})")
+              f"{k['plain_ms']:.4f} ms, launches {k['launches']} "
+              f"{k['launches_by_path']} ({card})")
+    work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_times(torch, job, dev, qlanes, q_idx, cfg) -> dict:
+    """Times of one 1080p picture's kernel work at the main paths' shapes:
+    ``*_ms`` as the host issues it (the lift's two decode levels once; the
+    unpack 10 times back to back; the pack's two launches with the scan and
+    the synchronisation between them), ``*_device_ms`` queued (the device's
+    time alone; the pack's total is read once beforehand, so nothing
+    synchronises), ``*_plain_ms`` of the plain versions."""
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.vlc import device_pack as dp
+    from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import lifting, matrices
+
+    pre, geo = job.pre, job.geo
+    kernel, depth = pre.wavelet_kernel, pre.depth
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
+    clen = fields[1:].contiguous()
+    dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
+    lanes = du.unpack_hq(pay, dstart, clen, ly, lc)
+    planes = pipe.dequantise_planes(lanes, fields[0],
+                                    matrices.quant_matrix(kernel, depth),
+                                    depth, geo)
+
+    def lift_picture(fn):
+        def run():
+            coarse = None
+            for level in range(depth - 1, -1, -1):
+                coarse = fn(planes, kernel, True, 1 << level, coarse)
+        return run
+
+    lift = lift_picture(lifting.lift_levels)
+
+    def unpack():
+        return du.unpack_hq(pay, dstart, clen, ly, lc)
+
+    prefix, scalar = cfg.slice_prefix, cfg.slice_scalar
+    buf, _flags = dp.pack_hq(*qlanes, q_idx, prefix, scalar)
+    total = buf.numel() - 4 * q_idx.numel()
+
+    def pack_queued():
+        comp, totals, _f = dp.launch_sizes(*qlanes, q_idx, prefix, scalar)
+        ends = torch.cumsum(totals, 0, dtype=torch.int64)
+        dp.launch_write(*qlanes, q_idx, comp, totals, ends - totals, total,
+                        prefix, scalar)
+
+    return {
+        "lift_ms": time_device(torch, lift),
+        "lift_device_ms": time_device(torch, lift, KERNEL_INNER, queued=True),
+        "lift_plain_ms": time_device(
+            torch, lift_picture(lifting.lift_levels_plain)),
+        "unpack_ms": time_device(torch, unpack, 10),
+        "unpack_device_ms": time_device(torch, unpack, KERNEL_INNER,
+                                        queued=True),
+        "unpack_plain_ms": time_device(
+            torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly, lc)),
+        "pack_ms": time_device(
+            torch, lambda: dp.pack_hq(*qlanes, q_idx, prefix, scalar)),
+        "pack_device_ms": time_device(torch, pack_queued, KERNEL_INNER,
+                                      queued=True),
+        "pack_plain_ms": time_device(
+            torch, lambda: dp.pack_hq_plain(*qlanes, q_idx, prefix, scalar),
+            reps=3),
+        "pack_payload_bytes": total,
+        "plane_samples": [p.numel() for p in planes],
+    }
 
 
 if __name__ == "__main__":

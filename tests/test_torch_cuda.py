@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions, and
-the HQ goldens decoded through them. Every test here needs a CUDA device
+"""The port's CUDA kernels on the card, against their plain versions, the
+HQ goldens decoded through them and the ConstQ goldens encoded through
+them. Every test here needs a CUDA device
 and skips without one. The file imports neither jax nor vc2tpu, so it runs
 on a machine that has only PyTorch:
 
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from vc2tpu_torch.cli import encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core.config import WaveletKernel
+from vc2tpu_torch.slices import layout
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
+from vc2tpu_torch.vlc import device_pack as dp
 from vc2tpu_torch.vlc import device_unpack as du
 from vc2tpu_torch.wavelet import lifting
 
@@ -24,8 +28,10 @@ pytestmark = pytest.mark.cuda
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 with open(os.path.join(GOLDEN, "meta.json")) as _f:
-    HQ = [c[0] for c in json.load(_f)["cases"]
-          if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
+    META = json.load(_f)
+HQ = [c[0] for c in META["cases"]
+      if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
+CONSTQ = [c[0] for c in META["cases"] if c[0].startswith("constq")]
 KERNELS = [k for k in WaveletKernel if k != WaveletKernel.NullKernel]
 
 
@@ -208,3 +214,88 @@ def test_golden_decodes_through_the_kernels(case, cuda):
     assert sink.getvalue() == want
     assert lifting.lift_levels.launches > lifts
     assert du.unpack_hq.launches > unpacks
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_forward_planes_match_plain(kernel, cuda):
+    rng = np.random.default_rng(200 + int(kernel))
+    shapes = [(1080, 1920), (1080, 960), (1080, 960)]
+    planes = [_plane(rng, sh, cuda) for sh in shapes]
+    got = lifting.forward_planes(planes, kernel, 2)
+    want = lifting.forward_planes([p.cpu() for p in planes], kernel, 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _lanes(rng, n, span, zero_frac, cuda):
+    out = []
+    for length, s in ((64, span), (32, span >> 2), (32, span >> 2)):
+        v = rng.integers(-s, s + 1, (n, length))
+        v[rng.random((n, length)) < zero_frac] = 0
+        out.append(torch.from_numpy(v.astype(np.int32)).to(cuda))
+    return out
+
+
+PACK_CASES = ["random", "long_codes", "zeros", "prefix3_scalar2", "cbr",
+              "over_the_window", "flag_scalar", "flag_qindex", "flag_cbr_fit",
+              "flag_vlen"]
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_kernel_matches_plain(case, cuda):
+    rng = np.random.default_rng(PACK_CASES.index(case))
+    n = 4000
+    q = torch.from_numpy(rng.integers(0, 120, n).astype(np.int32)).to(cuda)
+    prefix, scalar, sizes, flags = 0, 1, None, 0
+    lanes = _lanes(rng, n, 40, 0.6, cuda)
+    if case == "random":
+        lanes = _lanes(rng, n, 1 << 20, 0.5, cuda)
+        scalar = 4
+    elif case == "long_codes":
+        lanes = _lanes(rng, n, 1 << 30, 0.3, cuda)
+        lanes[0][::7, 3] = -(1 << 31)
+        scalar = 16
+    elif case == "zeros":
+        lanes = [torch.zeros_like(x) for x in lanes]
+    elif case == "prefix3_scalar2":
+        prefix, scalar = 3, 2
+    elif case in ("cbr", "flag_cbr_fit", "flag_vlen"):
+        lanes = _lanes(rng, n, 8, 0.7, cuda) if case == "cbr" else lanes
+        per = {"cbr": 80, "flag_cbr_fit": 6, "flag_vlen": 400}[case]
+        prefix, scalar = (1, 2) if case == "cbr" else (0, 1)
+        sizes = torch.from_numpy(np.array(layout.slice_bytes_map(
+            1, n, n * per, scalar).ravel())).to(cuda)
+        flags = {"cbr": 0, "flag_cbr_fit": dp.FLAG_CBR_FIT,
+                 "flag_vlen": dp.FLAG_VLEN}[case]
+    elif case in ("over_the_window", "flag_scalar"):
+        lanes = [torch.from_numpy(rng.integers(
+            -(1 << 24), 1 << 24, (16, length)).astype(np.int32)).to(cuda)
+            for length in (2048, 1024, 1024)]
+        q = q[:16].contiguous()
+        prefix, scalar = (1, 256) if case == "over_the_window" else (0, 8)
+        flags = dp.FLAG_SCALAR if case == "flag_scalar" else 0
+    elif case == "flag_qindex":
+        q = q + 200
+        flags = dp.FLAG_QINDEX
+    launches = dp.pack_hq.launches
+    got, got_flags = dp.pack_hq(*lanes, q, prefix, scalar, sizes)
+    want, want_flags = dp.pack_hq_plain(*lanes, q, prefix, scalar, sizes)
+    torch.cuda.synchronize()
+    assert got_flags == want_flags == flags
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert dp.pack_hq.launches == launches + (1 if flags else 2)
+
+
+@pytest.mark.parametrize("case", CONSTQ)
+def test_golden_encodes_through_the_kernels(case, cuda, tmp_path):
+    _, inp, extra = next(c for c in META["cases"] if c[0] == case)
+    m = META["inputs"][inp]
+    argv = ["-x", str(m["width"]), "-y", str(m["height"]), "-f", m["fmt"],
+            "-l", str(m["depth"]), "-n", "2", *extra,
+            os.path.join(GOLDEN, f"{inp}.16p2"), str(tmp_path / "out.vc2")]
+    lifts, packs = lifting.lift_levels.launches, dp.pack_hq.launches
+    assert encode_stream.main(argv) == 0
+    with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
+        assert (tmp_path / "out.vc2").read_bytes() == f.read()
+    assert lifting.lift_levels.launches > lifts
+    assert dp.pack_hq.launches > packs

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor vc2tpu, its entry
-points run on the card unless asked for the CPU, and its kernels build only
-from source with nvcc."""
+points run on the card unless asked for the CPU, its kernels build only
+from source with nvcc (the chain scan with the host C++ compiler), and a
+CUDA tensor never takes a wrapper's plain route."""
 
 import ast
 import os
@@ -10,10 +11,15 @@ import sys
 import pytest
 import torch
 
-from vc2tpu_torch.cli import decode_stream
+from vc2tpu_torch.cli import decode_stream, encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import build
 from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig,
+                                      WaveletKernel)
+from vc2tpu_torch.pipeline.encoder import Encoder
+from vc2tpu_torch.slices import hq
+from vc2tpu_torch.vlc import device_pack
 from vc2tpu_torch.wavelet import lifting
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,9 +53,8 @@ def test_no_file_imports_jax_or_vc2tpu():
     assert not bad, bad
 
 
-def test_import_loads_no_jax_or_vc2tpu():
-    code = ("import sys, vc2tpu_torch, vc2tpu_torch.cli.decode_stream, "
-            "vc2tpu_torch.pipeline.decoder\n"
+def _imports_clean(modules: str):
+    code = (f"import sys, {modules}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'vc2tpu')]\n"
             "assert not bad, bad\n"
@@ -59,6 +64,16 @@ def test_import_loads_no_jax_or_vc2tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
+
+
+def test_import_loads_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch, vc2tpu_torch.cli.decode_stream, "
+                   "vc2tpu_torch.pipeline.decoder")
+
+
+def test_encode_imports_load_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch.cli.encode_stream, "
+                   "vc2tpu_torch.pipeline.encoder")
 
 
 def test_entry_points_need_a_card(monkeypatch):
@@ -72,6 +87,61 @@ def test_entry_points_need_a_card(monkeypatch):
     assert decode_stream.main([golden, os.devnull]) != 0
 
 
+def _config():
+    return EncoderConfig(height=32, width=64,
+                         chroma_format=ColourFormat.CF422,
+                         kernel=WaveletKernel.LeGall, wavelet_depth=2,
+                         y_size=1, x_size=2, luma_depth=10, chroma_depth=10,
+                         q_index=20)
+
+
+def test_encoder_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(_config())
+    assert Encoder(_config(), device="cpu").device == torch.device("cpu")
+    src = os.path.join(ROOT, "tests", "golden", "tiny422.16p2")
+    argv = ["-x", "64", "-y", "32", "-f", "4:2:2", "-l", "10", "-m",
+            "HQ_ConstQ", "-k", "LeGall", "-d", "2", "-u", "1", "-a", "2",
+            "-q", "20", src, os.devnull]
+    assert encode_stream.main(argv) != 0
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to follow a wrapper's
+    route on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+class _KernelReached(Exception):
+    pass
+
+
+def test_cuda_lanes_never_take_the_plain_route(monkeypatch):
+    def plain(*_a, **_k):
+        raise AssertionError("pack_hq took the plain route for CUDA lanes")
+
+    def kernel(*_a, **_k):
+        raise _KernelReached
+
+    monkeypatch.setattr(device_pack, "pack_hq_plain", plain)
+    monkeypatch.setattr(device_pack, "launch_sizes", kernel)
+    lanes = [torch.zeros(shape, dtype=torch.int32).as_subclass(_OnCuda)
+             for shape in ((4, 8), (4, 4), (4, 4), (4,))]
+    assert lanes[0].device.type == "cuda"
+    with pytest.raises(_KernelReached):
+        device_pack.pack_hq(*lanes, 0, 1)
+
+
+def test_build_needs_a_host_compiler(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda _name: None)
+    with pytest.raises(RuntimeError, match="C\\+\\+"):
+        build.cxx_path()
+
+
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda _name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -79,10 +149,15 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
-@pytest.mark.parametrize("case", ["sources", "generated_header"])
+@pytest.mark.parametrize("case", ["sources", "generated_header",
+                                  "host_source"])
 def test_libraries_are_keyed_by_source_hash(case):
     if case == "sources":
         srcs = [lifting.kernel_source(), build.Source("hq_unpack")]
+    elif case == "host_source":
+        srcs = [hq.scan_source(), device_pack.kernel_source()]
+        assert srcs[0].path.endswith("hq_scan.cpp")
+        assert srcs[1].path.endswith("hq_pack.cu")
     else:
         # the same .cu with a changed generated ladder header
         src = lifting.kernel_source()

@@ -1,14 +1,17 @@
 """vc2tpu_torch — the VC-2 (SMPTE ST 2042-1) codec on PyTorch and CUDA.
 
-A port of ``vc2tpu`` to an NVIDIA Hopper GPU. This slice decodes HQ
-pictures (DECODED output) from stream bytes to planar output bytes:
+A port of ``vc2tpu`` to an NVIDIA Hopper GPU. It decodes HQ pictures
+(DECODED output) from stream bytes to planar output bytes, and encodes HQ
+ConstQ pictures from planar samples to stream bytes:
 
-* the host walks the stream syntax and the HQ slice chain (NumPy);
-* the compressed slice payload goes to the device once per picture;
-* the bounded exp-Golomb unpack and each inverse lifting level are CUDA
-  kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first
-  use (``core/build.py``);
-* dequantisation, layout and output formatting are torch ops.
+* the host walks the stream syntax and, in native code (``csrc/hq_scan.cpp``,
+  built with the host C++ compiler), the HQ slice chain;
+* a picture's compressed payload, or its samples, go to the device in one
+  copy; its output bytes come back in one;
+* the bounded exp-Golomb unpack, the slice pack and each lifting level are
+  CUDA kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
+  first use (``core/build.py``);
+* quantisation, layout and output formatting are torch ops.
 
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor, so
 the whole path runs on the CPU for tests (``device="cpu"``). Entry points
@@ -30,4 +33,7 @@ def __getattr__(name):  # lazy top-level API (keeps bare import light)
     if name == "Decoder":
         from vc2tpu_torch.cli.decode_stream import Decoder
         return Decoder
+    if name == "Encoder":
+        from vc2tpu_torch.pipeline.encoder import Encoder
+        return Encoder
     raise AttributeError(name)

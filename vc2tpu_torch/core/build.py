@@ -1,14 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code: CUDA kernels and host C++.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-into ``_build/lib<name>-<hash>.so`` inside this package, at first use. A
-kernel may include headers generated from Python tables (``Source.headers``:
-file name and text); they are written next to the library and put on the
-include path. The hash covers the source, the generated headers and the
-compiler flags, so a stale library is never loaded. The library is opened
-with ctypes; the wrappers set ``argtypes``.
+Each source has a plain C interface and is compiled into
+``_build/lib<name>-<hash>.so`` inside this package, at first use: a CUDA
+kernel ``csrc/<name>.cu`` by ``nvcc``, a host routine ``csrc/<name>.cpp``
+by the host C++ compiler (``Source.compiler``). A kernel may include
+headers generated from Python tables (``Source.headers``: file name and
+text); they are written next to the library and put on the include path.
+The hash covers the source, the generated headers, the compiler and its
+flags, so a stale library is never loaded. The library is opened with
+ctypes; the wrappers set ``argtypes``.
 
-A missing ``nvcc`` or a failed build raises: there is no other route.
+A missing compiler or a failed build raises: there is no other route.
 """
 
 from __future__ import annotations
@@ -26,15 +28,27 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 @dataclasses.dataclass(frozen=True)
 class Source:
-    """A kernel source ``csrc/<name>.cu`` and the headers generated for it,
-    as ((file name, text), ...)."""
+    """A source ``csrc/<name>.cu`` (``compiler`` "nvcc") or
+    ``csrc/<name>.cpp`` (``compiler`` "c++", the host compiler), and the
+    headers generated for it, as ((file name, text), ...)."""
 
     name: str
     headers: tuple = ()
+    compiler: str = "nvcc"
+
+    @property
+    def path(self) -> str:
+        ext = ".cu" if self.compiler == "nvcc" else ".cpp"
+        return os.path.join(CSRC, self.name + ext)
+
+    @property
+    def flags(self) -> tuple:
+        return NVCC_FLAGS if self.compiler == "nvcc" else CXX_FLAGS
 
 
 def nvcc_path() -> str:
@@ -49,17 +63,26 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def cxx_path() -> str:
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found: the host "
+                       "routines cannot be built (set CXX)")
+
+
 def library_path(src: Source) -> str:
-    with open(os.path.join(CSRC, f"{src.name}.cu"), "rb") as f:
+    with open(src.path, "rb") as f:
         h = hashlib.sha256(f.read())
     for fname, text in src.headers:
         h.update(fname.encode() + b"\0" + text.encode() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(src.compiler.encode() + b"\0" + " ".join(src.flags).encode())
     return os.path.join(BUILD_DIR, f"lib{src.name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(src: Source):
-    """Start the nvcc build of ``src`` unless its library exists.
+    """Start the build of ``src`` unless its library exists.
     Returns (path, process or None)."""
     out = library_path(src)
     if os.path.exists(out):
@@ -70,16 +93,16 @@ def _start(src: Source):
     for fname, text in src.headers:
         with open(os.path.join(gen, fname), "w") as f:
             f.write(text)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", gen, "-o", tmp,
-           os.path.join(CSRC, f"{src.name}.cu")]
+    compiler = nvcc_path() if src.compiler == "nvcc" else cxx_path()
+    cmd = [compiler, *src.flags, "-I", gen, "-o", tmp, src.path]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
     return out, (proc, tmp, gen)
 
 
 def build(*sources: Source) -> list[str]:
-    """Build the kernels, all nvcc processes running at once. Returns the
-    library paths; raises RuntimeError on a failed build."""
+    """Build the sources, all compiler processes running at once. Returns
+    the library paths; raises RuntimeError on a failed build."""
     started = [(src, *_start(src)) for src in sources]
     errors = []
     for src, out, job in started:
@@ -89,7 +112,8 @@ def build(*sources: Source) -> list[str]:
         log = proc.communicate()[0].decode(errors="replace")
         shutil.rmtree(gen, ignore_errors=True)
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {src.name}.cu:\n{log}")
+            errors.append(f"{src.compiler} failed for "
+                          f"{os.path.basename(src.path)}:\n{log}")
             if os.path.exists(tmp):
                 os.remove(tmp)
             continue
@@ -100,7 +124,7 @@ def build(*sources: Source) -> list[str]:
 
 
 def load(src: Source) -> ctypes.CDLL:
-    """The library of kernel ``src``, built first if it is missing. The
-    wrappers call this once (they cache the configured library)."""
+    """The library of ``src``, built first if it is missing. The wrappers
+    call this once (they cache the configured library)."""
     (path,) = build(src)
     return ctypes.CDLL(path)

@@ -100,6 +100,22 @@ class ColorSpec(enum.IntEnum):
     CS_HDRTV_HLG = 7
 
 
+class Mode(enum.Enum):
+    HQ_CBR = "HQ_CBR"
+    HQ_ConstQ = "HQ_ConstQ"
+    LD = "LD"
+
+
+class EncOutput(enum.Enum):
+    TRANSFORM = "Transform"
+    QUANTISED = "Quantised"
+    INDICES = "Indices"
+    PACKAGED = "Packaged"
+    STREAM = "Stream"
+    DECODED = "Decoded"
+    PSNR = "PSNR"
+
+
 class DecOutput(enum.Enum):
     TRANSFORM = "Transform"
     QUANTISED = "Quantised"
@@ -132,3 +148,60 @@ class PictureGeometry:
     def of(height: int, width: int, fmt: ColourFormat) -> "PictureGeometry":
         ch, cw = chroma_dims(height, width, fmt)
         return PictureGeometry(height, width, ch, cw, fmt)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Mirror of the reference encoder CLI parameter matrix
+    (reference src/EncodeStream/EncodeParams.cpp:139-204)."""
+
+    height: int
+    width: int
+    chroma_format: ColourFormat
+    kernel: WaveletKernel
+    wavelet_depth: int
+    y_size: int                       # vertical slice size, units of 2**depth
+    x_size: int                       # horizontal slice size, units of 2**depth
+    mode: Mode = Mode.HQ_ConstQ
+    bytes_per_sample: int = 2
+    luma_depth: int = 16
+    chroma_depth: int = 16
+    interlaced: bool = False
+    top_field_first: bool = True
+    frame_rate: FrameRate = FrameRate.FR25
+    slice_scalar: int = 1             # HQ modes only
+    slice_prefix: int = 0             # HQ modes only
+    fragment_length: int = 0          # HQ_CBR / LD, 0 = no fragments
+    compressed_bytes: int = 0         # HQ_CBR / LD
+    q_index: int = 0                  # HQ_ConstQ
+
+    def validate(self) -> None:
+        if self.height < 1:
+            raise ValueError("picture height must be > 0")
+        if self.width < 1:
+            raise ValueError("picture width must be > 0")
+        if not (1 <= self.bytes_per_sample <= 4):
+            raise ValueError("bytes must be in range 1 to 4")
+        for name, d in (("luma", self.luma_depth),
+                        ("chroma", self.chroma_depth)):
+            if not (1 <= d <= 8 * self.bytes_per_sample):
+                raise ValueError(f"{name} bit depth must be in range 1 to "
+                                 "8*(bytes per sample)")
+        if self.kernel == WaveletKernel.NullKernel:
+            raise ValueError("invalid wavelet kernel")
+        if self.wavelet_depth < 1:
+            raise ValueError("wavelet depth must be 1 or more")
+        if self.mode in (Mode.HQ_CBR, Mode.HQ_ConstQ):
+            if self.slice_scalar < 1:
+                raise ValueError("slice scalar must be >=1")
+            if self.slice_prefix < 0:
+                raise ValueError("slice prefix must be >=0")
+        if self.mode in (Mode.HQ_CBR, Mode.LD) and self.compressed_bytes < 1:
+            raise ValueError("number of compressed bytes must be >0")
+        if self.mode == Mode.HQ_ConstQ and not (0 <= self.q_index <= 119):
+            raise ValueError("quantisation index must be in the range 0 to "
+                             "119")
+
+    @property
+    def geometry(self) -> PictureGeometry:
+        return PictureGeometry.of(self.height, self.width, self.chroma_format)

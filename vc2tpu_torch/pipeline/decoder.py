@@ -55,7 +55,7 @@ def upload(payload: np.ndarray, q_indices, cbytes, device: torch.device):
 
 
 @functools.lru_cache(maxsize=64)
-def _qm_lanes(qmatrix_key: tuple, slice_h: int, slice_w: int, depth: int,
+def qm_lanes(qmatrix_key: tuple, slice_h: int, slice_w: int, depth: int,
               device: torch.device) -> torch.Tensor:
     """Quant matrix entry of every lane of a slice block, int64 [L]."""
     _, band = layout.lane_order(slice_h, slice_w, depth)
@@ -71,7 +71,7 @@ def dequantise_planes(lanes, q_idx: torch.Tensor, qmatrix: np.ndarray,
     planes = []
     for comp, lanes_c in enumerate(lanes):
         sh, sw = geo.luma_slice if comp == 0 else geo.chroma_slice
-        qm = _qm_lanes(key, sh, sw, depth, lanes_c.device)
+        qm = qm_lanes(key, sh, sw, depth, lanes_c.device)
         aq = adjust_quant_index(q_idx.to(torch.int64)[:, None], qm[None, :])
         planes.append(layout.lanes_to_plane(scale(lanes_c, aq), geo.y_slices,
                                             geo.x_slices, sh, sw, depth))

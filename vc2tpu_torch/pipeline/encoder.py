@@ -1,0 +1,217 @@
+"""HQ ConstQ picture encode on the device: planar samples -> slice payload.
+
+Port of ``vc2tpu.pipeline.encoder.Encoder`` for ``Mode.HQ_ConstQ``,
+covering the picture loop of the reference encoder
+(src/EncodeStream/EncodeStream.cpp:452-770):
+
+    upload (one H2D of the picture's samples at their read width)
+    -> wavelet_pad -> forward_planes (one lift launch a level)
+    -> plane_to_lanes -> quant at each lane's adjusted index
+    -> pack_hq (two launches, one synchronisation for the payload size)
+    -> one D2H of the [totals | payload] buffer
+
+The stages are separate functions so a profiler can time each.
+``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
+decoder's ``dequantise_planes`` and ``inverse_planes``.
+
+HQ CBR (its rate control, ``rdo/cbr.py``) and LD are not ported yet, and
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.core.config import EncoderConfig, Mode, PictureGeometry
+from vc2tpu_torch.core.picture import Picture
+from vc2tpu_torch.pipeline.decoder import dequantise_planes, qm_lanes
+from vc2tpu_torch.quant.quantiser import adjust_quant_index, quant
+from vc2tpu_torch.slices import layout
+from vc2tpu_torch.slices.hq import SliceGeometry
+from vc2tpu_torch.vlc import device_pack
+from vc2tpu_torch.wavelet import lifting, matrices
+
+_NOT_PORTED = "is not ported to vc2tpu_torch yet (ROADMAP queue 1: {})"
+
+
+def _print_slice_suggestions(cfg: EncoderConfig, luma_h: int,
+                             chroma_h: int) -> None:
+    """Parameter hints on a slice-geometry failure, as the reference prints
+    them (EncodeStream.cpp:383-399): nearby --hSlice/--vSlice values at the
+    requested depth when a transform at that depth is possible, else the
+    nearest workable --waveletDepth and matching slice sizes."""
+    g = cfg.geometry
+    d = cfg.wavelet_depth
+    try:
+        if (matrices.wavelet_transform_is_possible(d, g.luma_width,
+                                                   g.chroma_width)
+                and matrices.wavelet_transform_is_possible(d, luma_h,
+                                                           chroma_h)):
+            a = matrices.suggest_slice_size(d, g.luma_width, g.chroma_width,
+                                            cfg.x_size)
+            u = matrices.suggest_slice_size(d, luma_h, chroma_h, cfg.y_size)
+            print(f"Consider setting --hSlice (-a) to {a} and --vSlice (-u) "
+                  f"to {u}.", file=sys.stderr)
+        else:
+            sd = matrices.suggest_wavelet_depth(g.luma_width, luma_h,
+                                                g.chroma_width, chroma_h, d)
+            a = matrices.suggest_slice_size(sd, g.luma_width, g.chroma_width,
+                                            cfg.x_size)
+            u = matrices.suggest_slice_size(sd, luma_h, chroma_h, cfg.y_size)
+            print(f"It is not possible to encode this input with a wavelet "
+                  f"depth of {d}.", file=sys.stderr)
+            print(f"Consider setting --waveletDepth (-d) to {sd} and "
+                  f"--hSlice (-a) to {a} and --vSlice (-u) to {u}.",
+                  file=sys.stderr)
+    except ValueError:
+        pass                      # no workable parameters exist to suggest
+
+
+def slice_geometry(cfg: EncoderConfig) -> SliceGeometry:
+    """The slice grid of one coded picture (a field when interlaced)."""
+    g = cfg.geometry
+    luma_h = g.luma_height // 2 if cfg.interlaced else g.luma_height
+    chroma_h = g.chroma_height // 2 if cfg.interlaced else g.chroma_height
+    y_slices = matrices.slice_size_is_valid(cfg.wavelet_depth, luma_h,
+                                            chroma_h, cfg.y_size)
+    x_slices = matrices.slice_size_is_valid(cfg.wavelet_depth, g.luma_width,
+                                            g.chroma_width, cfg.x_size)
+    if not y_slices or not x_slices:
+        _print_slice_suggestions(cfg, luma_h, chroma_h)
+        raise ValueError(
+            "The given waveletDepth, hSlice, and vSlice parameters cannot "
+            "encode this input. See above for suggested parameters.")
+    pl = (matrices.padded_size(luma_h, cfg.wavelet_depth),
+          matrices.padded_size(g.luma_width, cfg.wavelet_depth))
+    pc = (matrices.padded_size(chroma_h, cfg.wavelet_depth),
+          matrices.padded_size(g.chroma_width, cfg.wavelet_depth))
+    return SliceGeometry(y_slices, x_slices, pl, pc,
+                         (pl[0] // y_slices, pl[1] // x_slices),
+                         (pc[0] // y_slices, pc[1] // x_slices))
+
+
+@dataclasses.dataclass
+class EncodedPicture:
+    q_indices: np.ndarray            # int32 [ySlices, xSlices]
+    payload: bytes                   # the picture's slice payload
+    slice_totals: np.ndarray         # int32 per-slice bytes, raster order
+    transform: Picture | None = None  # in-place transform planes (device)
+    quantised: Picture | None = None  # quantised planes, transform layout
+    lanes: tuple | None = None        # quantised lanes (qy, qu, qv)
+
+
+def upload_picture(picture: Picture, bytes_per_sample: int,
+                   device: torch.device):
+    """The picture's three planes to the device in one copy at their read
+    width (int16 for up to 2 bytes a sample, else int32); returns int32
+    planes on the device."""
+    dt = np.int16 if bytes_per_sample <= 2 else np.int32
+    planes = (picture.y, picture.c1, picture.c2)
+    host = np.concatenate([np.asarray(p).astype(dt).ravel() for p in planes])
+    flat = torch.from_numpy(host).to(device)
+    out, at = [], 0
+    for p in planes:
+        h, w = p.shape
+        out.append(flat[at:at + h * w].reshape(h, w).to(torch.int32))
+        at += h * w
+    return out
+
+
+def analyse(planes, kernel, depth: int) -> list:
+    """Pad each plane to a multiple of 2**depth and take its forward DWT,
+    in-place transform layout."""
+    padded = [lifting.wavelet_pad(p, depth).contiguous() for p in planes]
+    return lifting.forward_planes(padded, kernel, depth)
+
+
+def planes_to_lanes(planes, geo: SliceGeometry, depth: int) -> list:
+    return [layout.plane_to_lanes(p, geo.y_slices, geo.x_slices, depth)
+            for p in planes]
+
+
+def quantise(lanes, q_idx: torch.Tensor, qmatrix: np.ndarray, depth: int,
+             geo: SliceGeometry) -> list:
+    """``quant`` of each component's lanes at each lane's adjusted index
+    max(qIndex - qMatrix[band], 0)."""
+    key = tuple(int(v) for v in qmatrix)
+    out = []
+    for comp, lanes_c in enumerate(lanes):
+        sh, sw = geo.luma_slice if comp == 0 else geo.chroma_slice
+        qm = qm_lanes(key, sh, sw, depth, lanes_c.device)
+        aq = adjust_quant_index(q_idx.to(torch.int64)[:, None], qm[None, :])
+        out.append(quant(lanes_c, aq))
+    return out
+
+
+class Encoder:
+    """HQ ConstQ picture encoder on ``device`` (default: the card)."""
+
+    def __init__(self, cfg: EncoderConfig, device=None):
+        cfg.validate()
+        if cfg.mode == Mode.HQ_CBR:
+            raise NotImplementedError("HQ CBR encode "
+                                      + _NOT_PORTED.format("12, HQ CBR"))
+        if cfg.mode == Mode.LD:
+            raise NotImplementedError("LD encode " + _NOT_PORTED.format(
+                "14, LD"))
+        self.device = devices.resolve(device)
+        self.cfg = cfg
+        self.geo = slice_geometry(cfg)
+        self.qmatrix = matrices.quant_matrix(cfg.kernel, cfg.wavelet_depth)
+
+    def q_indices(self) -> torch.Tensor:
+        return torch.full((self.geo.n_slices,), self.cfg.q_index,
+                          dtype=torch.int32, device=self.device)
+
+    def encode_picture(self, picture: Picture,
+                       keep_planes: bool = False) -> EncodedPicture:
+        """Encode one picture (a frame, or a field when interlaced). With
+        ``keep_planes`` the result also holds the transform, the quantised
+        planes and lanes on the device, for the tap outputs."""
+        cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
+        planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
+        transform = analyse(planes, cfg.kernel, d)
+        q_idx = self.q_indices()
+        lanes = quantise(planes_to_lanes(transform, geo, d), q_idx,
+                         self.qmatrix, d, geo)
+        buf, flags = device_pack.pack_hq(*lanes, q_idx, cfg.slice_prefix,
+                                         cfg.slice_scalar)
+        device_pack.check_flags(flags)
+        totals, payload = device_pack.split_result(buf.cpu().numpy(),
+                                                   geo.n_slices)
+        out = EncodedPicture(
+            q_indices=np.full((geo.y_slices, geo.x_slices), cfg.q_index,
+                              dtype=np.int32),
+            payload=payload.tobytes(), slice_totals=totals)
+        if keep_planes:
+            out.transform = Picture(*transform, picture.chroma_format)
+            out.quantised = Picture(*[
+                layout.lanes_to_plane(
+                    q, geo.y_slices, geo.x_slices,
+                    *(geo.luma_slice if c == 0 else geo.chroma_slice), d)
+                for c, q in enumerate(lanes)], picture.chroma_format)
+            out.lanes = tuple(lanes)
+        return out
+
+    def decode_inprocess(self, enc: EncodedPicture,
+                         geometry: PictureGeometry) -> Picture:
+        """Inverse-quantise and inverse-transform the quantised lanes of a
+        ``keep_planes`` encode, as the encoder's DECODED/PSNR taps do
+        (EncodeStream.cpp:649-664); returns int32 NumPy planes cropped to
+        ``geometry``."""
+        cfg, d = self.cfg, self.cfg.wavelet_depth
+        q_idx = torch.as_tensor(enc.q_indices.ravel(), device=self.device)
+        planes = dequantise_planes(enc.lanes, q_idx, self.qmatrix, d,
+                                   self.geo)
+        y, c1, c2 = lifting.inverse_planes(planes, cfg.kernel, d)
+        g = geometry
+        return Picture(
+            y[:g.luma_height, :g.luma_width].cpu().numpy(),
+            c1[:g.chroma_height, :g.chroma_width].cpu().numpy(),
+            c2[:g.chroma_height, :g.chroma_width].cpu().numpy(),
+            cfg.chroma_format)

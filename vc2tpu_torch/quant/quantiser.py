@@ -1,9 +1,9 @@
-"""Dead-zone inverse quantiser, as torch ops.
+"""Dead-zone quantiser and inverse quantiser, as torch ops.
 
-Port of the decode side of ``vc2tpu.quant.quantiser``, bit-exact against
-the reference scalar functions
-(reference src/Library/src/Quantisation.cpp:16-95):
+Port of ``vc2tpu.quant.quantiser``, bit-exact against the reference scalar
+functions (reference src/Library/src/Quantisation.cpp:16-95):
 
+* ``quant(v, q)  = sign(v) * ((|v| << 2) / quant_factor(q))``
 * ``scale(v, q)  = sign(v) * ((|v| * quant_factor(q) [+offset] + 2) / 4)``
 * ``adjust(qIndex, qMatrix) = max(qIndex - qMatrix, 0)``
 
@@ -95,6 +95,24 @@ def _scale_core(v, qf, qo):
     prod = wrap32(mag * qf)                          # int32 wrap
     prod = wrap32(prod + torch.where(prod > 0, qo, 0) + 2)
     out = torch.where(prod < 0, -(wrap32(-prod) >> 2), prod >> 2)  # trunc /4
+    return wrap32(torch.where(v < 0, -out, out)).to(torch.int32)
+
+
+def quant(values: torch.Tensor, q_indices: torch.Tensor) -> torch.Tensor:
+    """Element-wise dead-zone quantise (reference Quantisation.cpp:69-76):
+    ``sign(v) * ((|v| << 2) / quant_factor(q))`` with C truncating
+    division by the int32-wrapped factor, so the wrapped (negative) table
+    entries at q 116-119 flip the sign. ``q_indices`` broadcasts against
+    ``values`` and clamps to [0, 119]. The division is exact in int64 (the
+    JAX package's float32 reciprocal answered the TPU's lack of an integer
+    divide); the result equals the reference wherever its ``<< 2`` does not
+    overflow int32 (|v| < 2^29)."""
+    qf_t, _ = _device_tables(values.device)
+    q = torch.clamp(q_indices.to(torch.int64), 0, MAX_QINDEX)
+    qf = qf_t[q]
+    v = values.to(torch.int64)
+    out = torch.div(v.abs() << 2, qf.abs(), rounding_mode="floor")
+    out = torch.where(qf < 0, -out, out)
     return wrap32(torch.where(v < 0, -out, out)).to(torch.int32)
 
 

@@ -1,4 +1,4 @@
-"""Slice-grid layout: static lane permutations.
+"""Slice-grid layout: static lane permutations and HQ CBR byte budgets.
 
 The reference walks each slice's subbands with nested scalar loops
 (split_into_subbands, reference src/Library/src/WaveletTransform.cpp:
@@ -18,6 +18,8 @@ import functools
 
 import numpy as np
 import torch
+
+from vc2tpu_torch.core.intmath import rationalise
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,6 +61,50 @@ def _inverse_index(slice_h: int, slice_w: int, depth: int,
                    device: torch.device) -> torch.Tensor:
     inv = inverse_lane_order(slice_h, slice_w, depth)
     return torch.as_tensor(inv.astype(np.int64), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _lane_index(h: int, w: int, y_slices: int, x_slices: int, depth: int,
+                device: torch.device) -> torch.Tensor:
+    """Flat plane offset of every lane, int64 (nSlices * L): slice (r, c)'s
+    lane k sits at row r*sh + perm[k] // sw, column c*sw + perm[k] % sw."""
+    sh, sw = h // y_slices, w // x_slices
+    perm, _ = lane_order(sh, sw, depth)
+    r = np.arange(y_slices, dtype=np.int64)[:, None, None]
+    c = np.arange(x_slices, dtype=np.int64)[None, :, None]
+    p = perm.astype(np.int64)[None, None, :]
+    idx = (r * sh + p // sw) * w + c * sw + p % sw
+    return torch.as_tensor(idx.reshape(-1), device=device)
+
+
+def plane_to_lanes(plane: torch.Tensor, y_slices: int, x_slices: int,
+                   depth: int) -> torch.Tensor:
+    """Plane in transform layout -> (nSlices, L) lanes in serialisation
+    order: one gather of the flat plane by a cached index (the JAX
+    package's slice-block reshape and ``lane_order`` permutation in one)."""
+    h, w = plane.shape
+    idx = _lane_index(h, w, y_slices, x_slices, depth, plane.device)
+    lanes = plane.reshape(-1).index_select(0, idx)
+    return lanes.reshape(y_slices * x_slices, -1)
+
+
+@functools.lru_cache(maxsize=64)
+def slice_bytes_map(y_slices: int, x_slices: int, total_bytes: int,
+                    scalar: int) -> np.ndarray:
+    """HQ CBR per-slice byte budget by rational residue spread (reference
+    src/Library/src/Slices.cpp:28-49), int32 [ySlices, xSlices], read
+    only. The reference's residue walk (+= remainder, -= den when it
+    spills) is the identity bump_k = floor((k+1)r/den) - floor(kr/den)."""
+    n = y_slices * x_slices
+    num, den = rationalise(total_bytes // scalar - 4 * n, n)
+    ratio = num // den
+    remainder = num - ratio * den
+    k = np.arange(n, dtype=np.int64)
+    bump = ((k + 1) * remainder) // den - (k * remainder) // den
+    out = ((ratio + bump) * scalar + 4).astype(np.int32)
+    out = out.reshape(y_slices, x_slices)
+    out.setflags(write=False)
+    return out
 
 
 def lanes_to_plane(lanes: torch.Tensor, y_slices: int, x_slices: int,

@@ -1,15 +1,88 @@
-"""Host bit reader with bounded regions (read side of the stream engine).
+"""Host bit-level stream engine with bounded regions.
 
 Explicit-state replacement for the reference's iostream iword bit engine
 (reference src/Library/src/VLC.cpp:96-257). Semantics preserved:
 
+* writes past a bound: 1-bits silently dropped, 0-bits are an error;
 * reads past a bound return 1-bits (this is what makes truncated slices
   decode to zeros instead of desyncing);
-* ``flush`` skips bits to the end of the bound;
-* ``align`` clears the bound and skips to the next byte boundary.
+* ``flush`` writes/skips zero bits to the end of the bound;
+* ``align`` clears the bound and pads/skips to the next byte boundary.
 """
 
 from __future__ import annotations
+
+from vc2tpu_torch.vlc.golomb import encode_signed_scalar, encode_unsigned_scalar
+
+
+class BitWriter:
+    def __init__(self) -> None:
+        self._bytes = bytearray()
+        self._cache = 0
+        self._cached_bits = 0
+        self._bounded = False
+        self._bits_left = 0
+
+    def bounded(self, nbits: int) -> None:
+        self._bounded = True
+        self._bits_left = nbits
+
+    def unbounded(self) -> None:
+        self._bounded = False
+
+    def put_bit(self, bit: int) -> None:
+        if self._bounded and self._bits_left < 1:
+            if bit:
+                return
+            raise ValueError("Attempt to write beyond end of bounded write")
+        self._cache = ((self._cache << 1) | (1 if bit else 0)) & 0xFF
+        self._cached_bits += 1
+        self._bits_left -= 1
+        if self._cached_bits == 8:
+            self._bytes.append(self._cache)
+            self._cached_bits = 0
+
+    def put_bits(self, n: int, value: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.put_bit((value >> i) & 1)
+
+    def put_uvlc(self, value: int) -> None:
+        self.put_bits(*encode_unsigned_scalar(value))
+
+    def put_svlc(self, value: int) -> None:
+        self.put_bits(*encode_signed_scalar(value))
+
+    def put_bool(self, b: bool) -> None:
+        self.put_bit(1 if b else 0)
+
+    def flush(self) -> None:
+        if self._bounded:
+            while self._bits_left > 0:
+                self.put_bit(0)
+
+    def align(self) -> None:
+        self._bounded = False
+        while self._cached_bits:
+            self.put_bit(0)
+
+    def put_bytes_value(self, n: int, value: int) -> None:
+        """Fixed-width big-endian bytes; aligns first (reference
+        VLC.cpp:326)."""
+        self.align()
+        for i in range(n - 1, -1, -1):
+            self._bytes.append((value >> (8 * i)) & 0xFF)
+
+    def put_raw(self, data: bytes) -> None:
+        self.align()
+        self._bytes.extend(data)
+
+    def getvalue(self) -> bytes:
+        if self._cached_bits:
+            raise ValueError("unaligned stream")
+        return bytes(self._bytes)
+
+    def __len__(self) -> int:
+        return len(self._bytes)
 
 
 class BitReader:

@@ -1,9 +1,12 @@
-"""Data-unit framing, read side: parse_info headers and picture preambles.
+"""Data-unit framing: parse_info headers, sequence headers and picture
+preambles, both directions.
 
 Port of the reference stream syntax layer
-(reference src/Library/src/DataUnit.cpp:1086-1144, 1339-1410). The iostream
-iword state of the reference (major_version_number) is an explicit field of
-StreamReader.
+(reference src/Library/src/DataUnit.cpp:80-123, 1086-1144, 1339-1410). The
+iostream iword state of the reference (prev_parse_offset,
+major_version_number) becomes explicit fields of StreamWriter and
+StreamReader. The writer writes HQ pictures, not yet fragments (HQ CBR
+and LD only) or LD pictures.
 """
 
 from __future__ import annotations
@@ -13,9 +16,10 @@ import enum
 
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.core.intmath import rationalise
-from vc2tpu_torch.stream.bits import BitReader
+from vc2tpu_torch.stream.bits import BitReader, BitWriter
 from vc2tpu_torch.stream.headers import (SequenceHeader, read_video_format,
-                                         sequence_header_of)
+                                         sequence_header_of, video_format_of,
+                                         write_video_format)
 
 
 class DataUnitType(enum.Enum):
@@ -58,6 +62,67 @@ class PicturePreamble:
     slice_bytes_denominator: int = 1
     wavelet_kernel_ho: WaveletKernel = WaveletKernel.NullKernel
     depth_ho: int = 0
+
+
+class StreamWriter:
+    """Writes a VC-2 stream to a file object."""
+
+    def __init__(self, fileobj) -> None:
+        self.f = fileobj
+        self.prev_parse_offset = 0
+        self.major_version = 0
+
+    def _parse_info(self, du_type: DataUnitType, data_size: int | None) -> None:
+        """Reference ParseInfoIO (DataUnit.cpp:80-123)."""
+        next_off = 0 if data_size is None else data_size + 13
+        self.f.write(b"BBCD" + bytes([PARSE_CODES[du_type]])
+                     + next_off.to_bytes(4, "big")
+                     + self.prev_parse_offset.to_bytes(4, "big"))
+        self.prev_parse_offset = next_off
+
+    def start_sequence(self) -> None:
+        self.prev_parse_offset = 0
+
+    def end_sequence(self) -> None:
+        self._parse_info(DataUnitType.END_OF_SEQUENCE, None)
+        self.prev_parse_offset = 0
+
+    def write_sequence_header(self, hdr: SequenceHeader) -> None:
+        vf = video_format_of(hdr)
+        self.major_version = vf.major_version
+        w = BitWriter()
+        write_video_format(w, vf)
+        payload = w.getvalue()
+        self._parse_info(DataUnitType.SEQUENCE_HEADER, len(payload))
+        self.f.write(payload)
+
+    def _transform_params(self, preamble: PicturePreamble) -> bytes:
+        """The preamble's transform parameters, the write twin of
+        ``StreamReader.read_preamble``."""
+        w = BitWriter()
+        w.unbounded()
+        w.put_uvlc(int(preamble.wavelet_kernel))
+        w.put_uvlc(preamble.depth)
+        if self.major_version >= 3:
+            w.put_bool(False)   # asym_transform_index_flag
+            w.put_bool(False)   # asym_transform_flag
+        w.put_uvlc(preamble.slices_x)
+        w.put_uvlc(preamble.slices_y)
+        w.put_uvlc(preamble.slice_prefix)
+        w.put_uvlc(preamble.slice_size_scalar)
+        w.put_bool(False)       # custom quant matrix
+        w.align()
+        return w.getvalue()
+
+    def write_picture(self, picture_number: int, preamble: PicturePreamble,
+                      slice_payload: bytes) -> None:
+        """One HQ picture data unit: picture number, transform parameters
+        and the slice payload (reference HQWrappedPictureIO in
+        DataUnit.cpp:125-343, without fragments)."""
+        body = (picture_number.to_bytes(4, "big")
+                + self._transform_params(preamble) + slice_payload)
+        self._parse_info(DataUnitType.HQ_PICTURE, len(body))
+        self.f.write(body)
 
 
 class StreamReader:

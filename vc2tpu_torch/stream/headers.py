@@ -1,10 +1,11 @@
-"""Sequence header / video_format wire decoding (read side).
+"""Sequence header / video_format wire coding.
 
 Port of the reference semantics (reference src/Library/src/DataUnit.cpp:
-370-464, 883-1060, 1203-1320): the 23 base video formats table, the
-VLC-coded header read, and the decode-side merge into a SequenceHeader.
-Quirks are preserved deliberately (e.g. the final "picture coding mode"
-symbol reuses source_sampling).
+370-464, 563-1060, 1203-1320): the 23 base video formats table, the
+encode-side base-format match (``video_format_of``), the VLC-coded header
+write and read, and the decode-side merge into a SequenceHeader. Quirks
+are preserved deliberately (e.g. the final "picture coding mode" symbol
+reuses source_sampling).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import dataclasses
 from vc2tpu_torch.core.config import (ColorSpec, ColourFormat, FrameRate,
                                       MAX_V2_FRAMERATE, PixelAspectRatio,
                                       Profile)
-from vc2tpu_torch.stream.bits import BitReader
+from vc2tpu_torch.stream.bits import BitReader, BitWriter
 
 
 @dataclasses.dataclass
@@ -149,6 +150,254 @@ class VideoFormat:
     color_matrix: int = 0
     custom_transfer_function_flag: bool = False
     transfer_function: int = 0
+
+
+def _matches_fields(fmt: SequenceHeader, w, h, cf, r, bd, tff) -> bool:
+    return (fmt.width == w and fmt.height == h and fmt.chroma_format == cf
+            and fmt.frame_rate == r and fmt.bitdepth == bd
+            and fmt.top_field_first == tff)
+
+
+def _unset_or(value: int, base: int) -> bool:
+    return value == -1 or value == base
+
+
+def _matches_index(fmt: SequenceHeader, index: int) -> bool:
+    b = _BASE_FORMATS[index]
+    return (fmt.width == b.width and fmt.height == b.height
+            and fmt.chroma_format == b.chroma_format
+            and fmt.frame_rate == b.frame_rate and fmt.bitdepth == b.bitdepth
+            and fmt.interlace == b.interlace
+            and fmt.top_field_first == b.top_field_first
+            and _unset_or(fmt.pixel_aspect_ratio, b.pixel_aspect_ratio)
+            and _unset_or(fmt.clean_width, b.clean_width)
+            and _unset_or(fmt.clean_height, b.clean_height)
+            and _unset_or(fmt.left_offset, b.left_offset)
+            and _unset_or(fmt.top_offset, b.top_offset)
+            and _unset_or(fmt.color_spec, b.color_spec))
+
+
+def _check_match(fmt: SequenceHeader, index: int) -> int:
+    """Fields of ``fmt`` that differ from base format ``index``; -1 when the
+    field order differs."""
+    b = _BASE_FORMATS[index]
+    if fmt.top_field_first != b.top_field_first:
+        return -1
+    return ((fmt.width != b.width) + (fmt.height != b.height)
+            + (fmt.chroma_format != b.chroma_format)
+            + (fmt.frame_rate != b.frame_rate)
+            + (fmt.bitdepth != b.bitdepth) + (fmt.interlace != b.interlace)
+            + (not _unset_or(fmt.pixel_aspect_ratio, b.pixel_aspect_ratio))
+            + (not _unset_or(fmt.clean_width, b.clean_width))
+            + (not _unset_or(fmt.clean_height, b.clean_height))
+            + (not _unset_or(fmt.left_offset, b.left_offset))
+            + (not _unset_or(fmt.top_offset, b.top_offset))
+            + (not _unset_or(fmt.color_spec, b.color_spec)))
+
+
+# Base formats tried in order by video_format_of: (index, level, match
+# the interlaced "scan format" of a progressive stream by fields only).
+_INTERLACED_BASES = ((7, 2), (8, 2), (22, 2))
+_PROGRESSIVE_BASES = (
+    (1, 1, None), (2, 1, None), (3, 1, None), (4, 1, None), (5, 1, None),
+    (6, 1, None),
+    (7, 2, (720, 480, _CF422, FR.FR30000_1001, 10, False)),
+    (8, 2, (720, 576, _CF422, FR.FR25, 10, True)),
+    (22, 2, (720, 486, _CF422, FR.FR30000_1001, 10, False)),
+    (9, 3, None), (10, 3, None),
+    (11, 3, (1920, 1080, _CF422, FR.FR30000_1001, 10, True)),
+    (12, 3, (1920, 1080, _CF422, FR.FR25, 10, True)),
+    (13, 3, None), (14, 3, None), (21, 3, None), (15, 4, None))
+_UHD_BASES = ((16, 5), (17, 6), (18, 6), (19, 7), (20, 7))
+_BITDEPTH_TO_INDEX = {0: 0, 8: 1, 10: 3, 12: 4, 16: 7}
+
+
+def video_format_of(fmt: SequenceHeader) -> VideoFormat:
+    """Base-format matching and custom-flag minimisation (reference
+    video_format::video_format(SequenceHeader), DataUnit.cpp:563-784)."""
+    vf = VideoFormat()
+    vf.major_version = fmt.major_version
+    vf.minor_version = fmt.minor_version
+    vf.profile = 3 if fmt.profile == Profile.PROFILE_HQ else 0
+
+    def setm(i, lvl, scan=False):
+        vf.base_video_format = i
+        vf.level = lvl
+        if scan:
+            vf.custom_scan_format_flag = True
+            vf.source_sampling = 0
+
+    if fmt.interlace:
+        for i, lvl in _INTERLACED_BASES:
+            if _matches_index(fmt, i):
+                setm(i, lvl)
+                break
+        else:
+            if (fmt.chroma_format == _CF422 and fmt.width == 720
+                    and 480 <= fmt.height <= 486
+                    and fmt.frame_rate == FR.FR30000_1001
+                    and fmt.bitdepth == 10):
+                vf.base_video_format = 7
+                vf.level = 2
+                vf.custom_dimensions_flag = True
+                vf.frame_width = fmt.width
+                vf.frame_height = fmt.height
+            elif _matches_index(fmt, 11):
+                setm(11, 3)
+            elif _matches_index(fmt, 12):
+                setm(12, 3)
+    else:
+        for i, lvl, fields in _PROGRESSIVE_BASES:
+            if fields is None and _matches_index(fmt, i):
+                setm(i, lvl)
+                break
+            if fields is not None and _matches_fields(fmt, *fields):
+                setm(i, lvl, scan=True)
+                break
+        else:
+            if _matches_fields(fmt, 2048, 1080, _CF444, FR.FR48, 12, True):
+                vf.base_video_format = 15
+                vf.level = 4
+                vf.custom_frame_rate_flag = True
+                vf.frame_rate = int(FR.FR48)
+            else:
+                for i, lvl in _UHD_BASES:
+                    if _matches_index(fmt, i):
+                        setm(i, lvl)
+                        break
+
+    if vf.base_video_format == 0:
+        vf.level = 0
+        best = 999
+        for i in range(1, 23):
+            nm = _check_match(fmt, i)
+            if nm != -1 and nm < best:
+                vf.base_video_format = i
+                best = nm
+        base = default_source_parameters(vf.base_video_format)
+        if fmt.interlace != base.interlace:
+            vf.custom_scan_format_flag = True
+            vf.source_sampling = int(fmt.interlace)
+        if fmt.width != base.width or fmt.height != base.height:
+            vf.custom_dimensions_flag = True
+            vf.frame_width = fmt.width
+            vf.frame_height = fmt.height
+        if fmt.chroma_format != base.chroma_format:
+            vf.custom_color_diff_format_flag = True
+            vf.color_diff_format = int(fmt.chroma_format)
+        if fmt.frame_rate != base.frame_rate:
+            vf.custom_frame_rate_flag = True
+            vf.frame_rate = int(fmt.frame_rate)
+            if vf.frame_rate == 0:
+                vf.frame_rate_numer = fmt.frame_rate_numer
+                vf.frame_rate_denom = fmt.frame_rate_denom
+        if fmt.bitdepth != base.bitdepth:
+            vf.custom_signal_range_flag = True
+            if fmt.bitdepth not in _BITDEPTH_TO_INDEX:
+                raise ValueError("DataUnitIO: invalid bit depth")
+            vf.bitdepth = _BITDEPTH_TO_INDEX[fmt.bitdepth]
+            if vf.bitdepth == 0:
+                vf.luma_excursion = fmt.luma_excursion
+                vf.luma_offset = fmt.luma_offset
+                vf.color_diff_excursion = fmt.color_diff_excursion
+                vf.color_diff_offset = fmt.color_diff_offset
+        if not _unset_or(fmt.pixel_aspect_ratio, base.pixel_aspect_ratio):
+            vf.custom_pixel_aspect_ratio_flag = True
+            vf.pixel_aspect_ratio = int(fmt.pixel_aspect_ratio)
+            if vf.pixel_aspect_ratio == 0:
+                vf.pixel_aspect_ratio_numer = fmt.pixel_aspect_ratio_numer
+                vf.pixel_aspect_ratio_denom = fmt.pixel_aspect_ratio_denom
+        clean_set = (fmt.clean_height != -1 or fmt.clean_width != -1
+                     or fmt.left_offset != -1 or fmt.top_offset != -1)
+        clean_differs = (fmt.clean_height != base.clean_height
+                         or fmt.clean_width != base.clean_width
+                         or fmt.left_offset != base.left_offset
+                         or fmt.top_offset != base.top_offset)
+        if clean_set and clean_differs:
+            vf.custom_clean_area_flag = True
+            vf.clean_height = fmt.clean_height
+            vf.clean_width = fmt.clean_width
+            vf.left_offset = fmt.left_offset
+            vf.top_offset = fmt.top_offset
+        elif vf.custom_dimensions_flag and not clean_set:
+            vf.custom_clean_area_flag = True
+            vf.clean_height = vf.frame_height
+            vf.clean_width = vf.frame_width
+            vf.left_offset = 0
+            vf.top_offset = 0
+        if not _unset_or(fmt.color_spec, base.color_spec):
+            vf.custom_color_spec_flag = True
+            vf.color_spec = int(fmt.color_spec)
+        if fmt.color_spec == int(CS.CS_CUSTOM):
+            if fmt.color_primaries != base.color_primaries:
+                vf.custom_color_primaries_flag = True
+                vf.color_primaries = fmt.color_primaries
+            if fmt.color_matrix != base.color_matrix:
+                vf.custom_color_matrix_flag = True
+                vf.color_matrix = fmt.color_matrix
+            if fmt.transfer_function != base.transfer_function:
+                vf.custom_transfer_function_flag = True
+                vf.transfer_function = fmt.transfer_function
+    return vf
+
+
+def write_video_format(w: BitWriter, vf: VideoFormat) -> None:
+    """Reference operator<<(ostream&, const video_format&)
+    DataUnit.cpp:786-881."""
+    w.unbounded()
+    for v in (vf.major_version, vf.minor_version, vf.profile, vf.level,
+              vf.base_video_format):
+        w.put_uvlc(v)
+    w.put_bool(vf.custom_dimensions_flag)
+    if vf.custom_dimensions_flag:
+        w.put_uvlc(vf.frame_width)
+        w.put_uvlc(vf.frame_height)
+    w.put_bool(vf.custom_color_diff_format_flag)
+    if vf.custom_color_diff_format_flag:
+        w.put_uvlc(vf.color_diff_format)
+    w.put_bool(vf.custom_scan_format_flag)
+    if vf.custom_scan_format_flag:
+        w.put_uvlc(vf.source_sampling)
+    w.put_bool(vf.custom_frame_rate_flag)
+    if vf.custom_frame_rate_flag:
+        w.put_uvlc(vf.frame_rate)
+        if vf.frame_rate == 0:
+            w.put_uvlc(vf.frame_rate_numer)
+            w.put_uvlc(vf.frame_rate_denom)
+    w.put_bool(vf.custom_pixel_aspect_ratio_flag)
+    if vf.custom_pixel_aspect_ratio_flag:
+        w.put_uvlc(vf.pixel_aspect_ratio)
+        if vf.pixel_aspect_ratio == 0:
+            w.put_uvlc(vf.pixel_aspect_ratio_numer)
+            w.put_uvlc(vf.pixel_aspect_ratio_denom)
+    w.put_bool(vf.custom_clean_area_flag)
+    if vf.custom_clean_area_flag:
+        for v in (vf.clean_width, vf.clean_height, vf.left_offset,
+                  vf.top_offset):
+            w.put_uvlc(v)
+    w.put_bool(vf.custom_signal_range_flag)
+    if vf.custom_signal_range_flag:
+        w.put_uvlc(vf.bitdepth)
+        if vf.bitdepth == 0:
+            for v in (vf.luma_offset, vf.luma_excursion, vf.color_diff_offset,
+                      vf.color_diff_excursion):
+                w.put_uvlc(v)
+    w.put_bool(vf.custom_color_spec_flag)
+    if vf.custom_color_spec_flag:
+        w.put_uvlc(vf.color_spec)
+        if vf.color_spec == int(CS.CS_CUSTOM):
+            w.put_bool(vf.custom_color_primaries_flag)
+            if vf.custom_color_primaries_flag:
+                w.put_uvlc(vf.color_primaries)
+            w.put_bool(vf.custom_color_matrix_flag)
+            if vf.custom_color_matrix_flag:
+                w.put_uvlc(vf.color_matrix)
+            w.put_bool(vf.custom_transfer_function_flag)
+            if vf.custom_transfer_function_flag:
+                w.put_uvlc(vf.transfer_function)
+    # picture coding mode, reusing source_sampling (reference quirk)
+    w.put_uvlc(vf.source_sampling)
+    w.align()
 
 
 def read_video_format(r: BitReader) -> VideoFormat:

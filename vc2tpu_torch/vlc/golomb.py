@@ -1,0 +1,61 @@
+"""Interleaved exp-Golomb codes.
+
+The wire format (reference src/Library/src/VLC.cpp:21-94): unsigned value
+v is coded as u = v+1; for each bit of u below its top bit, MSB first,
+emit a 0 "follow" bit then the data bit; terminate with a 1. Signed values
+append a sign bit (1 = negative) when v != 0.
+
+``signed_codes`` codes every element of a tensor at once (plain torch
+ops, int64 with masks: torch has no unsigned shifts, clz or popcount on
+the CPU). Every int32 value codes in at most 64 bits (|v|+1 <= 2^31+1,
+2 * 32 bits) and the first bit of a code longer than one bit is a 0
+follow bit, so a code always fits a non-negative int64. The scalar
+encoders serve the stream headers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def encode_unsigned_scalar(value: int) -> tuple[int, int]:
+    """(nbits, bits) of the unsigned code of one value."""
+    if value == 0:
+        return 1, 1
+    u = value + 1
+    k = u.bit_length()
+    bits = 0
+    for j in range(k - 2, -1, -1):
+        bits <<= 2
+        if (u >> j) & 1:
+            bits |= 1
+    bits = (bits << 1) | 1
+    return 2 * (k - 1) + 1, bits
+
+
+def encode_signed_scalar(value: int) -> tuple[int, int]:
+    if value == 0:
+        return 1, 1
+    nbits, bits = encode_unsigned_scalar(abs(value))
+    bits <<= 1
+    if value < 0:
+        bits |= 1
+    return nbits + 1, bits
+
+
+def signed_codes(values: torch.Tensor):
+    """Signed interleaved exp-Golomb code of each int32 element: (code,
+    nbits), both int64; the code is the low ``nbits`` bits, MSB first on
+    the wire. Code bit string: [0 u_{k-2} 0 u_{k-3} .. 0 u_0 1 s] where
+    u = |v|+1 (k bits) and s the sign; zero codes as the single bit 1."""
+    v = values.to(torch.int64)
+    u = v.abs() + 1
+    k = torch.zeros_like(u)                    # bit length of u, 1..32
+    for j in range(33):
+        k += (u >= (1 << j)).to(torch.int64)
+    m = u - (1 << (k - 1))                     # u below its top bit
+    spread = torch.zeros_like(u)
+    for j in range(31):
+        spread |= ((m >> j) & 1) << (2 * j)
+    code = (((spread << 1) | 1) << 1) | (v < 0).to(torch.int64)
+    return torch.where(v == 0, 1, code), torch.where(v == 0, 1, 2 * k)

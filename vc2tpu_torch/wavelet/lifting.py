@@ -435,18 +435,31 @@ def wavelet_pad(plane: torch.Tensor, depth: int) -> torch.Tensor:
     return plane.index_select(-2, rows).index_select(-1, cols)
 
 
-def forward_plane(plane: torch.Tensor, kernel: WaveletKernel,
-                  depth: int) -> torch.Tensor:
-    """Forward DWT of an already-padded plane, in-place transform layout
-    (reference WaveletTransform.cpp:262-281)."""
-    x = plane.to(torch.int32).contiguous()
+def forward_planes(planes, kernel: WaveletKernel, depth: int) -> list:
+    """Forward DWT of several already-padded planes at once, in-place
+    transform layout (reference WaveletTransform.cpp:262-281): one
+    ``lift_levels`` call a level for all the planes, finest first, level
+    ``l`` reading the previous level's ``x[::2**l, ::2**l]`` sub-lattice in
+    place. On the card that is one kernel launch a level; each coarser
+    level's compact result goes back into its sub-lattice by a strided
+    copy. Returns contiguous int32 planes (new ones when depth > 0)."""
+    xs = [p if p.dtype == torch.int32 and p.is_contiguous()
+          else p.to(torch.int32).contiguous() for p in planes]
     for level in range(depth):
         s = 1 << level
+        outs = lift_levels(xs, kernel, stride=s)
         if s == 1:
-            x = lift_level(x, kernel)
+            xs = outs
         else:
-            x[::s, ::s] = lift_levels([x], kernel, stride=s)[0]
-    return x
+            for x, o in zip(xs, outs):
+                x[::s, ::s] = o
+    return xs
+
+
+def forward_plane(plane: torch.Tensor, kernel: WaveletKernel,
+                  depth: int) -> torch.Tensor:
+    """Forward DWT of one plane (``forward_planes`` of one)."""
+    return forward_planes([plane], kernel, depth)[0]
 
 
 def inverse_planes(transforms, kernel: WaveletKernel, depth: int) -> list:
