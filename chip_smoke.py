@@ -22,18 +22,23 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    random-bytes payload whose CTAs span more than a window (peeks from
    device memory) and on lanes too many for the shared tile (integer ==);
    the native chain scan against the Python loop on both fixtures;
-4. hold the pack kernel against its plain version (bytes, totals and
-   flags equal) on the 1080p ConstQ quantised lanes, seeded random lanes
-   with codes longer than 32 bits, all-zero slices, prefix 3 / scalar 2, a
-   CBR fill, slices larger than the kernel's window, and a case for each
-   flag; ``quant`` on the card against ``quant`` on the CPU;
+4. hold the pack kernel against its plain version (bytes, totals, flags
+   and the quantised lanes equal): fused, on the 1080p ConstQ transform
+   lanes, at every q 0-119 over values up to +-(2^31 - 1) and INT_MIN,
+   on slice counts that leave a ragged last tile and on slices served by
+   groups of 16 threads; from quantised lanes, on the 1080p ConstQ lanes,
+   seeded random lanes with codes longer than 32 bits, all-zero slices,
+   prefix 3 / scalar 2, a CBR fill, slices larger than the kernel's
+   window and a case for each flag; a flagged call and a short buffer,
+   with guard bytes after the buffer that must stay untouched; ``quant``
+   on the card against ``quant`` on the CPU;
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
    package's decode; lift 2 launches a picture, unpack 1); encode the
    1080p ConstQ input (``make_1080p.make_input``) with the encode CLI
    (bytes equal to ``constq_1080p.vc2``, its decode at the recorded
-   SHA-256; lift 2, pack 2); then every non-fragmented HQ golden of
+   SHA-256; lift 2, pack 1); then every non-fragmented HQ golden of
    ``tests/golden`` decodes, and every ConstQ golden and ConstQ tap
    encodes, byte-identically;
 6. times on the card: end-to-end decode and encode frames/s, the
@@ -44,10 +49,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
 ``ms`` is one picture's launches timed with CUDA events as the host issues
-them (the pack's two launches with the synchronisation between them), so
-it counts the wrapper's time to issue a launch where that is longer than
-the card's to run it; ``device_ms`` is the card's time alone: the card
-sleeps while the host queues the launches (``time_device(queued=True)``).
+them (the pack's launch with its one synchronisation), so it counts the
+wrapper's time to issue a launch where that is longer than the card's to
+run it; ``device_ms`` is the card's time alone: the card sleeps while the
+host queues the launches (``time_device(queued=True)``).
 """
 
 from __future__ import annotations
@@ -407,8 +412,9 @@ def check_unpack(torch, np, rng, dev, streams):
 
 
 def encode_1080p_lanes(torch, dev, picture):
-    """(encoder, quantised lanes, q indices, transform planes) of the
-    1080p ConstQ fixture's picture on the card."""
+    """(encoder, transform lanes, quantised lanes, q indices, transform
+    planes) of the 1080p ConstQ fixture's picture on the card; the
+    quantised lanes by ``quantise`` (torch ops), for the pack's cases."""
     from vc2tpu_torch.cli import encode_stream
     from vc2tpu_torch.pipeline import encoder as enc_mod
 
@@ -419,9 +425,9 @@ def encode_1080p_lanes(torch, dev, picture):
     planes = enc_mod.upload_picture(picture, cfg.bytes_per_sample, dev)
     transform = enc_mod.analyse(planes, cfg.kernel, d)
     q_idx = enc.q_indices()
-    lanes = enc_mod.quantise(enc_mod.planes_to_lanes(transform, geo, d),
-                             q_idx, enc.qmatrix, d, geo)
-    return enc, lanes, q_idx, transform
+    tlanes = enc_mod.planes_to_lanes(transform, geo, d)
+    qlanes = enc_mod.quantise(tlanes, q_idx, enc.qmatrix, d, geo)
+    return enc, tlanes, qlanes, q_idx, transform
 
 
 def fixture_encode_args() -> list:
@@ -431,9 +437,17 @@ def fixture_encode_args() -> list:
     return cmd[cmd.index("vc2tpu.cli.encode_stream") + 1:-2]
 
 
-def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
-    """The pack kernel against its plain version, and quant on the card
-    against quant on the CPU. Returns (max |err|, number of cases)."""
+def tiles_of(dp, n: int, ly: int, lc: int) -> str:
+    per = dp.THREADS // dp.group_size(ly, lc)
+    return (f"{-(-n // per)} tiles of {per} slices, the last "
+            f"{n - per * (-(-n // per) - 1)}")
+
+
+def check_pack(torch, np, rng, dev, enc, tlanes, qlanes, q_1080p, transform):
+    """The pack kernel against its plain version: fused (transform lanes
+    quantised in the kernel) and from quantised lanes; its stores bounded
+    by the buffer; quant on the card against quant on the CPU. Returns
+    (max |err|, number of cases)."""
     from vc2tpu_torch.quant.quantiser import quant
     from vc2tpu_torch.slices import layout
     from vc2tpu_torch.vlc import device_pack as dp
@@ -441,14 +455,69 @@ def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
     def t(a):
         return torch.as_tensor(np.array(a), device=dev)
 
-    def lanes_of(n, span, zero_frac):
+    def lanes_of(n, span, zero_frac, lengths=(32, 16, 16)):
         out = []
-        for length, s in ((32, span), (16, span >> 2), (16, span >> 2)):
+        for length, s in zip(lengths, (span, span >> 2, span >> 2)):
             v = rng.integers(-s, s + 1, (n, length))
             v[rng.random((n, length)) < zero_frac] = 0
             out.append(t(v.astype(np.int32)))
         return out
 
+    def same(name, got, want, got_flags, want_flags, expected):
+        check(got_flags == want_flags == expected,
+              f"{name}: flags {got_flags}, plain {want_flags}, expected "
+              f"{expected}")
+        check(got.shape == want.shape and bool(torch.equal(got, want)),
+              f"{name}: buffers differ ({got.numel()} and {want.numel()} "
+              "bytes)")
+
+    n_cases = 0
+    # fused: transform lanes in, quantised in the kernel
+    full = [np.iinfo(np.int32).min, np.iinfo(np.int32).max]
+    n = 1200                                 # every q 0-119, 10 slices each
+    wild = [rng.integers(full[0], full[1], (n, length), dtype=np.int64,
+                         endpoint=True).astype(np.int32)
+            for length in (32, 16, 16)]
+    wild[0][::3, 0] = full[0]
+    wild[0][1::3, 1] = full[1]
+    wild[1][::5, 2] = -(1 << 30)
+    wild[2][::7, 3] = (1 << 30) - 1
+    wild[2][rng.random(wild[2].shape) < 0.3] = 0
+    qm_wild = (t(rng.integers(0, 12, 32).astype(np.int32)),
+               t(rng.integers(0, 12, 16).astype(np.int32)))
+    q_wild = t((np.arange(n) % 120).astype(np.int32))
+    qm_1080p = enc.qm
+    mid = lanes_of(50, 1 << 12, 0.4, (256, 128, 128))
+    mid_qm = (t(rng.integers(0, 8, 256).astype(np.int32)),
+              t(rng.integers(0, 8, 128).astype(np.int32)))
+    fused = [  # name, lanes, q, qm, prefix, scalar, CBR budgets
+        ("1080p ConstQ transform lanes", tlanes, q_1080p, qm_1080p, 0, 1,
+         None),
+        ("q 0-119, |v| up to 2^31, INT_MIN", [t(w) for w in wild], q_wild,
+         qm_wild, 0, 64, None),
+        ("ragged: 321 slices", [x[:321].contiguous() for x in tlanes],
+         q_1080p[:321].contiguous(), qm_1080p, 2, 3, None),
+        ("ragged: 3 slices", [x[:3].contiguous() for x in tlanes],
+         q_1080p[:3].contiguous(), qm_1080p, 0, 1, None),
+        ("groups of 16 threads, 50 slices", mid,
+         t(rng.integers(0, 60, 50).astype(np.int32)), mid_qm, 1, 4, None),
+    ]
+    for name, lanes, q, qm, prefix, scalar, sizes in fused:
+        got, got_flags, kept = dp.quant_pack_hq(*lanes, q, *qm, prefix,
+                                                scalar, sizes,
+                                                keep_lanes=True)
+        want, plain_flags, want_kept = dp.quant_pack_hq_plain(
+            *lanes, q, *qm, prefix, scalar, sizes, keep_lanes=True)
+        torch.cuda.synchronize()
+        same(f"quant_pack_hq {name}", got, want, got_flags, plain_flags, 0)
+        check(all(bool(torch.equal(a, b)) for a, b in zip(kept, want_kept)),
+              f"quant_pack_hq {name}: quantised lanes differ")
+        n_cases += 1
+        ly, lc = lanes[0].shape[1], lanes[1].shape[1]
+        print(f"  pack (fused) {name}: {got.numel()} bytes and the "
+              f"quantised lanes equal; {tiles_of(dp, q.numel(), ly, lc)}")
+
+    # quantised lanes in
     n = 64800
     rand = lanes_of(n, 1 << 20, 0.5)
     rand[0][::97, 5] = (1 << 30) + 12345           # codes of 62 bits
@@ -466,12 +535,13 @@ def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
     wide = layout.slice_bytes_map(270, 240, 270 * 240 * 400, 1).ravel()
     tight = layout.slice_bytes_map(270, 240, 270 * 240 * 8, 1).ravel()
     cases = [  # name, lanes, q, prefix, scalar, CBR budgets, expected flags
-        ("1080p ConstQ lanes", lanes_1080p, q_1080p, 0, 1, None, 0),
+        ("1080p ConstQ lanes", qlanes, q_1080p, 0, 1, None, 0),
         ("random, codes over 32 bits", rand, q_rand, 0, 8, None, 0),
         ("all-zero slices", zeros, q_rand, 0, 1, None, 0),
         ("prefix 3 scalar 2", small, q_rand, 3, 2, None, 0),
         ("CBR fill", tiny, q_rand, 1, 2, t(budgets), 0),
-        ("slices over the window", big, q_m, 1, 256, None, 0),
+        ("slices over the window, lanes read twice", big, q_m, 1, 256, None,
+         0),
         ("flag SCALAR", big, q_m, 0, 8, None, dp.FLAG_SCALAR),
         ("flag QINDEX", small, q_rand + 200, 0, 1, None, dp.FLAG_QINDEX),
         ("flag CBR_FIT", rand, q_rand, 0, 1, t(tight), dp.FLAG_CBR_FIT),
@@ -482,16 +552,43 @@ def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
         want, plain_flags = dp.pack_hq_plain(*lanes, q, prefix, scalar,
                                              sizes)
         torch.cuda.synchronize()
-        check(got_flags == plain_flags == want_flags,
-              f"pack_hq {name}: flags {got_flags}, plain {plain_flags}, "
-              f"expected {want_flags}")
-        check(got.shape == want.shape and bool(torch.equal(got, want)),
-              f"pack_hq {name}: buffers differ ({got.numel()} and "
-              f"{want.numel()} bytes)")
+        same(f"pack_hq {name}", got, want, got_flags, plain_flags,
+             want_flags)
+        n_cases += 1
+        tiles = tiles_of(dp, q.numel(), lanes[0].shape[1], lanes[1].shape[1])
         print(f"  pack {name}: {got.numel()} bytes equal, flags "
-              f"{got_flags}")
-    print(f"pack kernel == plain: {len(cases)} cases, bytes, totals and "
-          "flags equal")
+              f"{got_flags}; {tiles}")
+
+    # stores bounded by the buffer: guard bytes after it stay untouched
+    guard = 4096
+    n = 256                 # three flagged tiles push the fourth past it
+    bounded = lanes_of(n, 40, 0.5, (64, 32, 32))
+    for x in bounded:
+        x[:192] = -(1 << 31)
+    q = t(np.full(n, 30, np.int32))
+    cap = dp.payload_capacity(n, 64, 32, 0, 1, False)
+    buf = torch.full((4 * n + cap + guard,), 0xA5, dtype=torch.uint8,
+                     device=dev)
+    _out, scratch = dp.launch_pack(bounded, q, 0, 1, out=buf[:4 * n + cap])
+    flags, total = scratch[1:3].tolist()
+    check(flags == dp.FLAG_SCALAR and total > cap,
+          f"guard case: flags {flags}, payload {total} of {cap} bytes")
+    check(bool((buf[4 * n + cap:] == 0xA5).all()),
+          "a flagged pack stored past its buffer")
+    # an unflagged pack into a buffer too short: its first bytes, no more
+    want, _f = dp.pack_hq_plain(*qlanes, q_1080p, 0, 1)
+    cut = want.numel() - 1000
+    buf = torch.full((cut + guard,), 0xA5, dtype=torch.uint8, device=dev)
+    dp.launch_pack(qlanes, q_1080p, 0, 1, out=buf[:cut])
+    torch.cuda.synchronize()
+    check(bool(torch.equal(buf[:cut], want[:cut]))
+          and bool((buf[cut:] == 0xA5).all()),
+          "a pack into a short buffer differs or stored past it")
+    n_cases += 2
+    print(f"  pack bounded by its buffer: a flagged call ({total} bytes "
+          f"into {cap}) and a short buffer, {guard} guard bytes untouched")
+    print(f"pack kernel == plain: {n_cases} cases, bytes, totals, flags "
+          "and quantised lanes equal")
     # quant at every adjusted index, 1080p transform samples
     for plane in transform:
         v = plane.reshape(-1)[:1 << 20]
@@ -502,7 +599,7 @@ def check_pack(torch, np, rng, dev, lanes_1080p, q_1080p, transform):
                                             "the CPU")
     print("quant on the card == quant on the CPU: the 1080p transform's "
           "three planes, q 0-119")
-    return 0, len(cases)
+    return 0, n_cases
 
 
 def main(argv) -> int:
@@ -573,10 +670,10 @@ def main(argv) -> int:
                             fmt).read_frame()
 
     picture_1080p = read_picture()
-    encoder, lanes_1080p, q_1080p, transform = encode_1080p_lanes(
-        torch, dev, picture_1080p)
-    pack_err, _n_pack = check_pack(torch, np, rng, dev, lanes_1080p,
-                                   q_1080p, transform)
+    encoder, tlanes_1080p, lanes_1080p, q_1080p, transform = (
+        encode_1080p_lanes(torch, dev, picture_1080p))
+    pack_err, _n_pack = check_pack(torch, np, rng, dev, encoder, tlanes_1080p,
+                                   lanes_1080p, q_1080p, transform)
 
     # 5. the main paths; the counts are zeroed just before each and read
     # just after
@@ -625,8 +722,8 @@ def main(argv) -> int:
     check(encode_launches["lift_level"] == 2,
           f"lift_level launched {encode_launches['lift_level']} times in the "
           "encode, expected 2")
-    check(encode_launches["hq_pack"] == 2,
-          f"hq_pack launched {encode_launches['hq_pack']} times, expected 2")
+    check(encode_launches["hq_pack"] == 1,
+          f"hq_pack launched {encode_launches['hq_pack']} times, expected 1")
 
     with open(os.path.join(GOLDEN, "meta.json")) as f:
         meta = json.load(f)
@@ -742,7 +839,7 @@ def main(argv) -> int:
     edepth = cfg.wavelet_depth
 
     def staged_encode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(9)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         planes = enc_mod.upload_picture(picture_1080p, cfg.bytes_per_sample,
                                         dev)
@@ -751,33 +848,20 @@ def main(argv) -> int:
         ev[2].record()
         lanes = enc_mod.planes_to_lanes(tr, geo, edepth)
         ev[3].record()
-        q_idx = encoder.q_indices()
-        qlanes = enc_mod.quantise(lanes, q_idx, encoder.qmatrix, edepth, geo)
+        buf, flags, _ = dp.quant_pack_hq(*lanes, encoder.q_indices(),
+                                         *encoder.qm, cfg.slice_prefix,
+                                         cfg.slice_scalar)
         ev[4].record()
-        comp, totals, flags_t = dp.launch_sizes(*qlanes, q_idx,
-                                                cfg.slice_prefix,
-                                                cfg.slice_scalar)
-        ev[5].record()
-        ends = torch.cumsum(totals, 0, dtype=torch.int64)
-        total, flags = torch.cat([ends[-1:],
-                                  flags_t.to(torch.int64)]).tolist()
-        ev[6].record()
         check(flags == 0, "flags in the staged encode")
-        buf = dp.launch_write(*qlanes, q_idx, comp, totals, ends - totals,
-                              total, cfg.slice_prefix, cfg.slice_scalar)
-        ev[7].record()
         buf.cpu()
-        ev[8].record()
+        ev[5].record()
         torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(8)]
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
 
     labels = ["encode device: H2D of the samples (int16)",
               "encode device: pad + forward_planes (2 lift launches)",
               "encode device: plane_to_lanes",
-              "encode device: quantise",
-              "encode device: pack launch 1 (sizes)",
-              "encode device: scan of the slice sizes + sync",
-              "encode device: pack launch 2 (write)",
+              "encode device: quantise + pack (1 launch, 1 sync)",
               "encode device: D2H of totals + payload"]
     staged_encode()
     rows = [staged_encode() for _ in range(REPS)]
@@ -790,13 +874,14 @@ def main(argv) -> int:
         lambda: StreamWriter(io.BytesIO()).write_picture(0, preamble,
                                                          payload))
 
-    times = kernel_times(torch, job, dev, lanes_1080p, q_1080p, cfg)
+    times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
-    report_busy(torch, "pack_hq of the 1080p lanes",
-                lambda: dp.pack_hq(*lanes_1080p, q_1080p, cfg.slice_prefix,
-                                   cfg.slice_scalar), card)
+    report_busy(torch, "quant_pack_hq of the 1080p transform lanes",
+                lambda: dp.quant_pack_hq(*tlanes_1080p, q_1080p, *encoder.qm,
+                                         cfg.slice_prefix, cfg.slice_scalar),
+                card)
 
     # kernel table: time, plain time, bound
     # each level's samples read once and written once
@@ -821,13 +906,20 @@ def main(argv) -> int:
     unpack_ops = 20 * sum(t.numel() for t in lanes) + 3 * ndata
     unpack_bound, unpack_by = bound_ms(unpack_bytes, unpack_ops)
 
-    # the pack: the lanes and q indices read once, the totals and the
-    # payload written once; ~20 integer operations a lane in each launch
-    n_lanes = sum(t.numel() for t in lanes_1080p)
+    # the fused pack: the transform lanes, the q indices and the quant
+    # matrix tables read once, the totals and the payload written once.
+    # Operations: a lane's quantise (index, magnitude, the division as a
+    # multiply-high by the factor's reciprocal and its fix of sign, 12),
+    # code length and sums (8); a non-zero quantised lane's code and its
+    # append (30); each run of zeros before it is one more append (8)
+    n_lanes = sum(t.numel() for t in tlanes_1080p)
     n_slices = q_1080p.numel()
-    pack_bytes = 4 * n_lanes + 4 * n_slices + 4 * n_slices + times[
-        "pack_payload_bytes"]
-    pack_bound, pack_by = bound_ms(pack_bytes, 40 * n_lanes)
+    n_nonzero = sum(int(torch.count_nonzero(t).item()) for t in lanes_1080p)
+    pack_bytes = (4 * n_lanes + 4 * n_slices
+                  + 4 * sum(t.numel() for t in encoder.qm) + 4 * n_slices
+                  + times["pack_payload_bytes"])
+    pack_bound, pack_by = bound_ms(pack_bytes,
+                                   20 * n_lanes + 38 * n_nonzero)
 
     def launches(k):
         return decode_launches[k] + encode_launches[k]
@@ -866,6 +958,10 @@ def main(argv) -> int:
          "bound_ms": pack_bound, "bound_by": pack_by,
          "library_ms": None},
     ]
+    todo = unported_bounds(n_lanes, tlanes_1080p[0].numel(), n_slices)
+    print("bounds of the XLA functions still to port, 1080p: "
+          + ", ".join(f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in
+                      todo.items()))
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture "
               f"(device alone {k['device_ms']:.4f} ms), bound "
@@ -881,12 +977,35 @@ def main(argv) -> int:
     return 0
 
 
-def kernel_times(torch, job, dev, qlanes, q_idx, cfg) -> dict:
+def unported_bounds(n_lanes: int, n_luma: int, n_slices: int) -> dict:
+    """Bounds (ms, and what bounds them) of the XLA functions still to port,
+    from the 1080p shapes: ``n_lanes`` int32 lanes (``n_luma`` of them
+    luma) in ``n_slices`` slices, and the 829 440-byte pictures of the
+    HQ CBR and LD 1080p configurations (``bench.py``). Operation counts a
+    lane are estimates of the work each function must do: a pack or an
+    unpack ~40 (quantised lane to code and back, its place); the CBR
+    search 7 bisection probes of ~15 (a division-free trial quantise and
+    code length) and 4 hill-climb candidates of ~20 on the luma lanes (a
+    trial quantise, its inverse, a squared error); the LD rate control 7
+    probes of ~15. The LD wavefront's 374 dependent steps are not in the
+    bound."""
+    lanes_b, picture_b, index_b = 4 * n_lanes, 829440, 4 * n_slices
+    return {
+        "pack_ld_core": bound_ms(lanes_b + picture_b, 40 * n_lanes),
+        "unpack_ld_lanes": bound_ms(picture_b + lanes_b, 40 * n_lanes),
+        "cbr_quant_indices": bound_ms(lanes_b + 2 * index_b,
+                                      7 * 15 * n_lanes + 4 * 20 * n_luma),
+        "ld_rate_control": bound_ms(lanes_b + 2 * index_b,
+                                    7 * 15 * n_lanes),
+    }
+
+
+def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
     """Times of one 1080p picture's kernel work at the main paths' shapes:
     ``*_ms`` as the host issues it (the lift's two decode levels once; the
-    unpack 10 times back to back; the pack's two launches with the scan and
-    the synchronisation between them), ``*_device_ms`` queued (the device's
-    time alone; the pack's total is read once beforehand, so nothing
+    unpack 10 times back to back; the fused pack's launch with its one
+    synchronisation), ``*_device_ms`` queued (the device's time alone; the
+    pack's launch without the read of its size and flags, so nothing
     synchronises), ``*_plain_ms`` of the plain versions."""
     from vc2tpu_torch.pipeline import decoder as pipe
     from vc2tpu_torch.vlc import device_pack as dp
@@ -917,15 +1036,15 @@ def kernel_times(torch, job, dev, qlanes, q_idx, cfg) -> dict:
     def unpack():
         return du.unpack_hq(pay, dstart, clen, ly, lc)
 
-    prefix, scalar = cfg.slice_prefix, cfg.slice_scalar
-    buf, _flags = dp.pack_hq(*qlanes, q_idx, prefix, scalar)
+    prefix, scalar = enc.cfg.slice_prefix, enc.cfg.slice_scalar
+    buf, _flags, _ = dp.quant_pack_hq(*tlanes, q_idx, *enc.qm, prefix, scalar)
     total = buf.numel() - 4 * q_idx.numel()
 
+    def pack():
+        return dp.quant_pack_hq(*tlanes, q_idx, *enc.qm, prefix, scalar)
+
     def pack_queued():
-        comp, totals, _f = dp.launch_sizes(*qlanes, q_idx, prefix, scalar)
-        ends = torch.cumsum(totals, 0, dtype=torch.int64)
-        dp.launch_write(*qlanes, q_idx, comp, totals, ends - totals, total,
-                        prefix, scalar)
+        dp.launch_pack(tlanes, q_idx, prefix, scalar, qm=enc.qm)
 
     return {
         "lift_ms": time_device(torch, lift),
@@ -937,13 +1056,12 @@ def kernel_times(torch, job, dev, qlanes, q_idx, cfg) -> dict:
                                         queued=True),
         "unpack_plain_ms": time_device(
             torch, lambda: du.unpack_hq_plain(pay, dstart, clen, ly, lc)),
-        "pack_ms": time_device(
-            torch, lambda: dp.pack_hq(*qlanes, q_idx, prefix, scalar)),
+        "pack_ms": time_device(torch, pack),
         "pack_device_ms": time_device(torch, pack_queued, KERNEL_INNER,
                                       queued=True),
         "pack_plain_ms": time_device(
-            torch, lambda: dp.pack_hq_plain(*qlanes, q_idx, prefix, scalar),
-            reps=3),
+            torch, lambda: dp.quant_pack_hq_plain(*tlanes, q_idx, *enc.qm,
+                                                  prefix, scalar), reps=3),
         "pack_payload_bytes": total,
         "plane_samples": [p.numel() for p in planes],
     }

@@ -283,7 +283,79 @@ def test_pack_kernel_matches_plain(case, cuda):
     torch.cuda.synchronize()
     assert got_flags == want_flags == flags
     assert got.shape == want.shape and torch.equal(got, want)
-    assert dp.pack_hq.launches == launches + (1 if flags else 2)
+    assert dp.pack_hq.launches == launches + 1
+
+
+FUSED_CASES = ["every_q", "ragged", "group16", "cbr_prefix"]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_quant_pack_kernel_matches_plain(case, cuda):
+    """Transform lanes quantised in the kernel: every q 0-119 (the wrapped
+    factors at 116-119 included) over the whole int32 range and INT_MIN;
+    slice counts that leave a ragged last tile; slices served by groups of
+    16 threads; a CBR fill with a prefix."""
+    rng = np.random.default_rng(50 + FUSED_CASES.index(case))
+    n, lengths, span, prefix, scalar, sizes = 321, (64, 32, 32), 1 << 12, \
+        0, 1, None
+    if case == "every_q":
+        n, span, scalar = 1200, 1 << 31, 64
+    elif case == "group16":
+        n, lengths, scalar = 50, (256, 128, 128), 16
+    elif case == "cbr_prefix":
+        prefix, scalar, span = 2, 2, 16
+        sizes = torch.from_numpy(np.array(layout.slice_bytes_map(
+            1, n, n * 200, scalar).ravel())).to(cuda)
+    lanes = []
+    for length in lengths:
+        v = rng.integers(-span, span, (n, length), dtype=np.int64)
+        v[rng.random(v.shape) < 0.3] = 0
+        lanes.append(v.astype(np.int32))
+    if case == "every_q":
+        lanes[0][::3, 0] = -(1 << 31)
+        lanes[1][::5, 1] = (1 << 31) - 1
+    lanes = [torch.from_numpy(v).to(cuda) for v in lanes]
+    qm = [torch.from_numpy(rng.integers(0, 12, length).astype(np.int32))
+          .to(cuda) for length in lengths[:2]]
+    q = torch.from_numpy((np.arange(n) % 120).astype(np.int32)).to(cuda)
+    launches = dp.pack_hq.launches
+    got, got_flags, kept = dp.quant_pack_hq(*lanes, q, *qm, prefix, scalar,
+                                            sizes, keep_lanes=True)
+    want, want_flags, want_kept = dp.quant_pack_hq_plain(
+        *lanes, q, *qm, prefix, scalar, sizes, keep_lanes=True)
+    torch.cuda.synchronize()
+    assert got_flags == want_flags == 0
+    assert got.shape == want.shape and torch.equal(got, want)
+    for g, w in zip(kept, want_kept):
+        assert torch.equal(g, w)
+    assert dp.pack_hq.launches == launches + 1
+
+
+@pytest.mark.parametrize("case", ["flagged", "short_buffer"])
+def test_pack_kernel_stays_in_its_buffer(case, cuda):
+    """Guard bytes after the buffer stay untouched: a flagged call whose
+    slices need more than the buffer holds, and an unflagged call into a
+    buffer too short for its payload (its first bytes are still right)."""
+    rng = np.random.default_rng(7)
+    n, guard = 256, 4096
+    lanes = _lanes(rng, n, 40, 0.5, cuda)
+    q = torch.full((n,), 30, dtype=torch.int32, device=cuda)
+    want, _ = dp.pack_hq_plain(*lanes, q, 0, 1)
+    if case == "flagged":
+        for x in lanes:
+            x[:192] = -(1 << 31)
+        cap = dp.payload_capacity(n, 64, 32, 0, 1, False)
+        size = 4 * n + cap
+    else:
+        size = want.numel() - 100
+    buf = torch.full((size + guard,), 0xA5, dtype=torch.uint8, device=cuda)
+    _out, scratch = dp.launch_pack(lanes, q, 0, 1, out=buf[:size])
+    flags, total = scratch[1:3].tolist()
+    assert bool((buf[size:] == 0xA5).all())
+    if case == "flagged":
+        assert flags == dp.FLAG_SCALAR and 4 * n + total > size
+    else:
+        assert flags == 0 and torch.equal(buf[:size], want[:size])
 
 
 @pytest.mark.parametrize("case", CONSTQ)

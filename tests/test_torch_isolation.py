@@ -120,20 +120,27 @@ class _KernelReached(Exception):
     pass
 
 
-def test_cuda_lanes_never_take_the_plain_route(monkeypatch):
+@pytest.mark.parametrize("entry", ["pack_hq", "quant_pack_hq"])
+def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
     def plain(*_a, **_k):
-        raise AssertionError("pack_hq took the plain route for CUDA lanes")
+        raise AssertionError(f"{entry} took the plain route for CUDA lanes")
 
     def kernel(*_a, **_k):
         raise _KernelReached
 
     monkeypatch.setattr(device_pack, "pack_hq_plain", plain)
-    monkeypatch.setattr(device_pack, "launch_sizes", kernel)
+    monkeypatch.setattr(device_pack, "quant_pack_hq_plain", plain)
+    monkeypatch.setattr(device_pack, "launch_pack", kernel)
     lanes = [torch.zeros(shape, dtype=torch.int32).as_subclass(_OnCuda)
              for shape in ((4, 8), (4, 4), (4, 4), (4,))]
     assert lanes[0].device.type == "cuda"
     with pytest.raises(_KernelReached):
-        device_pack.pack_hq(*lanes, 0, 1)
+        if entry == "pack_hq":
+            device_pack.pack_hq(*lanes, 0, 1)
+        else:
+            qm = [torch.zeros(n, dtype=torch.int32).as_subclass(_OnCuda)
+                  for n in (8, 4)]
+            device_pack.quant_pack_hq(*lanes, *qm, 0, 1, keep_lanes=True)
 
 
 def test_build_needs_a_host_compiler(monkeypatch):

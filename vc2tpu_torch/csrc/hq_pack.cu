@@ -1,6 +1,8 @@
-// HQ slice payload assembly on the card: the port of the JAX package's
-// XLA function vc2tpu/vlc/device_pack.py::pack_hq_core (reference
-// src/Library/src/Slices.cpp:305-467 over VLC.cpp:21-94).
+// HQ slice payload assembly on the card, with the quantiser fused into its
+// load: the port of the JAX package's XLA function
+// vc2tpu/vlc/device_pack.py:133::pack_hq_core (reference
+// src/Library/src/Slices.cpp:305-467 over VLC.cpp:21-94), applied to the
+// output of its encoder's quant_banded (vc2tpu/quant/quantiser.py:261).
 //
 // Each slice of the payload is, in order: `prefix` zero bytes, the qIndex
 // byte, then for each component a length byte (its bytes / scalar) and its
@@ -9,32 +11,58 @@
 // codes that may fall past the bound) and zero-filled to the bound. HQ CBR
 // gives the third component the rest of the slice's byte budget.
 //
-// Two launches, one warp a slice in each:
-//   hq_pack_sizes  each lane sizes a lane's code; a warp sum and a ballot
-//                  give the bits a component uses (up to its last non-zero
-//                  coefficient), hence the scaled component bytes, the
-//                  slice total and the error flags;
-//   hq_pack_write  after an exclusive scan of the totals (torch.cumsum,
-//                  between the launches), each lane forms its code in 64
-//                  bits, a warp prefix sum of the code lengths gives its
-//                  bit offset, and the codes are ORed (shared-memory
-//                  atomics) into a window of words of the warp's slice, in
-//                  byte order with the header bytes and the zero fill; the
-//                  warp then stores the window's bytes.
-// Slices start on byte boundaries, so every byte of the payload belongs to
-// one warp: nothing is zeroed beforehand and no global atomics are needed.
-// Every int32 value codes in at most 64 bits (|v| + 1 <= 2^31 + 1), so
-// there is no overflow case and no host fallback. A slice larger than the
-// window (WINDOW_WORDS * 4 bytes) is assembled one window after another.
+// One launch. A CTA of 256 threads takes a tile of consecutive slices, its
+// tile number drawn from a ticket (atomicAdd), so a tile only waits on
+// tiles whose CTAs already run. A group of g threads (4 to 32, a power of
+// two) serves a slice: each thread takes one contiguous chunk of each
+// component's lanes, chunk (t + c) mod g of component c, so the dense low
+// bands at the head of the three components go to three threads.
+//   load     each thread reads its chunks with 16-byte loads. With the
+//            quant matrix tables given, the lanes are transform
+//            coefficients and each is quantised as it is loaded, at
+//            max(qIndex - qm[lane], 0): exact division by a 64-bit
+//            reciprocal of each factor (hq_pack_params.h; a 64-bit divide
+//            where |v| << 2 needs 34 bits), the wrapped factors at q
+//            116-119 flipping the sign. The quantised lanes are stored
+//            when asked for, and kept in shared memory (thread-major, no
+//            bank conflicts) with a bit mask of the non-zero ones;
+//   size     each thread sums its chunks' code lengths; a group scan and
+//            a group max (shuffles) give the bits before each chunk, each
+//            component's bytes, the slice total and the error flags;
+//   place    a warp scan of the totals places each slice in the tile, and
+//            a decoupled look-back over the earlier tiles' published
+//            aggregates and inclusive prefixes places the tile in the
+//            payload (no host scan, no second launch);
+//   write    the tile's byte range is assembled in a shared-memory window
+//            aligned to 16 bytes: each thread appends its chunks' codes to
+//            a 64-bit accumulator, a run of zeros (1-bit codes) and the
+//            non-zero lane after it at a time, and stores the words it
+//            fills alone; only a chunk's first and last word, and the
+//            byte-aligned header bytes, are ORed in (shared atomics). The
+//            CTA stores the window with 16-byte stores; only the edge
+//            chunks, which the neighbouring tiles share, go byte by byte.
+//            A range larger than the window (large slices, CBR at high
+//            rates) is assembled one window after another.
+// Every int32 codes in at most 64 bits (|v| + 1 <= 2^31 + 1), so there is
+// no overflow case and no host fallback. Chunks too long to keep in shared
+// memory (slices of over ~1000 lanes) are read and quantised again to be
+// written. Every store is bounded by the payload capacity the caller
+// gives, so a call whose flags are set (its payload is thrown away)
+// writes nothing past the buffer; a tile that set a flag writes none.
 //
-// What bounds it on the card: the quantised lanes read twice (once a
-// launch) and the payload written once; at 1080p that is ~5 us of memory
-// time against a few arithmetic operations a lane. This first form keeps
-// one warp a slice in both launches for simplicity: at ConstQ rates most
-// slices hold a few bytes, so most of a warp's work is the loads.
+// What bounds it on the card: the lanes read once and the payload written
+// once, ~17 MB at 1080p, ~5 us of memory time; the arithmetic (quantise,
+// code lengths, code bits) is some 50 integer operations a lane, ~3 us at
+// the card's integer rate. The design keeps every intermediate (the
+// quantised lanes, sizes, offsets) on the chip and synchronises with the
+// host once. At 1080p it takes ~30 us (chip_smoke.py, PERF.md), most of
+// it in the sizing (load, quantise, code lengths): the per-lane integer
+// work, done by one wave of 4 CTAs an SM, is what remains to cut.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "hq_pack_params.h"
 
 namespace {
 
@@ -43,19 +71,62 @@ constexpr int FLAG_CBR_FIT = 4;    // CBR: y + u leave v too few bytes
 constexpr int FLAG_QINDEX = 8;     // a qIndex exceeds 8 bits
 constexpr int FLAG_VLEN = 32;      // CBR: v's forced length byte exceeds 255
 
-constexpr int WARPS = 8;                          // slices a CTA
-constexpr int WINDOW_WORDS = 256;                 // a warp's shared window
+constexpr int THREADS = VC2_PACK_THREADS;
+constexpr int MIN_GROUP = 4;                      // threads a slice
+constexpr int MAX_TILE = THREADS / MIN_GROUP;     // slices a CTA
+constexpr int HOLD = VC2_PACK_HOLD;  // quantised lanes a thread keeps
+constexpr int WINDOW_WORDS = 1024;                // the CTA's output window
 constexpr int WINDOW_BYTES = 4 * WINDOW_WORDS;
 constexpr long long WINDOW_BITS = 8LL * WINDOW_BYTES;
 constexpr unsigned FULL = 0xffffffffu;
+// a tile's status word: 0 until published, then a state and a byte count
+constexpr unsigned long long HAS_AGGREGATE = 1ull << 62;
+constexpr unsigned long long HAS_PREFIX = 2ull << 62;
+constexpr unsigned long long VALUE_MASK = (1ull << 62) - 1;
 
-struct Lanes {
-  const int32_t* p[3];   // qy [n, len[0]], qu [n, len[1]], qv [n, len[2]]
+__constant__ int32_t QUANT_FACTORS[120] = {VC2_QUANT_FACTORS};
+__constant__ unsigned long long QUANT_RECIPROCALS[120] = {
+    VC2_QUANT_RECIPROCALS};
+
+struct PackArgs {
+  const int32_t* lanes[3];   // [n, len[c]], transform lanes when qm is set
+  int32_t* keep[3];          // quantised lanes out, or null
+  const int32_t* qm[3];      // quant matrix entry of each lane, or null
   int len[3];
+  const int32_t* q_idx;      // [n]
+  const int32_t* sizes;      // CBR byte budgets [n], or null for ConstQ
+  uint8_t* out;              // [totals int32 [n] | payload of cap bytes]
+  unsigned long long* scratch;  // [ticket, flags, total, status[tiles]]
+  long long cap;
+  int n, group, prefix, scalar;
 };
 
 __device__ __forceinline__ uint32_t magnitude(int32_t v) {
   return v < 0 ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
+}
+
+// quant(v, q) of vc2tpu_torch/quant/quantiser.py: sign(v) * ((|v| << 2) /
+// factor(q)), C division by the int32-wrapped factor, wrapped to int32.
+// For n = |v| << 2 < 2^32 the quotient is the high 64 bits of n * ceil(2^64
+// / |factor|), exact for every n < 2^32 and factor <= 2^32; from |v| >=
+// 2^30 on (|INT_MIN| included) n needs 34 bits and is divided in 64 bits.
+__device__ __forceinline__ int32_t quantise(int32_t v, int q,
+                                            const int32_t* factors,
+                                            const unsigned long long* recips) {
+  const int32_t f = factors[q];
+  const uint32_t m = magnitude(v);
+  uint32_t r;
+  if (m < (1u << 30)) {
+    const uint32_t n = m << 2;
+    const unsigned long long rc = recips[q];
+    r = static_cast<uint32_t>(
+        (static_cast<unsigned long long>(n) * static_cast<uint32_t>(rc >> 32) +
+         __umulhi(n, static_cast<uint32_t>(rc))) >> 32);
+  } else {
+    r = static_cast<uint32_t>((static_cast<unsigned long long>(m) << 2) /
+                              magnitude(f));
+  }
+  return static_cast<int32_t>(((v < 0) != (f < 0)) ? 0u - r : r);
 }
 
 // Bits of the signed interleaved exp-Golomb code of v: 1 for 0, else
@@ -75,208 +146,488 @@ __device__ __forceinline__ unsigned long long spread(uint32_t m) {
   return x;
 }
 
+// Bit j of m (< 2^16) to bit 2j.
+__device__ __forceinline__ uint32_t spread16(uint32_t x) {
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  x = (x | (x << 1)) & 0x55555555u;
+  return x;
+}
+
 // The code of v in its low nb = code_bits(v) bits, MSB first on the wire:
-// [0 u_{k-2} 0 u_{k-3} .. 0 u_0 1 s], u = |v| + 1 of k bits, s the sign.
+// [0 u_{k-2} 0 u_{k-3} .. 0 u_0 1 s], u = |v| + 1 of k bits, s the sign;
+// in 32-bit arithmetic when it fits 32 bits (|v| < 2^16).
 __device__ __forceinline__ unsigned long long code_of(int32_t v, int nb) {
   if (v == 0) return 1ull;
   const uint32_t u = magnitude(v) + 1u;
   const uint32_t low = u ^ (1u << (nb / 2 - 1));      // u below its top bit
-  return (((spread(low) << 1) | 1ull) << 1) | (v < 0 ? 1ull : 0ull);
+  const uint32_t sign = v < 0 ? 1u : 0u;
+  if (nb <= 32) return (spread16(low) << 2) | 2u | sign;
+  return (((spread(low) << 1) | 1ull) << 1) | sign;
 }
 
-__device__ __forceinline__ int warp_sum(int x) {
+__device__ __forceinline__ long long warp_sum64(long long x) {
   for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
 }
 
-__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
+// OR the byte x into the window at bit `pos` (a multiple of 8) from the
+// window's start, unless it falls outside. Word w of the window holds
+// bytes 4w..4w+3 big-endian.
+__device__ __forceinline__ void put_byte(uint32_t* win, long long pos,
+                                         uint32_t x) {
+  if (pos >= 0 && pos < WINDOW_BITS)
+    atomicOr(&win[pos >> 5], x << (24 - (pos & 31)));
 }
 
-// OR the n (1..64) bits of `code`, MSB first, into the window at bit `pos`
-// from the window's start; bits outside the window are dropped. Word w of
-// the window holds bytes 4w..4w+3 big-endian, so bit b of the window is
-// bit 31 - (b & 31) of word b >> 5.
-__device__ __forceinline__ void put_bits(uint32_t* win, long long pos, int n,
-                                         unsigned long long code) {
-  const long long end = pos + n;
-  if (end <= 0 || pos >= WINDOW_BITS) return;
-  if (end > WINDOW_BITS) {
-    const int cut = static_cast<int>(end - WINDOW_BITS);
-    code >>= cut;
-    n -= cut;
-  }
-  if (pos < 0) {
-    n += static_cast<int>(pos);
-    pos = 0;
-    code &= n >= 64 ? ~0ull : (1ull << n) - 1ull;
-  }
-  int p = static_cast<int>(pos);
-  while (n > 0) {
-    const int room = 32 - (p & 31);
-    const int take = n < room ? n : room;
-    const uint32_t mask = take == 32 ? FULL : (1u << take) - 1u;
-    const uint32_t part = static_cast<uint32_t>(code >> (n - take)) & mask;
-    atomicOr(&win[p >> 5], part << (room - take));
-    n -= take;
-    p += take;
-  }
-}
+// A thread's codes, appended one after another at a window bit position:
+// the words it fills alone are stored, its first and last word (which
+// other threads' bits may share) are ORed in. Words outside the window
+// are dropped.
+struct BitWriter {
+  uint32_t* win;
+  int word;                   // the window word the accumulator starts at
+  unsigned long long acc;     // `fill` bits, MSB first from bit 63
+  int fill;
+  bool first;
 
-__global__ void __launch_bounds__(WARPS * 32)
-hq_pack_sizes(Lanes lanes, const int32_t* __restrict__ q_idx,
-              const int32_t* __restrict__ sizes, int n, int prefix,
-              int scalar, int32_t* __restrict__ comp_bytes,
-              int32_t* __restrict__ totals, int32_t* __restrict__ flags) {
-  const int lane = threadIdx.x & 31;
-  const int slice = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (slice >= n) return;                 // whole warps leave together
-  int scaled[3];
-  for (int c = 0; c < 3; ++c) {
-    const int len = lanes.len[c];
-    const int32_t* row = lanes.p[c] + static_cast<long long>(slice) * len;
-    int bits = 0, last = -1;
-    for (int j0 = 0; j0 < len; j0 += 32) {
-      const int j = j0 + lane;
-      const int32_t v = j < len ? row[j] : 0;
-      bits += j < len ? code_bits(v) : 0;
-      const unsigned nz = __ballot_sync(FULL, v != 0);
-      if (nz) last = j0 + 31 - __clz(nz);
+  __device__ void start(uint32_t* w, long long pos) {
+    win = w;
+    word = static_cast<int>(pos >> 5);
+    fill = static_cast<int>(pos & 31);
+    acc = 0;
+    first = true;
+  }
+  __device__ void emit(uint32_t x, bool shared) {
+    if (x && word >= 0 && word < WINDOW_WORDS) {
+      if (shared) atomicOr(&win[word], x);
+      else win[word] = x;
     }
-    // the trailing zeros after the last non-zero are 1-bit codes
-    const int used = warp_sum(bits) - (len - 1 - last);
-    scaled[c] = ((used + 7) / 8 + scalar - 1) / scalar;
   }
-  if (lane) return;
-  int f = 0;
-  if (scaled[0] > 255 || scaled[1] > 255) f |= FLAG_SCALAR;
-  const int yb = scaled[0] * scalar, ub = scaled[1] * scalar;
-  int vb;
-  if (sizes) {
-    vb = sizes[slice] - 4 - yb - ub;
-    if (vb < scaled[2] * scalar) f |= FLAG_CBR_FIT;
-    if (vb / scalar > 255) f |= FLAG_VLEN;
-  } else {
-    vb = scaled[2] * scalar;
-    if (scaled[2] > 255) f |= FLAG_SCALAR;
+  __device__ void put32(uint32_t code, int n) {     // 1 <= n <= 32
+    acc |= static_cast<unsigned long long>(code) << (64 - fill - n);
+    fill += n;
+    if (fill >= 32) {
+      emit(static_cast<uint32_t>(acc >> 32), first);
+      first = false;
+      acc <<= 32;
+      fill -= 32;
+      ++word;
+    }
   }
-  if (q_idx[slice] > 255) f |= FLAG_QINDEX;
-  comp_bytes[3 * slice] = yb;
-  comp_bytes[3 * slice + 1] = ub;
-  comp_bytes[3 * slice + 2] = vb;
-  totals[slice] = prefix + 4 + yb + ub + vb;
-  if (f) atomicOr(flags, f);
+  __device__ void put(unsigned long long code, int n) {    // 1 <= n <= 64
+    if (n > 32) {
+      put32(static_cast<uint32_t>(code >> 32), n - 32);
+      n = 32;
+    }
+    put32(static_cast<uint32_t>(code), n);
+  }
+  __device__ void put_one() {                        // the code of 0
+    acc |= 1ull << (63 - fill);
+    if (++fill == 32) {
+      emit(static_cast<uint32_t>(acc >> 32), first);
+      first = false;
+      acc <<= 32;
+      fill = 0;
+      ++word;
+    }
+  }
+  __device__ bool past_window() const { return word >= WINDOW_WORDS; }
+  __device__ void finish() {
+    if (fill) emit(static_cast<uint32_t>(acc >> 32), true);
+  }
+};
+
+// Four lanes from p (those past cnt read 0): one 16-byte load where p is
+// aligned and all four are wanted.
+__device__ __forceinline__ int4 load4(const int32_t* __restrict__ p,
+                                      int cnt) {
+  if (cnt >= 4 && (reinterpret_cast<uintptr_t>(p) & 15) == 0)
+    return __ldg(reinterpret_cast<const int4*>(p));
+  return make_int4(__ldg(p), cnt > 1 ? __ldg(p + 1) : 0,
+                   cnt > 2 ? __ldg(p + 2) : 0, cnt > 3 ? __ldg(p + 3) : 0);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-hq_pack_write(Lanes lanes, const int32_t* __restrict__ q_idx,
-              const int32_t* __restrict__ comp_bytes,
-              const int32_t* __restrict__ totals,
-              const long long* __restrict__ starts, int n, int prefix,
-              int scalar, uint8_t* __restrict__ out) {
-  __shared__ uint32_t smem[WARPS * WINDOW_WORDS];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int slice = blockIdx.x * WARPS + warp;
-  if (slice >= n) return;
-  uint32_t* win = smem + warp * WINDOW_WORDS;
-  const int total = totals[slice];
-  if (lane == 0) reinterpret_cast<int32_t*>(out)[slice] = total;
-  uint8_t* dst = out + 4LL * n + starts[slice];
-  const int yb = comp_bytes[3 * slice];
-  const int ub = comp_bytes[3 * slice + 1];
-  const int vb = comp_bytes[3 * slice + 2];
-  const int data_at[3] = {prefix + 2, prefix + 3 + yb, prefix + 4 + yb + ub};
-  const int bound[3] = {8 * yb, 8 * ub, 8 * vb};
-  // lanes 0-3 each own one header byte: qIndex and the three lengths
-  int hdr_at = prefix, hdr = q_idx[slice];
-  if (lane == 1) { hdr_at = prefix + 1; hdr = yb / scalar; }
-  if (lane == 2) { hdr_at = prefix + 2 + yb; hdr = ub / scalar; }
-  if (lane == 3) { hdr_at = prefix + 3 + yb + ub; hdr = vb / scalar; }
-  for (int w0 = 0; w0 < total; w0 += WINDOW_BYTES) {
-    const long long lo = 8LL * w0;
-    const int nbytes = min(WINDOW_BYTES, total - w0);
-    for (int i = lane; i < (nbytes + 3) / 4; i += 32) win[i] = 0;
-    __syncwarp();
-    if (lane < 4) put_bits(win, 8LL * hdr_at - lo, 8, hdr & 0xFF);
-    for (int c = 0; c < 3; ++c) {
-      const int len = lanes.len[c];
-      const int32_t* row = lanes.p[c] + static_cast<long long>(slice) * len;
-      const long long at = 8LL * data_at[c] - lo;
-      int carry = 0;                       // bits of the codes before j0
-      for (int j0 = 0; j0 < len && carry < bound[c]; j0 += 32) {
-        const int j = j0 + lane;
-        const int32_t v = j < len ? row[j] : 0;
-        const int nb = j < len ? code_bits(v) : 0;
-        const int incl = warp_inclusive_scan(nb, lane);
-        const int off = carry + incl - nb;
-        const int keep = max(0, min(nb, bound[c] - off));
-        if (keep > 0)
-          put_bits(win, at + off, keep, code_of(v, nb) >> (nb - keep));
-        carry += __shfl_sync(FULL, incl, 31);
+// Lanes b..b+3 of a slice's component row (those past cnt read 0),
+// quantised at the slice's qIndex q when the component has a quant matrix
+// table.
+__device__ __forceinline__ void lanes4(int32_t (&v)[4], const PackArgs& a,
+                                       int c, long long row, int b, int cnt,
+                                       int q, const int32_t* factors,
+                                       const unsigned long long* recips) {
+  const int4 x = load4(a.lanes[c] + row + b, cnt);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+  if (a.qm[c]) {
+    const int4 m = load4(a.qm[c] + b, cnt);
+    const int32_t qm[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = quantise(v[k], min(max(q - qm[k], 0), 119), factors, recips);
+  }
+}
+
+// The look-back of warp 0: publish the tile's aggregate, add up the
+// predecessors' (each lane one tile, 32 a step) until one has published
+// its inclusive prefix, publish this tile's inclusive prefix. Returns the
+// tile's exclusive prefix (its first payload byte) on every lane.
+__device__ long long look_back(unsigned long long* status, int tile,
+                               long long agg, int lane) {
+  volatile unsigned long long* st = status;
+  // a negative aggregate comes only with a flag set; masked, it cannot
+  // pose as a state
+  const unsigned long long own = static_cast<unsigned long long>(agg) &
+                                 VALUE_MASK;
+  if (tile == 0) {
+    if (lane == 0) atomicExch(&status[0], HAS_PREFIX | own);
+    return 0;
+  }
+  if (lane == 0) atomicExch(&status[tile], HAS_AGGREGATE | own);
+  long long excl = 0;
+  for (int last = tile - 1;; last -= 32) {
+    const int pred = last - lane;
+    unsigned long long s = HAS_PREFIX;        // before tile 0: prefix 0
+    if (pred >= 0) {
+      do {
+        s = st[pred];
+      } while (s == 0);
+    }
+    const unsigned prefix = __ballot_sync(FULL, (s >> 62) == 2);
+    long long v = static_cast<long long>(s & VALUE_MASK);
+    if (prefix) {
+      const int first = __ffs(prefix) - 1;    // the nearest such tile
+      excl += warp_sum64(lane <= first ? v : 0);
+      break;
+    }
+    excl += warp_sum64(v);
+  }
+  if (lane == 0)
+    atomicExch(&status[tile], HAS_PREFIX | (static_cast<unsigned long long>(
+                                               excl + agg) & VALUE_MASK));
+  return excl;
+}
+
+__device__ __forceinline__ uint32_t byteswap(uint32_t x) {
+  return __byte_perm(x, 0, 0x0123);
+}
+
+__global__ void __launch_bounds__(THREADS, 4) hq_pack(PackArgs a) {
+  __shared__ uint32_t win[WINDOW_WORDS];
+  __shared__ int32_t s_hold[HOLD * THREADS];  // lane k of thread i at k*T+i
+  __shared__ int s_before[3][THREADS];         // code bits before a chunk
+  __shared__ uint32_t s_nonzero[3][THREADS];   // a held chunk's non-zeros
+  __shared__ int32_t s_factors[120];
+  __shared__ unsigned long long s_recips[120];
+  __shared__ long long s_start[MAX_TILE];   // byte offset within the tile
+  __shared__ int s_total[MAX_TILE];
+  __shared__ int s_bytes[MAX_TILE][3];
+  __shared__ int s_tile, s_flags;
+  __shared__ long long s_base, s_agg;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = a.group, lg = __ffs(g) - 1;
+  const int tile_slices = THREADS >> lg;
+  if (tid == 0) {
+    s_tile = static_cast<int>(atomicAdd(a.scratch, 1ull));
+    s_flags = 0;
+  }
+  for (int i = tid; i < 120; i += THREADS) {
+    s_factors[i] = QUANT_FACTORS[i];
+    s_recips[i] = QUANT_RECIPROCALS[i];
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const int s0 = tile * tile_slices;
+  const int tn = min(tile_slices, a.n - s0);
+  const int sl = tid >> lg, t = tid & (g - 1);
+  const bool live = sl < tn;
+  const int s = s0 + sl;
+  const int q = live ? a.q_idx[s] : 0;
+
+  // load, quantise and size: thread t of the group takes lanes [lo, hi)
+  // of each component, four at a time, and keeps them in shared memory
+  // when they fit (`held`; else the write reads them again)
+  const bool held = ((a.len[0] + g - 1) >> lg) +
+                        2 * ((a.len[1] + g - 1) >> lg) <= HOLD;
+  int scaled[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const int len = a.len[c];
+    const long long row = static_cast<long long>(s) * len;
+    const int chunk = (t + c) & (g - 1);
+    const int lo = (chunk * len) >> lg, hi = ((chunk + 1) * len) >> lg;
+    const int hold_at = c == 0 ? 0 : ((a.len[0] + g - 1) >> lg) +
+                                     (c - 1) * ((a.len[1] + g - 1) >> lg);
+    int bits = 0, last = -1;
+    uint32_t nonzero = 0;
+    // one lane: code bits, last non-zero, kept and held copies
+    auto take = [&](int32_t v, int j) {
+      bits += code_bits(v);
+      if (v) last = j;
+      if (a.keep[c]) a.keep[c][row + j] = v;
+      if (held) {
+        s_hold[(hold_at + j - lo) * THREADS + tid] = v;
+        if (v) nonzero |= 1u << (j - lo);
+      }
+    };
+    const int32_t* src = a.lanes[c] + row;
+    const int32_t* qm = a.qm[c];
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(src + lo) | (hi - lo) * 4 |
+          (qm ? reinterpret_cast<uintptr_t>(qm + lo) : 0)) & 15) == 0;
+    if (live && vec) {                 // 16-byte loads, four lanes a step
+#pragma unroll 4
+      for (int b = lo; b < hi; b += 4) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(src + b));
+        int32_t v[4] = {x.x, x.y, x.z, x.w};
+        if (qm) {
+          const int4 m = __ldg(reinterpret_cast<const int4*>(qm + b));
+          const int32_t mq[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = quantise(v[i], min(max(q - mq[i], 0), 119), s_factors,
+                            s_recips);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) take(v[i], b + i);
+      }
+    } else if (live) {
+      for (int j = lo; j < hi; ++j) {
+        int32_t v = __ldg(src + j);
+        if (qm)
+          v = quantise(v, min(max(q - __ldg(qm + j), 0), 119), s_factors,
+                       s_recips);
+        take(v, j);
       }
     }
-    __syncwarp();
-    for (int i = lane; i < nbytes; i += 32)
-      dst[w0 + i] = static_cast<uint8_t>(win[i >> 2] >> (24 - 8 * (i & 3)));
-    __syncwarp();
+    // the group: bits before each chunk (a scan in chunk order; chunk j
+    // is thread (j - c) mod g's), the component's bits, its last non-zero
+    int incl = bits;
+    for (int o = 1; o < g; o <<= 1) {
+      const int y = __shfl_sync(FULL, incl, (chunk - o - c) & (g - 1), g);
+      if (chunk >= o) incl += y;
+    }
+    s_before[c][tid] = incl - bits;
+    s_nonzero[c][tid] = nonzero;
+    const int total_bits = __shfl_sync(FULL, incl, (g - 1 - c) & (g - 1), g);
+    for (int o = g >> 1; o; o >>= 1)
+      last = max(last, __shfl_xor_sync(FULL, last, o, g));
+    // the trailing zeros after the last non-zero are 1-bit codes
+    const int used = total_bits - (len - 1 - last);
+    scaled[c] = ((used + 7) / 8 + a.scalar - 1) / a.scalar;
   }
-}
+  if (live && t == 0) {
+    int f = 0;
+    if (scaled[0] > 255 || scaled[1] > 255) f |= FLAG_SCALAR;
+    const int yb = scaled[0] * a.scalar, ub = scaled[1] * a.scalar;
+    int vb;
+    if (a.sizes) {
+      vb = a.sizes[s] - 4 - yb - ub;
+      if (vb < scaled[2] * a.scalar) f |= FLAG_CBR_FIT;
+      if (vb / a.scalar > 255) f |= FLAG_VLEN;
+    } else {
+      vb = scaled[2] * a.scalar;
+      if (scaled[2] > 255) f |= FLAG_SCALAR;
+    }
+    if (q > 255) f |= FLAG_QINDEX;
+    const int total = a.prefix + 4 + yb + ub + vb;
+    s_bytes[sl][0] = yb;
+    s_bytes[sl][1] = ub;
+    s_bytes[sl][2] = vb;
+    s_total[sl] = total;
+    reinterpret_cast<int32_t*>(a.out)[s] = total;
+    if (f) atomicOr(&s_flags, f);
+  }
+  __syncthreads();
 
-Lanes make_lanes(const void* qy, const void* qu, const void* qv, int ly,
-                 int lc) {
-  Lanes l;
-  l.p[0] = static_cast<const int32_t*>(qy);
-  l.p[1] = static_cast<const int32_t*>(qu);
-  l.p[2] = static_cast<const int32_t*>(qv);
-  l.len[0] = ly;
-  l.len[1] = lc;
-  l.len[2] = lc;
-  return l;
+  // place: the slices in the tile, the tile in the payload
+  if (tid < 32) {
+    constexpr int PER = MAX_TILE / 32;
+    long long part[PER], sum = 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = lane * PER + k;
+      part[k] = sum;
+      sum += i < tn ? s_total[i] : 0;
+    }
+    long long incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = lane * PER + k;
+      if (i < tn) s_start[i] = incl - sum + part[k];
+    }
+    const long long agg = __shfl_sync(FULL, incl, 31);
+    const long long base = look_back(a.scratch + 3, tile, agg, lane);
+    if (lane == 0) {
+      s_base = base;
+      s_agg = agg;
+      if (s_flags)
+        atomicOr(a.scratch + 1, static_cast<unsigned long long>(s_flags));
+      if (tile == static_cast<int>(gridDim.x) - 1)
+        a.scratch[2] = static_cast<unsigned long long>(base + agg);
+    }
+  }
+  __syncthreads();
+
+  // write, one 16-byte-aligned window of the tile's byte range at a time;
+  // bytes are stored only inside [lo_b, hi_b), the payload's capacity. A
+  // tile that set a flag writes none: the call's payload is thrown away.
+  if (s_flags) return;
+  const long long lo_b = 4LL * a.n, hi_b = lo_b + a.cap;
+  const long long a0 = lo_b + s_base, a1 = min(a0 + s_agg, hi_b);
+  for (long long wa = max(a0, lo_b) & ~15LL; wa < a1; wa += WINDOW_BYTES) {
+    // the window's chunks of 16 bytes that this tile stores
+    const long long b0 = max(wa, max(a0, lo_b));
+    const long long b1 = min(wa + WINDOW_BYTES, a1);
+    const int k0 = static_cast<int>((b0 - wa) >> 4);
+    const int k1 = static_cast<int>((b1 - wa + 15) >> 4);
+    for (int i = 4 * k0 + tid; i < 4 * k1; i += THREADS) win[i] = 0;
+    __syncthreads();
+    const long long sa = live ? a0 + s_start[sl] : 0;
+    if (live && sa + s_total[sl] > wa && sa < wa + WINDOW_BYTES) {
+      const int yb = s_bytes[sl][0], ub = s_bytes[sl][1];
+      const int vb = s_bytes[sl][2];
+      const long long rel = 8 * (sa - wa);    // the slice's first bit
+      if (t < 4) {           // thread t: qIndex (0) or a length byte
+        const int at = t == 0 ? a.prefix : t == 1 ? a.prefix + 1
+                     : t == 2 ? a.prefix + 2 + yb : a.prefix + 3 + yb + ub;
+        const int x = t == 0 ? q : (t == 1 ? yb : t == 2 ? ub : vb) / a.scalar;
+        put_byte(win, rel + 8LL * at, x & 0xFF);
+      }
+      const int data_at[3] = {a.prefix + 2, a.prefix + 3 + yb,
+                              a.prefix + 4 + yb + ub};
+      const int bound[3] = {8 * yb, 8 * ub, 8 * vb};
+#pragma unroll 1
+      for (int c = 0; c < 3; ++c) {
+        const long long at = rel + 8LL * data_at[c];
+        int off = s_before[c][tid];          // bits of the codes before
+        if (off >= bound[c] || at + off >= WINDOW_BITS || at + bound[c] <= 0)
+          continue;
+        const int len = a.len[c];
+        const long long row = static_cast<long long>(s) * len;
+        const int chunk = (t + c) & (g - 1);
+        const int lo = (chunk * len) >> lg, hi = ((chunk + 1) * len) >> lg;
+        const int hold_at = c == 0 ? 0 : ((a.len[0] + g - 1) >> lg) +
+                                         (c - 1) * ((a.len[1] + g - 1) >> lg);
+        BitWriter w;
+        w.start(win, at + off);
+        // held lanes: a run of zeros (1-bit codes, each a 1) is one put,
+        // each non-zero lane one more
+        const int n = hi - lo;
+        const uint32_t nonzero = s_nonzero[c][tid];
+        for (int j = 0; held && j < n && off < bound[c] && !w.past_window();) {
+          const uint32_t rest = nonzero >> j;         // j < n <= HOLD
+          const int z = rest ? __ffs(rest) - 1 : n - j;
+          if (!rest || off + z >= bound[c]) {   // zeros to the end or bound
+            const int ones = min(z, bound[c] - off);
+            w.put32(0xFFFFFFFFu >> (32 - ones), ones);
+            break;
+          }
+          // z zeros (z < 32), then a non-zero lane, in one put if it fits
+          const int32_t v = s_hold[(hold_at + j + z) * THREADS + tid];
+          const int nb = code_bits(v);
+          const int keep = min(nb, bound[c] - off - z);
+          const unsigned long long code = code_of(v, nb) >> (nb - keep);
+          if (z + keep <= 64) {
+            w.put((((1ull << z) - 1) << keep) | code, z + keep);
+          } else {
+            w.put32(0xFFFFFFFFu >> (32 - z), z);
+            w.put(code, keep);
+          }
+          off += z + nb;
+          j += z + 1;
+        }
+        for (int b = lo; !held && b < hi && off < bound[c] &&
+                            !w.past_window(); b += 4) {
+          int32_t v[4];
+          lanes4(v, a, c, row, b, hi - b, q, s_factors, s_recips);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (b + k < hi && off < bound[c]) {
+              if (v[k] == 0) {
+                w.put_one();
+                ++off;
+              } else {
+                const int nb = code_bits(v[k]);
+                const int keep = min(nb, bound[c] - off);
+                w.put(code_of(v[k], nb) >> (nb - keep), keep);
+                off += nb;
+              }
+            }
+          }
+        }
+        w.finish();
+      }
+    }
+    __syncthreads();
+    for (int k = k0 + tid; k < k1; k += THREADS) {
+      const long long c0 = wa + 16LL * k;
+      if (c0 >= b0 && c0 + 16 <= b1) {
+        *reinterpret_cast<uint4*>(a.out + c0) = make_uint4(
+            byteswap(win[4 * k]), byteswap(win[4 * k + 1]),
+            byteswap(win[4 * k + 2]), byteswap(win[4 * k + 3]));
+      } else {                          // an edge chunk, shared with a tile
+        for (int i = 0; i < 16; ++i) {
+          const long long b = c0 + i;
+          if (b >= b0 && b < b1)
+            a.out[b] = static_cast<uint8_t>(
+                win[4 * k + (i >> 2)] >> (24 - 8 * (i & 3)));
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace
 
-// Launch 1: comp_bytes int32 [n, 3], totals int32 [n] and the flags word
-// (int32, zeroed by the caller) from the lanes (int32, contiguous rows).
-// `sizes` is the CBR byte budget of each slice, or null for ConstQ.
-// Returns the launch's CUDA error code.
-extern "C" int hq_pack_sizes_launch(const void* qy, const void* qu,
-                                    const void* qv, int ly, int lc,
-                                    const void* q_idx, const void* sizes,
-                                    int n, int prefix, int scalar,
-                                    void* comp_bytes, void* totals,
-                                    void* flags, void* stream) {
+// out = [totals int32 [n] | payload of `cap` bytes] (16-byte aligned) from
+// the lanes y [n, ly], u and v [n, lc] (int32, contiguous rows), `group`
+// threads a slice (4, 8, 16 or 32) and 256 / group slices a CTA. With
+// qm_y / qm_c (int32 [ly], [lc]) the lanes are transform coefficients,
+// quantised in the kernel, and keep_* (or null) receive the quantised
+// lanes. `sizes` is the CBR byte budget of each slice, or null for
+// ConstQ. `scratch` (int64 [3 + tiles], zeroed) receives the flags at [1]
+// and the payload size at [2]. Returns the launch's CUDA error code.
+extern "C" int hq_pack_launch(const void* y, const void* u, const void* v,
+                              int ly, int lc, const void* qm_y,
+                              const void* qm_c, void* keep_y, void* keep_u,
+                              void* keep_v, const void* q_idx,
+                              const void* sizes, int n, int group,
+                              int prefix, int scalar, void* out,
+                              long long cap, void* scratch, void* stream) {
   if (n <= 0) return 0;
-  hq_pack_sizes<<<(n + WARPS - 1) / WARPS, WARPS * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      make_lanes(qy, qu, qv, ly, lc), static_cast<const int32_t*>(q_idx),
-      static_cast<const int32_t*>(sizes), n, prefix, scalar,
-      static_cast<int32_t*>(comp_bytes), static_cast<int32_t*>(totals),
-      static_cast<int32_t*>(flags));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch 2: out = [totals int32 [n] | payload bytes], the payload of slice
-// i at byte 4n + starts[i] (starts int64 [n], the exclusive scan of the
-// totals). Returns the launch's CUDA error code.
-extern "C" int hq_pack_write_launch(const void* qy, const void* qu,
-                                    const void* qv, int ly, int lc,
-                                    const void* q_idx, const void* comp_bytes,
-                                    const void* totals, const void* starts,
-                                    int n, int prefix, int scalar, void* out,
-                                    void* stream) {
-  if (n <= 0) return 0;
-  hq_pack_write<<<(n + WARPS - 1) / WARPS, WARPS * 32, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      make_lanes(qy, qu, qv, ly, lc), static_cast<const int32_t*>(q_idx),
-      static_cast<const int32_t*>(comp_bytes),
-      static_cast<const int32_t*>(totals),
-      static_cast<const long long*>(starts), n, prefix, scalar,
-      static_cast<uint8_t*>(out));
+  if (group < MIN_GROUP || group > 32 || (group & (group - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PackArgs a;
+  a.lanes[0] = static_cast<const int32_t*>(y);
+  a.lanes[1] = static_cast<const int32_t*>(u);
+  a.lanes[2] = static_cast<const int32_t*>(v);
+  a.keep[0] = static_cast<int32_t*>(keep_y);
+  a.keep[1] = static_cast<int32_t*>(keep_u);
+  a.keep[2] = static_cast<int32_t*>(keep_v);
+  a.qm[0] = static_cast<const int32_t*>(qm_y);
+  a.qm[1] = a.qm[2] = static_cast<const int32_t*>(qm_c);
+  a.len[0] = ly;
+  a.len[1] = a.len[2] = lc;
+  a.q_idx = static_cast<const int32_t*>(q_idx);
+  a.sizes = static_cast<const int32_t*>(sizes);
+  a.out = static_cast<uint8_t*>(out);
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.cap = cap;
+  a.n = n;
+  a.group = group;
+  a.prefix = prefix;
+  a.scalar = scalar;
+  const int tile = THREADS / group;
+  hq_pack<<<(n + tile - 1) / tile, THREADS, 0,
+            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,11 +6,13 @@ covering the picture loop of the reference encoder
 
     upload (one H2D of the picture's samples at their read width)
     -> wavelet_pad -> forward_planes (one lift launch a level)
-    -> plane_to_lanes -> quant at each lane's adjusted index
-    -> pack_hq (two launches, one synchronisation for the payload size)
+    -> plane_to_lanes
+    -> quant_pack_hq (quant at each lane's adjusted index, fused into the
+       pack's one launch; one synchronisation for the payload size)
     -> one D2H of the [totals | payload] buffer
 
 The stages are separate functions so a profiler can time each.
+``quantise`` is the quantiser on its own, for the tests.
 ``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
 decoder's ``dequantise_planes`` and ``inverse_planes``.
 
@@ -163,6 +165,10 @@ class Encoder:
         self.cfg = cfg
         self.geo = slice_geometry(cfg)
         self.qmatrix = matrices.quant_matrix(cfg.kernel, cfg.wavelet_depth)
+        key = tuple(int(v) for v in self.qmatrix)
+        self.qm = tuple(
+            qm_lanes(key, *sl, cfg.wavelet_depth, self.device).to(torch.int32)
+            for sl in (self.geo.luma_slice, self.geo.chroma_slice))
 
     def q_indices(self) -> torch.Tensor:
         return torch.full((self.geo.n_slices,), self.cfg.q_index,
@@ -177,10 +183,9 @@ class Encoder:
         planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
         transform = analyse(planes, cfg.kernel, d)
         q_idx = self.q_indices()
-        lanes = quantise(planes_to_lanes(transform, geo, d), q_idx,
-                         self.qmatrix, d, geo)
-        buf, flags = device_pack.pack_hq(*lanes, q_idx, cfg.slice_prefix,
-                                         cfg.slice_scalar)
+        buf, flags, lanes = device_pack.quant_pack_hq(
+            *planes_to_lanes(transform, geo, d), q_idx, *self.qm,
+            cfg.slice_prefix, cfg.slice_scalar, keep_lanes=keep_planes)
         device_pack.check_flags(flags)
         totals, payload = device_pack.split_result(buf.cpu().numpy(),
                                                    geo.n_slices)

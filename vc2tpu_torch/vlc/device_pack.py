@@ -1,10 +1,14 @@
-"""On-device HQ slice payload assembly: quantised lanes -> payload bytes.
+"""On-device HQ slice payload assembly: lanes -> payload bytes.
 
 Port of ``vc2tpu.vlc.device_pack.pack_hq_core`` (reference
 src/Library/src/Slices.cpp:305-467 over VLC.cpp:21-94). ``pack_hq``
-assembles a whole picture's slices: a CUDA kernel (``csrc/hq_pack.cu``,
-two launches with an exclusive scan of the slice sizes between them) for
-CUDA tensors, the plain PyTorch version ``pack_hq_plain`` for CPU tensors.
+assembles a whole picture's slices from quantised lanes;
+``quant_pack_hq`` takes the transform lanes and quantises them on the way
+(the JAX encoder's ``quant_banded`` then ``pack_hq_core``). Both go
+through one launch of a CUDA kernel (``csrc/hq_pack.cu``: each CTA places
+its tile of slices by a decoupled look-back, so no scan runs between
+launches) for CUDA tensors, and through the plain PyTorch versions
+``pack_hq_plain`` / ``quant_pack_hq_plain`` for CPU tensors.
 
 Layout of a slice: ``prefix`` zero bytes, the qIndex byte, then per
 component a length byte (bytes / scalar) and its interleaved signed
@@ -27,12 +31,20 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32,
+                                         adjust_quant_index, quant)
 from vc2tpu_torch.vlc.golomb import signed_codes
 
 FLAG_SCALAR = 2          # a component length byte > 255 ("scalar too small")
 FLAG_CBR_FIT = 4         # CBR: y+u data leave v too few bytes
 FLAG_QINDEX = 8          # a qIndex exceeds 8 bits
 FLAG_VLEN = 32           # CBR: forced v length byte > 255 (Slices.cpp:365)
+
+# csrc/hq_pack.cu's work split (generated into its header): 256 threads a
+# CTA, a group of 4-32 threads a slice, each keeping up to HOLD quantised
+# lanes in shared memory
+THREADS = 256
+HOLD = 32
 
 
 def check_flags(flags: int) -> None:
@@ -147,64 +159,147 @@ def pack_hq_plain(qy, qu, qv, q_idx, prefix: int, scalar: int,
     return torch.cat([head, payload.to(torch.uint8)]), flags
 
 
+def quant_pack_hq_plain(y, u, v, q_idx, qm_y, qm_c, prefix: int,
+                        scalar: int, slice_sizes=None,
+                        keep_lanes: bool = False):
+    """Plain PyTorch version of ``quant_pack_hq``: ``quant`` of each lane
+    at max(qIndex - qm[lane], 0), then ``pack_hq_plain``."""
+    _check_qm(y, u, qm_y, qm_c)
+    q = q_idx.to(torch.int64)[:, None]
+    lanes = [quant(x, adjust_quant_index(q, qm.to(torch.int64)[None, :]))
+             for x, qm in ((y, qm_y), (u, qm_c), (v, qm_c))]
+    buf, flags = pack_hq_plain(*lanes, q_idx, prefix, scalar, slice_sizes)
+    return buf, flags, tuple(lanes) if keep_lanes else None
+
+
+def _check_qm(y, u, qm_y, qm_c):
+    for name, qm, length in (("qm_y", qm_y, y.shape[-1]),
+                             ("qm_c", qm_c, u.shape[-1])):
+        if qm.dtype != torch.int32 or qm.shape != (length,):
+            raise ValueError(f"quant_pack_hq: {name} must be int32 "
+                             f"[{length}], got {qm.dtype} {tuple(qm.shape)}")
+        if qm.device != y.device:
+            raise ValueError(f"quant_pack_hq: {name} on {qm.device}, lanes "
+                             f"on {y.device}")
+
+
+def quant_reciprocals() -> list:
+    """ceil(2^64 / |factor|) for each q: the high 64 bits of n times it
+    are n // |factor| for every n < 2^32 (the error n * (ceil - 2^64 / f)
+    / 2^64 < 2^-32 <= 1 / f cannot carry n / f past an integer)."""
+    return [-(-(1 << 64) // abs(int(f))) for f in QUANT_FACTORS_I32]
+
+
+def params_header() -> str:
+    """``hq_pack_params.h`` for csrc/hq_pack.cu: its work split (``THREADS``,
+    ``HOLD``), the int32-wrapped quant factor table
+    (``quantiser.QUANT_FACTORS_I32``) and the reciprocals of its
+    magnitudes (``quant_reciprocals``)."""
+    factors = ", ".join(str(int(f)) for f in QUANT_FACTORS_I32)
+    recips = ", ".join(f"0x{r:x}ull" for r in quant_reciprocals())
+    return ("// Generated by vc2tpu_torch.vlc.device_pack.params_header().\n"
+            "#pragma once\n"
+            f"#define VC2_PACK_THREADS {THREADS}\n"
+            f"#define VC2_PACK_HOLD {HOLD}\n"
+            f"#define VC2_QUANT_FACTORS {factors}\n"
+            f"#define VC2_QUANT_RECIPROCALS {recips}\n")
+
+
 def kernel_source() -> build.Source:
-    return build.Source("hq_pack")
+    return build.Source("hq_pack", (("hq_pack_params.h", params_header()),))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load(kernel_source())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hq_pack_sizes_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, p, p,
-                                         p, p]
-    lib.hq_pack_sizes_launch.restype = i
-    lib.hq_pack_write_launch.argtypes = [p, p, p, i, i, p, p, p, p, i, i, i,
-                                         p, p]
-    lib.hq_pack_write_launch.restype = i
+    lib.hq_pack_launch.argtypes = [p, p, p, i, i, p, p, p, p, p, p, p, i, i,
+                                   i, i, p, ctypes.c_longlong, p, p]
+    lib.hq_pack_launch.restype = i
     return lib
+
+
+def group_size(ly: int, lc: int) -> int:
+    """Threads a slice in csrc/hq_pack.cu: the fewest (a power of two, 4 to
+    32) whose three chunks, one of each component, hold at most ``HOLD``
+    lanes, so the kernel keeps every quantised lane on the chip; 32 for
+    larger slices, whose lanes are then read again to be written."""
+    g = 4
+    while g < 32 and -(-ly // g) + 2 * -(-lc // g) > HOLD:
+        g *= 2
+    return g
+
+
+def payload_capacity(n: int, ly: int, lc: int, prefix: int, scalar: int,
+                     cbr: bool) -> int:
+    """Payload bytes that bound every pack of n slices that sets no flag,
+    from the shapes alone. A component of L lanes codes in at most 8L
+    bytes (64 bits a code) and rounds up by less than ``scalar``; without
+    a flag its length byte is at most 255, so it holds at most 255 *
+    scalar bytes, and CBR's last component less than 256 * scalar."""
+    if cbr:
+        body = 3 * 255 * scalar + scalar - 1
+    else:
+        body = min(8 * ly + 16 * lc + 3 * (scalar - 1), 3 * 255 * scalar)
+    return n * (prefix + 4 + body)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch_sizes(qy, qu, qv, q_idx, prefix: int, scalar: int,
-                 slice_sizes=None):
-    """The first launch of ``pack_hq`` (CUDA tensors, checked by the
-    caller): (component bytes int32 [N, 3], totals int32 [N], flags int32
-    [1]), not synchronised."""
-    n, dev = qy.shape[0], qy.device
-    comp = torch.empty((n, 3), dtype=torch.int32, device=dev)
-    totals = torch.empty(n, dtype=torch.int32, device=dev)
-    flags = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = _lib().hq_pack_sizes_launch(
-        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), qy.shape[1],
-        qu.shape[1], q_idx.data_ptr(),
-        slice_sizes.data_ptr() if slice_sizes is not None else None, n,
-        prefix, scalar, comp.data_ptr(), totals.data_ptr(), flags.data_ptr(),
-        _stream(qy))
+def launch_pack(lanes, q_idx, prefix: int, scalar: int, slice_sizes=None,
+                qm=None, keep=None, out=None):
+    """The one launch of csrc/hq_pack.cu on CUDA tensors (checked by the
+    caller), not synchronised. ``lanes`` (y, u, v) are quantised lanes,
+    or transform lanes when ``qm`` = (qm_y, qm_c) is given; ``keep`` (y,
+    u, v) then receive the quantised lanes. ``out`` (uint8, 16-byte
+    aligned) defaults to a buffer of ``4N + payload_capacity`` bytes;
+    nothing is stored past it. Returns (out, scratch): the payload size
+    is ``scratch[2]`` and the flags ``scratch[1]``."""
+    y, u, v = lanes
+    n, ly, lc = y.shape[0], y.shape[1], u.shape[1]
+    group = group_size(ly, lc)
+    if out is None:
+        cap = payload_capacity(n, ly, lc, prefix, scalar,
+                               slice_sizes is not None)
+        out = torch.empty(4 * n + cap, dtype=torch.uint8, device=y.device)
+    elif (out.dtype != torch.uint8 or not out.is_contiguous()
+          or out.data_ptr() % 16 or out.numel() < 4 * n):
+        raise ValueError("pack_hq: out must be a contiguous, 16-byte aligned "
+                         f"uint8 buffer of at least {4 * n} bytes")
+    tiles = -(-n // (THREADS // group))
+    scratch = torch.zeros(3 + tiles, dtype=torch.int64, device=y.device)
+    qm_y, qm_c = qm if qm is not None else (None, None)
+    ky, ku, kv = keep if keep is not None else (None, None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = _lib().hq_pack_launch(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, ptr(qm_y),
+        ptr(qm_c), ptr(ky), ptr(ku), ptr(kv), q_idx.data_ptr(),
+        ptr(slice_sizes), n, group, prefix, scalar,
+        out.data_ptr(), out.numel() - 4 * n, scratch.data_ptr(), _stream(y))
     if rc:
-        raise RuntimeError(f"hq_pack sizes kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"hq_pack kernel launch failed: CUDA error {rc}")
     pack_hq.launches += 1
-    return comp, totals, flags
+    return out, scratch
 
 
-def launch_write(qy, qu, qv, q_idx, comp, totals, starts, total: int,
-                 prefix: int, scalar: int) -> torch.Tensor:
-    """The second launch of ``pack_hq``: the ``[totals | payload]`` buffer
-    of ``total`` payload bytes, slice i at ``starts[i]`` (int64)."""
-    n = qy.shape[0]
-    out = torch.empty(4 * n + total, dtype=torch.uint8, device=qy.device)
-    rc = _lib().hq_pack_write_launch(
-        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), qy.shape[1],
-        qu.shape[1], q_idx.data_ptr(), comp.data_ptr(), totals.data_ptr(),
-        starts.data_ptr(), n, prefix, scalar, out.data_ptr(), _stream(qy))
-    if rc:
-        raise RuntimeError(f"hq_pack write kernel launch failed: CUDA error "
-                           f"{rc}")
-    pack_hq.launches += 1
-    return out
+def _result(out, scratch, n: int):
+    """The (buffer, flags) of a launch: the host's one synchronisation
+    reads the flags and the payload size together."""
+    flags, total = scratch[1:3].tolist()
+    if flags:
+        return out[:4 * n], flags
+    return out[:4 * n + total], 0
+
+
+def _cuda_inputs(name, tensors):
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def pack_hq(qy, qu, qv, q_idx, prefix: int, scalar: int, slice_sizes=None):
@@ -215,28 +310,50 @@ def pack_hq(qy, qu, qv, q_idx, prefix: int, scalar: int, slice_sizes=None):
     the int32 [N] CBR byte budgets (``layout.slice_bytes_map``).
     Returns (buffer, flags): the uint8 ``[totals int32 [N] | payload]``
     buffer on the lanes' device, and the flags as an int (payload left out
-    when it is not 0). CUDA lanes go through the two launches of
-    csrc/hq_pack.cu, with one synchronisation between them to read the
-    payload size and the flags; CPU lanes through ``pack_hq_plain``."""
+    when it is not 0). CUDA lanes go through the one launch of
+    csrc/hq_pack.cu and one synchronisation, to read the payload size and
+    the flags; CPU lanes through ``pack_hq_plain``."""
     if qy.device.type == "cpu":
         return pack_hq_plain(qy, qu, qv, q_idx, prefix, scalar, slice_sizes)
     if qy.device.type != "cuda":
         raise ValueError(f"pack_hq: unsupported device {qy.device}")
     _check(qy, qu, qv, q_idx, slice_sizes)
-    for t in (qy, qu, qv, q_idx, slice_sizes):
-        if t is not None and not t.is_contiguous():
-            raise ValueError("pack_hq: inputs must be contiguous")
+    _cuda_inputs("pack_hq", (qy, qu, qv, q_idx, slice_sizes))
     n = qy.shape[0]
     if n == 0:
         return torch.empty(0, dtype=torch.uint8, device=qy.device), 0
-    comp, totals, flags_t = launch_sizes(qy, qu, qv, q_idx, prefix, scalar,
-                                         slice_sizes)
-    ends = torch.cumsum(totals, 0, dtype=torch.int64)
-    total, flags = torch.cat([ends[-1:], flags_t.to(torch.int64)]).tolist()
-    if flags:
-        return totals.view(torch.uint8).clone(), flags
-    return launch_write(qy, qu, qv, q_idx, comp, totals, ends - totals,
-                        total, prefix, scalar), 0
+    return _result(*launch_pack((qy, qu, qv), q_idx, prefix, scalar,
+                                slice_sizes), n)
+
+
+def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
+                  slice_sizes=None, keep_lanes: bool = False):
+    """Quantise and assemble the HQ slice payload of a picture.
+
+    y: int32 [N, Ly], u/v: int32 [N, Lc] transform lanes in serialisation
+    order; qm_y: int32 [Ly], qm_c: int32 [Lc] the quant matrix entry of
+    each lane (``pipeline.decoder.qm_lanes``); each lane is quantised at
+    max(q_idx - qm, 0). Returns (buffer, flags, lanes): as ``pack_hq``,
+    and the quantised lanes (y, u, v) when ``keep_lanes``, else None.
+    CUDA lanes go through the one launch of csrc/hq_pack.cu (quantised in
+    its load) and one synchronisation; CPU lanes through
+    ``quant_pack_hq_plain``."""
+    if y.device.type == "cpu":
+        return quant_pack_hq_plain(y, u, v, q_idx, qm_y, qm_c, prefix,
+                                   scalar, slice_sizes, keep_lanes)
+    if y.device.type != "cuda":
+        raise ValueError(f"quant_pack_hq: unsupported device {y.device}")
+    _check(y, u, v, q_idx, slice_sizes)
+    _check_qm(y, u, qm_y, qm_c)
+    _cuda_inputs("quant_pack_hq", (y, u, v, q_idx, slice_sizes, qm_y, qm_c))
+    keep = tuple(torch.empty_like(x) for x in (y, u, v)) if keep_lanes \
+        else None
+    n = y.shape[0]
+    if n == 0:
+        return torch.empty(0, dtype=torch.uint8, device=y.device), 0, keep
+    buf, flags = _result(*launch_pack((y, u, v), q_idx, prefix, scalar,
+                                      slice_sizes, (qm_y, qm_c), keep), n)
+    return buf, flags, keep
 
 
 pack_hq.launches = 0
