@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero, and the last line is then not printed):
 
-1. build the three CUDA kernels and the host chain scan from
+1. build the four CUDA kernels and the host chain scan from
    ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at once;
    timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
@@ -31,20 +31,33 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    prefix 3 / scalar 2, a CBR fill, slices larger than the kernel's
    window and a case for each flag; a flagged call and a short buffer,
    with guard bytes after the buffer that must stay untouched; ``quant``
-   on the card against ``quant`` on the CPU;
+   on the card against ``quant`` on the CPU; hold the CBR search kernel
+   against its plain version (integer == on the q indices, and its flag
+   above 119): the 1080p CBR transform lanes at the fixture's budgets,
+   at x0.25 and x4, at scalar 1 and at prefix 3 / scalar 2 (with the
+   fused pack at the searched indices), seeded lanes up to +-(2^29 - 1),
+   all-zero slices, budgets no q meets, slices whose climb runs past 3
+   steps, a ragged slice count and slices too large for the kernel's
+   shared-memory stage;
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
    package's decode; lift 2 launches a picture, unpack 1); encode the
    1080p ConstQ input (``make_1080p.make_input``) with the encode CLI
    (bytes equal to ``constq_1080p.vc2``, its decode at the recorded
-   SHA-256; lift 2, pack 1); then every non-fragmented HQ golden of
-   ``tests/golden`` decodes, and every ConstQ golden and ConstQ tap
-   encodes, byte-identically;
-6. times on the card: end-to-end decode and encode frames/s, the
-   per-stage breakdown of one 1080p picture each way, the device's idle
-   share, and each kernel's time beside its bound and its plain
-   version's time.
+   SHA-256; lift 2, pack 1); encode the same input as HQ CBR, this
+   slice's main path (bytes equal to ``cbr_1080p.vc2``; lift 2, cbr 1,
+   pack 1), and again with ``-F 16384``, whose fragments ``Decoder()``
+   decodes to the recorded SHA-256; then every HQ golden of
+   ``tests/golden`` (``cbr_fragmented`` among them) decodes, the three
+   decoder taps of ``constq_legall_d2`` and ``cbr_fragmented`` equal the
+   port's on the CPU, and every ConstQ and CBR golden and tap encodes,
+   byte-identically;
+6. times on the card: end-to-end decode, ConstQ and CBR encode and
+   fragmented decode frames/s, the per-stage breakdown of one 1080p
+   picture each way (a "cbr search" stage in the CBR encode), the
+   device's idle share, and each kernel's time beside its bound and its
+   plain version's time.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
@@ -85,6 +98,7 @@ SMALL_PLANES = [(136, 200), (136, 104), (8, 8)]
 RANDOM_ROWS = 64800       # slices of the random-bytes unpack check (1080p)
 TESTDATA = os.path.join(ROOT, "vc2tpu_torch", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
+FRAGMENT = 16384          # -F of the fragmented 1080p CBR encode
 
 
 def check(cond, msg: str):
@@ -207,13 +221,33 @@ def report_busy(torch, label: str, fn, card: str):
         print(f"  device time {nm[:70]}: {t:.4f} ms")
 
 
-def report_rate(label: str, fn, card: str) -> float:
-    ts = sorted(host_samples(fn, E2E_REPS))
+def print_rate(label: str, ts: list, card: str, note: str = "") -> float:
+    ts = sorted(ts)
     ms, p75 = statistics.median(ts), ts[int(0.75 * len(ts)) - 1]
     print(f"end to end {label}: median {ms:.3f} ms/picture = "
           f"{1e3 / ms:.2f} fps, p75 {p75:.3f} ms, min {ts[0]:.3f}, "
-          f"max {ts[-1]:.3f} ({len(ts)} runs after a warm-up; {card})")
+          f"max {ts[-1]:.3f} ({len(ts)} runs after a warm-up{note}; {card})")
     return ms
+
+
+def report_rate(label: str, fn, card: str) -> float:
+    return print_rate(label, host_samples(fn, E2E_REPS), card)
+
+
+def report_rates_in_turns(runs: dict, card: str) -> dict:
+    """End-to-end rates of several functions sampled in turns (one call of
+    each per round, ``E2E_REPS`` rounds after a warm-up), so the host's
+    drift over the run falls on all of them alike."""
+    samples = {label: [] for label in runs}
+    for fn in runs.values():
+        fn()
+    for _ in range(E2E_REPS):
+        for label, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            samples[label].append(1e3 * (time.perf_counter() - t0))
+    return {label: print_rate(label, ts, card, ", in turns")
+            for label, ts in samples.items()}
 
 
 def max_err(torch, a, b) -> int:
@@ -244,6 +278,20 @@ def pictures_of(stream: bytes, device):
             break
         pos += next_off
     return out
+
+
+def fragments_of(stream: bytes) -> int:
+    """The number of HQ fragment data units of a stream."""
+    from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
+
+    n, pos = 0, 0
+    while pos + 13 <= len(stream):
+        du, next_off, _prev = StreamReader(stream[pos:]).read_data_unit()
+        n += du == DataUnitType.HQ_FRAGMENT
+        if next_off == 0:
+            break
+        pos += next_off
+    return n
 
 
 def golden_encode_args(meta: dict, case: str, tap: str | None) -> tuple:
@@ -411,30 +459,159 @@ def check_unpack(torch, np, rng, dev, streams):
     return unpack_err, unpack_cases
 
 
-def encode_1080p_lanes(torch, dev, picture):
-    """(encoder, transform lanes, quantised lanes, q indices, transform
-    planes) of the 1080p ConstQ fixture's picture on the card; the
-    quantised lanes by ``quantise`` (torch ops), for the pack's cases."""
+def fixture_lanes(dev, picture, key: str):
+    """(encoder, transform planes, transform lanes) of a 1080p fixture's
+    picture on the card, with the fixture's recorded flags."""
     from vc2tpu_torch.cli import encode_stream
     from vc2tpu_torch.pipeline import encoder as enc_mod
 
     args = encode_stream.build_parser().parse_args(
-        fixture_encode_args() + ["in", "out"])
+        fixture_encode_args(key) + ["in", "out"])
     enc = enc_mod.Encoder(encode_stream.config_from_args(args), device=dev)
-    cfg, geo, d = enc.cfg, enc.geo, enc.cfg.wavelet_depth
+    cfg, d = enc.cfg, enc.cfg.wavelet_depth
     planes = enc_mod.upload_picture(picture, cfg.bytes_per_sample, dev)
     transform = enc_mod.analyse(planes, cfg.kernel, d)
+    return enc, transform, enc_mod.planes_to_lanes(transform, enc.geo, d)
+
+
+def encode_1080p_lanes(dev, picture):
+    """(encoder, transform lanes, quantised lanes, q indices, transform
+    planes) of the 1080p ConstQ fixture's picture on the card; the
+    quantised lanes by ``quantise`` (torch ops), for the pack's cases."""
+    from vc2tpu_torch.pipeline import encoder as enc_mod
+
+    enc, transform, tlanes = fixture_lanes(dev, picture, "constq_1080p")
     q_idx = enc.q_indices()
-    tlanes = enc_mod.planes_to_lanes(transform, geo, d)
-    qlanes = enc_mod.quantise(tlanes, q_idx, enc.qmatrix, d, geo)
+    qlanes = enc_mod.quantise(tlanes, q_idx, enc.qmatrix,
+                              enc.cfg.wavelet_depth, enc.geo)
     return enc, tlanes, qlanes, q_idx, transform
 
 
-def fixture_encode_args() -> list:
-    """The encode flags ``fixtures_1080p.json`` records for constq_1080p."""
+def fixture_encode_args(key: str) -> list:
+    """The encode flags ``fixtures_1080p.json`` records for a fixture."""
     with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
-        cmd = json.load(f)["streams"]["constq_1080p"]["encode"]
+        cmd = json.load(f)["streams"][key]["encode"]
     return cmd[cmd.index("vc2tpu.cli.encode_stream") + 1:-2]
+
+
+def climb_lanes(np, rng, n_luma: int, n_chroma: int):
+    """Slices whose one non-zero lane is lane 0 (every magnitude 1-3999,
+    seeded signs, budgets 5-8 bytes, seeded order): among them the hill
+    climb runs past the JAX package's batched prefix of 3 steps."""
+    mags, budgets = np.meshgrid(np.arange(1, 4000), np.arange(5, 9),
+                                indexing="ij")
+    order = rng.permutation(mags.size)
+    y = np.zeros((mags.size, n_luma), np.int32)
+    y[:, 0] = (mags.ravel() * rng.choice([-1, 1], mags.size))[order]
+    chroma = np.zeros((mags.size, n_chroma), np.int32)
+    return [y, chroma, chroma.copy()], budgets.ravel()[order].astype(np.int32)
+
+
+def check_cbr(torch, np, rng, dev, enc, tlanes):
+    """The CBR search kernel against its plain version, integer == on the
+    q indices, and the flag it sets above 119; the fused pack at the
+    searched indices against its plain version. Returns (max |err|,
+    number of cases, the 1080p case's longest climb)."""
+    from vc2tpu_torch.rdo import cbr
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.vlc import device_pack as dp
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev)
+
+    geo, scalar = enc.geo, enc.cfg.slice_scalar
+    ly, lc = tlanes[0].shape[1], tlanes[1].shape[1]
+
+    def budgets(total, scalar_, ys=geo.y_slices, xs=geo.x_slices):
+        return t(layout.slice_bytes_map(ys, xs, int(total), scalar_).ravel())
+
+    def rand_lanes(n, span, zero_frac, lengths=(ly, lc, lc)):
+        out = []
+        for length in lengths:
+            v = rng.integers(-span, span + 1, (n, length))
+            v[rng.random((n, length)) < zero_frac] = 0
+            out.append(t(v.astype(np.int32)))
+        return out
+
+    pic = enc.picture_bytes
+    n = 5000
+    wild = rand_lanes(n, (1 << 29) - 1, 0.3)
+    wild[0][::7, 1] = (1 << 29) - 1
+    wild[1][::11, 2] = -((1 << 29) - 1)
+    zeros = [torch.zeros_like(x) for x in wild]
+    mixed = rand_lanes(n, 1 << 12, 0.5)
+    for x in mixed:
+        x[::3] = 0                                  # all-zero slices
+    climb, climb_budgets = climb_lanes(np, rng, ly, lc)
+    climb = [t(x) for x in climb]
+    ragged = [x[:333].contiguous() for x in tlanes]
+    wide = rand_lanes(64, 1 << 16, 0.5, (2048, 1024, 1024))
+    qm_wide = (t(rng.integers(0, 8, 2048).astype(np.int32)),
+               t(rng.integers(0, 8, 1024).astype(np.int32)))
+    check(not cbr.staged(2048, 1024), "the wide case is staged")
+    cases = [  # name, lanes, budgets, scalar, pack prefix (None: no pack),
+        # the quant matrix entries of the lanes (None: the encoder's)
+        ("1080p CBR lanes, the fixture's budgets", tlanes, enc.budgets,
+         scalar, enc.cfg.slice_prefix),
+        ("1080p CBR lanes, budgets x0.25", tlanes,
+         budgets(pic // 4, scalar), scalar, None),
+        ("1080p CBR lanes, budgets x4", tlanes, budgets(4 * pic, scalar),
+         scalar, None),
+        ("1080p CBR lanes, scalar 1", tlanes, budgets(pic, 1), 1, 0),
+        ("1080p CBR lanes, prefix 3 scalar 2", tlanes, budgets(pic, 2), 2, 3),
+        ("random lanes up to +-(2^29 - 1), scalar 3", wild,
+         budgets(n * 300, 3, 1, n), 3, None),
+        ("all-zero slices", zeros, budgets(n * 20, 1, 1, n), 1, None),
+        ("every third slice all zero", mixed, budgets(n * 40, 2, 1, n), 2,
+         None),
+        ("budgets no q meets (q 127)", wild, t(np.full(n, 5, np.int32)), 1,
+         None),
+        ("climbs past 3 steps", climb, t(climb_budgets), 1, None),
+        ("ragged: 333 slices", ragged,
+         enc.budgets[:333].contiguous(), scalar, None),
+        ("slices too large to stage (lanes from device memory)", wide,
+         budgets(64 * 6000, 4, 1, 64), 4, None, qm_wide),
+    ]
+    n_cases, longest, no_fit = 0, {}, None
+    for name, lanes, sizes, scalar_, prefix, *qm in cases:
+        qm = qm[0] if qm else enc.qm
+        flags = torch.zeros(1, dtype=torch.int64, device=dev)
+        before = cbr.cbr_quant_indices.launches
+        got = cbr.cbr_quant_indices(*lanes, *qm, sizes, scalar_, flags=flags)
+        want = cbr.cbr_quant_indices_plain(*lanes, *qm, sizes, scalar_)
+        torch.cuda.synchronize()
+        check(cbr.cbr_quant_indices.launches == before + 1,
+              f"cbr {name}: the kernel was not launched once")
+        check(bool(torch.equal(got, want)),
+              f"cbr {name}: {int((got != want).sum())} q indices differ")
+        over = bool((want > 119).any())
+        check(int(flags.item()) == (dp.FLAG_QMAX if over else 0),
+              f"cbr {name}: flags {int(flags.item())}, q above 119: {over}")
+        best = cbr.bisect_plain(*lanes, *qm, sizes, scalar_)
+        longest[name] = int((want.to(torch.int64) - best).max())
+        if name.startswith("budgets no q meets"):
+            no_fit = want
+        n_cases += 1
+        line = (f"  cbr {name}: {got.numel()} q indices equal, q "
+                f"{int(want.min())}-{int(want.max())}, longest climb "
+                f"{longest[name]}")
+        if prefix is not None:
+            scratch = dp.pack_scratch(got.numel(), ly, lc, dev)
+            buf, pflags, _ = dp.quant_pack_hq(*lanes, got, *enc.qm, prefix,
+                                              scalar_, sizes, scratch=scratch)
+            pwant, wflags, _ = dp.quant_pack_hq_plain(*lanes, want, *enc.qm,
+                                                      prefix, scalar_, sizes)
+            check(pflags == wflags == 0 and bool(torch.equal(buf, pwant)),
+                  f"cbr {name}: the pack at the searched indices differs "
+                  f"(flags {pflags}, plain {wflags})")
+            line += f"; pack with prefix {prefix}: {buf.numel()} bytes equal"
+        print(line)
+    check(bool((no_fit == 127).all()), "the no-fit case has a slice that "
+                                       "fits")
+    check(longest["climbs past 3 steps"] > 3,
+          "the climb case climbs no more than 3 steps")
+    print(f"cbr search kernel == plain: {n_cases} cases, q indices equal")
+    return 0, n_cases, longest[cases[0][0]]
 
 
 def tiles_of(dp, n: int, ly: int, lc: int) -> str:
@@ -618,7 +795,9 @@ def main(argv) -> int:
     from vc2tpu_torch.core.config import ColourFormat, PictureGeometry
     from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
     from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.core.config import DecOutput
     from vc2tpu_torch.pipeline import encoder as enc_mod
+    from vc2tpu_torch.rdo import cbr
     from vc2tpu_torch.slices import hq as slices_hq
     from vc2tpu_torch.stream.dataunit import (PicturePreamble, StreamReader,
                                               StreamWriter)
@@ -639,7 +818,8 @@ def main(argv) -> int:
     # 1. build
     t0 = time.perf_counter()
     libs = build.build(lifting.kernel_source(), du.kernel_source(),
-                       dp.kernel_source(), slices_hq.scan_source())
+                       dp.kernel_source(), cbr.kernel_source(),
+                       slices_hq.scan_source())
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
 
@@ -671,9 +851,13 @@ def main(argv) -> int:
 
     picture_1080p = read_picture()
     encoder, tlanes_1080p, lanes_1080p, q_1080p, transform = (
-        encode_1080p_lanes(torch, dev, picture_1080p))
+        encode_1080p_lanes(dev, picture_1080p))
     pack_err, _n_pack = check_pack(torch, np, rng, dev, encoder, tlanes_1080p,
                                    lanes_1080p, q_1080p, transform)
+    cbr_encoder, _tr, cbr_tlanes = fixture_lanes(dev, picture_1080p,
+                                                 "cbr_1080p")
+    cbr_err, _n_cbr, cbr_climb = check_cbr(torch, np, rng, dev, cbr_encoder,
+                                           cbr_tlanes)
 
     # 5. the main paths; the counts are zeroed just before each and read
     # just after
@@ -681,11 +865,13 @@ def main(argv) -> int:
         lifting.lift_levels.launches = 0
         du.unpack_hq.launches = 0
         dp.pack_hq.launches = 0
+        cbr.cbr_quant_indices.launches = 0
 
     def counts():
         return {"lift_level": lifting.lift_levels.launches,
                 "hq_unpack": du.unpack_hq.launches,
-                "hq_pack": dp.pack_hq.launches}
+                "hq_pack": dp.pack_hq.launches,
+                "hq_cbr": cbr.cbr_quant_indices.launches}
 
     n_pictures = sum(len(pictures_of(d, dev)) for d in streams.values())
     zero_counts()
@@ -707,7 +893,8 @@ def main(argv) -> int:
 
     out_1080p = os.path.join(work.name, "constq_1080p.vc2")
     zero_counts()
-    stream = run_encode_cli(fixture_encode_args(), src_1080p, out_1080p)
+    stream = run_encode_cli(fixture_encode_args("constq_1080p"), src_1080p,
+                            out_1080p)
     encode_launches = counts()
     check(stream == streams["constq_1080p"],
           "the 1080p ConstQ encode differs from constq_1080p.vc2")
@@ -725,10 +912,42 @@ def main(argv) -> int:
     check(encode_launches["hq_pack"] == 1,
           f"hq_pack launched {encode_launches['hq_pack']} times, expected 1")
 
+    # the slice's main path: the 1080p HQ CBR encode
+    out_cbr = os.path.join(work.name, "cbr_1080p.vc2")
+    zero_counts()
+    stream = run_encode_cli(fixture_encode_args("cbr_1080p"), src_1080p,
+                            out_cbr)
+    cbr_launches = counts()
+    check(stream == streams["cbr_1080p"],
+          "the 1080p CBR encode differs from cbr_1080p.vc2")
+    print(f"main path CBR encode: the 1080p HQ CBR picture, {len(stream)} "
+          f"bytes equal to cbr_1080p.vc2; launches {cbr_launches}")
+    for k, want in (("lift_level", 2), ("hq_cbr", 1), ("hq_pack", 1),
+                    ("hq_unpack", 0)):
+        check(cbr_launches[k] == want, f"{k} launched {cbr_launches[k]} "
+                                       f"times in the CBR encode, expected "
+                                       f"{want}")
+    # the same encode cut into fragments, and its decode
+    frag_argv = fixture_encode_args("cbr_1080p") + ["-F", str(FRAGMENT)]
+    frag_stream = run_encode_cli(frag_argv, src_1080p, out_cbr)
+    n_frags = fragments_of(frag_stream)
+    zero_counts()
+    sink = io.BytesIO()
+    check(Decoder(sink=sink).run(frag_stream) == 0,
+          "decode of the fragmented encode failed")
+    frag_launches = counts()
+    digest = hashlib.sha256(sink.getvalue()).hexdigest()
+    check(digest == fixtures["cbr_1080p"]["decoded_sha256"],
+          f"the decode of the -F {FRAGMENT} encode has SHA-256 {digest}")
+    check(frag_launches["lift_level"] == 2 and frag_launches["hq_unpack"] == 1,
+          f"the fragmented decode launched {frag_launches}")
+    print(f"main path fragments: the -F {FRAGMENT} encode, {n_frags} HQ "
+          f"fragments, decodes to the recorded SHA-256; launches "
+          f"{frag_launches}")
+
     with open(os.path.join(GOLDEN, "meta.json")) as f:
         meta = json.load(f)
-    cases = [c[0] for c in meta["cases"]
-             if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
+    cases = [c[0] for c in meta["cases"] if not c[0].startswith("ld")]
     for case in cases:
         sink = io.BytesIO()
         with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
@@ -736,20 +955,37 @@ def main(argv) -> int:
         with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
             check(sink.getvalue() == f.read(),
                   f"golden {case}: output differs from the reference's")
-    print(f"goldens: {len(cases)} HQ cases decode byte-identically on the "
-          "card")
+    print(f"goldens: {len(cases)} HQ cases (cbr_fragmented among them) "
+          "decode byte-identically on the card")
+    taps = [DecOutput.TRANSFORM, DecOutput.QUANTISED, DecOutput.INDICES]
+    for case in ("constq_legall_d2", "cbr_fragmented"):
+        with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
+            data = f.read()
+        for tap in taps:
+            outs = []
+            for where in (dev, "cpu"):
+                sink = io.BytesIO()
+                check(Decoder(output=tap, sink=sink, device=where).run(data)
+                      == 0, f"{case} {tap.value} on {where}")
+                outs.append(sink.getvalue())
+            check(outs[0] == outs[1] and outs[0],
+                  f"{case} {tap.value}: the card's output differs from the "
+                  "CPU's")
+    print(f"decoder taps: {', '.join(t.value for t in taps)} of "
+          "constq_legall_d2 and cbr_fragmented equal on the card and the CPU")
     encodes = ([(c[0], None) for c in meta["cases"]
-                if c[0].startswith("constq")]
-               + [tuple(t) for t in meta["taps"] if t[0].startswith("constq")])
+                if not c[0].startswith("ld")]
+               + [tuple(t) for t in meta["taps"]
+                  if not t[0].startswith("ld")])
     for case, tap in encodes:
         argv, src, ref = golden_encode_args(meta, case, tap)
         got = run_encode_cli(argv, src, os.path.join(work.name, "golden"))
         with open(ref, "rb") as f:
             check(got == f.read(), f"golden encode {case} {tap or 'Stream'}: "
                                    "output differs from the reference's")
-    print(f"goldens: {sum(t is None for _c, t in encodes)} ConstQ streams and "
-          f"{sum(t is not None for _c, t in encodes)} ConstQ taps encode "
-          "byte-identically on the card")
+    print(f"goldens: {sum(t is None for _c, t in encodes)} HQ streams "
+          f"(ConstQ and CBR) and {sum(t is not None for _c, t in encodes)} "
+          "HQ taps encode byte-identically on the card")
 
     # 6. times
     for key, data in streams.items():
@@ -768,9 +1004,33 @@ def main(argv) -> int:
         enc = encoder.encode_picture(read_picture())
         StreamWriter(io.BytesIO()).write_picture(0, preamble, enc.payload)
 
-    report_rate("encode constq_1080p (read, encode, write a picture)",
-                encode_once, card)
+    ccfg, cgeo = cbr_encoder.cfg, cbr_encoder.geo
+    cbr_preamble = PicturePreamble(
+        wavelet_kernel=ccfg.kernel, depth=ccfg.wavelet_depth,
+        slices_x=cgeo.x_slices, slices_y=cgeo.y_slices,
+        slice_prefix=ccfg.slice_prefix, slice_size_scalar=ccfg.slice_scalar)
+
+    def encode_cbr_once():
+        enc = cbr_encoder.encode_picture(read_picture())
+        StreamWriter(io.BytesIO()).write_picture(0, cbr_preamble, enc.payload)
+
+    report_rates_in_turns(
+        {"encode constq_1080p (read, encode, write a picture)": encode_once,
+         "encode cbr_1080p (read, encode, write a picture)": encode_cbr_once},
+        card)
     report_busy(torch, "encode constq_1080p", encode_once, card)
+    report_busy(torch, "encode cbr_1080p", encode_cbr_once, card)
+
+    def decode_fragments_once():
+        Decoder(sink=io.BytesIO()).run(frag_stream)
+
+    report_rates_in_turns(
+        {"decode cbr_1080p": lambda: Decoder(sink=io.BytesIO()).run(
+            streams["cbr_1080p"]),
+         f"decode cbr_1080p -F {FRAGMENT} ({n_frags} fragments)":
+             decode_fragments_once}, card)
+    report_busy(torch, "decode cbr_1080p fragments", decode_fragments_once,
+                card)
 
     # per-stage breakdown of one 1080p ConstQ picture, decode
     window = streams["constq_1080p"]
@@ -835,38 +1095,48 @@ def main(argv) -> int:
     for i, lab in enumerate(labels):
         stages[lab] = statistics.median(r[i] for r in rows)
 
-    # per-stage breakdown of one 1080p ConstQ picture, encode
-    edepth = cfg.wavelet_depth
-
-    def staged_encode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    # per-stage breakdown of one 1080p picture, encode: ConstQ, and CBR
+    # with the search before the pack
+    def staged_encode(enc):
+        cfg_, geo_, d_ = enc.cfg, enc.geo, enc.cfg.wavelet_depth
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
-        planes = enc_mod.upload_picture(picture_1080p, cfg.bytes_per_sample,
+        planes = enc_mod.upload_picture(picture_1080p, cfg_.bytes_per_sample,
                                         dev)
         ev[1].record()
-        tr = enc_mod.analyse(planes, cfg.kernel, edepth)
+        tr = enc_mod.analyse(planes, cfg_.kernel, d_)
         ev[2].record()
-        lanes = enc_mod.planes_to_lanes(tr, geo, edepth)
+        lanes = enc_mod.planes_to_lanes(tr, geo_, d_)
         ev[3].record()
-        buf, flags, _ = dp.quant_pack_hq(*lanes, encoder.q_indices(),
-                                         *encoder.qm, cfg.slice_prefix,
-                                         cfg.slice_scalar)
+        scratch = dp.pack_scratch(geo_.n_slices, lanes[0].shape[1],
+                                  lanes[1].shape[1], dev)
+        q = enc.q_indices()
+        if enc.budgets is not None:
+            q = cbr.cbr_quant_indices(*lanes, *enc.qm, enc.budgets,
+                                      cfg_.slice_scalar, flags=scratch[1:2])
         ev[4].record()
+        buf, flags, _ = dp.quant_pack_hq(*lanes, q, *enc.qm,
+                                         cfg_.slice_prefix, cfg_.slice_scalar,
+                                         enc.budgets, scratch=scratch)
+        ev[5].record()
         check(flags == 0, "flags in the staged encode")
         buf.cpu()
-        ev[5].record()
+        ev[6].record()
         torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
 
-    labels = ["encode device: H2D of the samples (int16)",
-              "encode device: pad + forward_planes (2 lift launches)",
-              "encode device: plane_to_lanes",
-              "encode device: quantise + pack (1 launch, 1 sync)",
-              "encode device: D2H of totals + payload"]
-    staged_encode()
-    rows = [staged_encode() for _ in range(REPS)]
-    for i, lab in enumerate(labels):
-        stages[lab] = statistics.median(r[i] for r in rows)
+    for prefix, enc in (("encode", encoder), ("CBR encode", cbr_encoder)):
+        labels = ["H2D of the samples (int16)",
+                  "pad + forward_planes (2 lift launches)", "plane_to_lanes",
+                  "cbr search (1 launch, no sync)",
+                  "quantise + pack (1 launch, 1 sync)",
+                  "D2H of totals + payload"]
+        staged_encode(enc)
+        rows = [staged_encode(enc) for _ in range(REPS)]
+        for i, lab in enumerate(labels):
+            if enc.budgets is not None or i != 3:
+                stages[f"{prefix} device: {lab}"] = statistics.median(
+                    r[i] for r in rows)
     stages["encode host: read a picture (PlanarReader, NumPy)"] = time_host(
         read_picture)
     payload = encoder.encode_picture(picture_1080p).payload
@@ -875,6 +1145,7 @@ def main(argv) -> int:
                                                          payload))
 
     times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
+    times.update(cbr_times(torch, cbr_tlanes, cbr_encoder))
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
@@ -921,16 +1192,35 @@ def main(argv) -> int:
     pack_bound, pack_by = bound_ms(pack_bytes,
                                    20 * n_lanes + 38 * n_nonzero)
 
+    # the CBR search: the transform lanes, the budgets and the quant matrix
+    # tables read once, the q indices written once. Operations, for this
+    # run's data: each of the 7 probes ~15 a lane (the trial quantise as a
+    # multiply-high, the code length, the sums); each luma error pass ~20 a
+    # luma lane (quantise, rescale, square, sum), and a slice makes (its
+    # climb + 2) passes
+    cbr_lanes = sum(t.numel() for t in cbr_tlanes)
+    cbr_slices = cbr_tlanes[0].shape[0]
+    cbr_bytes = (4 * cbr_lanes + 8 * cbr_slices
+                 + 4 * sum(t.numel() for t in cbr_encoder.qm))
+    cbr_ops = (7 * 15 * cbr_lanes
+               + 20 * cbr_tlanes[0].shape[1] * times["cbr_luma_passes"])
+    cbr_bound, cbr_by = bound_ms(cbr_bytes, cbr_ops)
+
+    paths = {"decode": decode_launches, "encode": encode_launches,
+             "encode_cbr": cbr_launches, "decode_fragments": frag_launches}
+
     def launches(k):
-        return decode_launches[k] + encode_launches[k]
+        return sum(p[k] for p in paths.values())
+
+    def by_path(k):
+        return {name: p[k] for name, p in paths.items()}
 
     kernels = [
         {"name": "lift_level", "route": "cuda",
          "source": "vc2tpu_torch/csrc/lift_level.cu",
          "replaces": "vc2tpu/wavelet/pallas_lift.py:235",
          "launches": launches("lift_level"),
-         "launches_by_path": {"decode": decode_launches["lift_level"],
-                              "encode": encode_launches["lift_level"]},
+         "launches_by_path": by_path("lift_level"),
          "max_abs_err": lift_err,
          "ms": times["lift_ms"], "device_ms": times["lift_device_ms"],
          "plain_ms": times["lift_plain_ms"], "bound_ms": lift_bound,
@@ -939,8 +1229,7 @@ def main(argv) -> int:
          "source": "vc2tpu_torch/csrc/hq_unpack.cu",
          "replaces": "vc2tpu/vlc/device_unpack.py:107",
          "launches": launches("hq_unpack"),
-         "launches_by_path": {"decode": decode_launches["hq_unpack"],
-                              "encode": encode_launches["hq_unpack"]},
+         "launches_by_path": by_path("hq_unpack"),
          "max_abs_err": unpack_err,
          "ms": times["unpack_ms"], "device_ms": times["unpack_device_ms"],
          "plain_ms": times["unpack_plain_ms"],
@@ -950,15 +1239,26 @@ def main(argv) -> int:
          "source": "vc2tpu_torch/csrc/hq_pack.cu",
          "replaces": "vc2tpu/vlc/device_pack.py:133",
          "launches": launches("hq_pack"),
-         "launches_by_path": {"decode": decode_launches["hq_pack"],
-                              "encode": encode_launches["hq_pack"]},
+         "launches_by_path": by_path("hq_pack"),
          "max_abs_err": pack_err,
          "ms": times["pack_ms"], "device_ms": times["pack_device_ms"],
          "plain_ms": times["pack_plain_ms"],
          "bound_ms": pack_bound, "bound_by": pack_by,
          "library_ms": None},
+        {"name": "hq_cbr", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/hq_cbr.cu",
+         "replaces": "vc2tpu/rdo/cbr.py:183",
+         "launches": launches("hq_cbr"),
+         "launches_by_path": by_path("hq_cbr"),
+         "max_abs_err": cbr_err,
+         "ms": times["cbr_ms"], "device_ms": times["cbr_device_ms"],
+         "plain_ms": times["cbr_plain_ms"],
+         "bound_ms": cbr_bound, "bound_by": cbr_by,
+         "library_ms": None},
     ]
-    todo = unported_bounds(n_lanes, tlanes_1080p[0].numel(), n_slices)
+    todo = unported_bounds(n_lanes, n_slices)
+    print(f"cbr search at 1080p: {times['cbr_luma_passes']} luma error "
+          f"passes over {cbr_slices} slices, longest climb {cbr_climb}")
     print("bounds of the XLA functions still to port, 1080p: "
           + ", ".join(f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in
                       todo.items()))
@@ -977,24 +1277,19 @@ def main(argv) -> int:
     return 0
 
 
-def unported_bounds(n_lanes: int, n_luma: int, n_slices: int) -> dict:
+def unported_bounds(n_lanes: int, n_slices: int) -> dict:
     """Bounds (ms, and what bounds them) of the XLA functions still to port,
-    from the 1080p shapes: ``n_lanes`` int32 lanes (``n_luma`` of them
-    luma) in ``n_slices`` slices, and the 829 440-byte pictures of the
-    HQ CBR and LD 1080p configurations (``bench.py``). Operation counts a
-    lane are estimates of the work each function must do: a pack or an
-    unpack ~40 (quantised lane to code and back, its place); the CBR
-    search 7 bisection probes of ~15 (a division-free trial quantise and
-    code length) and 4 hill-climb candidates of ~20 on the luma lanes (a
-    trial quantise, its inverse, a squared error); the LD rate control 7
-    probes of ~15. The LD wavefront's 374 dependent steps are not in the
-    bound."""
+    from the 1080p shapes: ``n_lanes`` int32 lanes in ``n_slices`` slices,
+    and the 829 440-byte pictures of the LD 1080p configuration
+    (``bench.py``). Operation counts a lane are estimates of the work each
+    function must do: a pack or an unpack ~40 (quantised lane to code and
+    back, its place); the LD rate control 7 probes of ~15 (a trial
+    quantise and code length). The LD wavefront's 374 dependent steps are
+    not in the bound."""
     lanes_b, picture_b, index_b = 4 * n_lanes, 829440, 4 * n_slices
     return {
         "pack_ld_core": bound_ms(lanes_b + picture_b, 40 * n_lanes),
         "unpack_ld_lanes": bound_ms(picture_b + lanes_b, 40 * n_lanes),
-        "cbr_quant_indices": bound_ms(lanes_b + 2 * index_b,
-                                      7 * 15 * n_lanes + 4 * 20 * n_luma),
         "ld_rate_control": bound_ms(lanes_b + 2 * index_b,
                                     7 * 15 * n_lanes),
     }
@@ -1064,6 +1359,33 @@ def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
                                                   prefix, scalar), reps=3),
         "pack_payload_bytes": total,
         "plane_samples": [p.numel() for p in planes],
+    }
+
+
+def cbr_times(torch, tlanes, enc) -> dict:
+    """Times of the CBR search on one 1080p picture's transform lanes:
+    ``cbr_ms`` as the host issues its launch (no synchronisation in the
+    wrapper), ``cbr_device_ms`` queued (the device's time alone),
+    ``cbr_plain_ms`` of the plain version on the card; and the number of
+    luma error passes this picture's slices make (each slice: its climb
+    + 2), for the bound."""
+    from vc2tpu_torch.rdo import cbr
+
+    scalar = enc.cfg.slice_scalar
+
+    def search():
+        return cbr.cbr_quant_indices(*tlanes, *enc.qm, enc.budgets, scalar)
+
+    q = cbr.cbr_quant_indices_plain(*tlanes, *enc.qm, enc.budgets, scalar)
+    best = cbr.bisect_plain(*tlanes, *enc.qm, enc.budgets, scalar)
+    return {
+        "cbr_ms": time_device(torch, search),
+        "cbr_device_ms": time_device(torch, search, KERNEL_INNER,
+                                     queued=True),
+        "cbr_plain_ms": time_device(
+            torch, lambda: cbr.cbr_quant_indices_plain(
+                *tlanes, *enc.qm, enc.budgets, scalar), reps=3),
+        "cbr_luma_passes": int((q.to(torch.int64) - best + 2).sum()),
     }
 
 

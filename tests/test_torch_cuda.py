@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-HQ goldens decoded through them and the ConstQ goldens encoded through
-them. Every test here needs a CUDA device
+HQ goldens decoded through them and the ConstQ and CBR goldens encoded
+through them. Every test here needs a CUDA device
 and skips without one. The file imports neither jax nor vc2tpu, so it runs
 on a machine that has only PyTorch:
 
@@ -18,20 +18,20 @@ import torch
 from vc2tpu_torch.cli import encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core.config import WaveletKernel
+from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.vlc import device_pack as dp
 from vc2tpu_torch.vlc import device_unpack as du
-from vc2tpu_torch.wavelet import lifting
+from vc2tpu_torch.wavelet import lifting, matrices
 
 pytestmark = pytest.mark.cuda
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 with open(os.path.join(GOLDEN, "meta.json")) as _f:
     META = json.load(_f)
-HQ = [c[0] for c in META["cases"]
-      if not c[0].startswith("ld") and c[0] != "cbr_fragmented"]
-CONSTQ = [c[0] for c in META["cases"] if c[0].startswith("constq")]
+HQ = [c[0] for c in META["cases"] if not c[0].startswith("ld")]
+HQ_ENCODE = [c[0] for c in META["cases"] if not c[0].startswith("ld")]
 KERNELS = [k for k in WaveletKernel if k != WaveletKernel.NullKernel]
 
 
@@ -358,7 +358,7 @@ def test_pack_kernel_stays_in_its_buffer(case, cuda):
         assert flags == 0 and torch.equal(buf[:size], want[:size])
 
 
-@pytest.mark.parametrize("case", CONSTQ)
+@pytest.mark.parametrize("case", HQ_ENCODE)
 def test_golden_encodes_through_the_kernels(case, cuda, tmp_path):
     _, inp, extra = next(c for c in META["cases"] if c[0] == case)
     m = META["inputs"][inp]
@@ -366,8 +366,74 @@ def test_golden_encodes_through_the_kernels(case, cuda, tmp_path):
             "-l", str(m["depth"]), "-n", "2", *extra,
             os.path.join(GOLDEN, f"{inp}.16p2"), str(tmp_path / "out.vc2")]
     lifts, packs = lifting.lift_levels.launches, dp.pack_hq.launches
+    searches = cbr.cbr_quant_indices.launches
     assert encode_stream.main(argv) == 0
     with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
         assert (tmp_path / "out.vc2").read_bytes() == f.read()
     assert lifting.lift_levels.launches > lifts
     assert dp.pack_hq.launches > packs
+    pictures = dp.pack_hq.launches - packs
+    assert cbr.cbr_quant_indices.launches - searches == (
+        pictures if case.startswith("cbr") else 0)
+
+
+CBR_CASES = ["1080p_slices", "scalar2", "lanes_to_2^29", "zeros", "no_fit",
+             "climb_past_3", "ragged", "unstaged"]
+
+
+@pytest.mark.parametrize("case", CBR_CASES)
+def test_cbr_kernel_matches_plain(case, cuda):
+    """The CBR search on the card against its plain version: integer ==
+    on the q indices, and the flag word set exactly when one exceeds 119."""
+    rng = np.random.default_rng(80 + CBR_CASES.index(case))
+    n, lengths, span, scalar, per = 3000, (64, 32, 32), 1 << 12, 1, 40
+    if case == "scalar2":
+        scalar, per = 2, 60
+    elif case == "lanes_to_2^29":
+        span, scalar, per = (1 << 29) - 1, 3, 400
+    elif case == "zeros":
+        span = 0
+    elif case == "no_fit":
+        span, per = (1 << 29) - 1, 5
+    elif case == "ragged":
+        n = 333
+    elif case == "unstaged":
+        n, lengths, span, scalar, per = 64, (2048, 1024, 1024), 1 << 16, 4, \
+            6000
+    lanes = []
+    for length in lengths:
+        v = rng.integers(-span, span + 1, (n, length))
+        v[rng.random((n, length)) < 0.4] = 0
+        lanes.append(v.astype(np.int32))
+    budgets = np.array(layout.slice_bytes_map(1, n, n * per, scalar)).ravel()
+    if case == "climb_past_3":
+        # lane 0 alone, every magnitude 1-3999, budgets 5-8 bytes
+        mags, b = np.meshgrid(np.arange(1, 4000), np.arange(5, 9),
+                              indexing="ij")
+        lanes = [np.zeros((mags.size, length), np.int32)
+                 for length in lengths]
+        lanes[0][:, 0] = mags.ravel()
+        budgets = b.ravel().astype(np.int32)
+    qm = [torch.from_numpy(rng.integers(0, 8, length).astype(np.int32))
+          .to(cuda) for length in lengths[:2]]
+    if case == "climb_past_3":        # the 1080p slices' LeGall matrix
+        qmatrix = matrices.quant_matrix(WaveletKernel.LeGall, 2)
+        qm = [torch.from_numpy(qmatrix[layout.lane_order(h, w, 2)[1]]
+                               .astype(np.int32)).to(cuda)
+              for h, w in ((8, 8), (8, 4))]
+    t = [torch.from_numpy(x).to(cuda) for x in lanes]
+    sizes = torch.from_numpy(budgets).to(cuda)
+    assert cbr.staged(*lengths[:2]) == (case != "unstaged")
+    flags = torch.zeros(1, dtype=torch.int64, device=cuda)
+    launches = cbr.cbr_quant_indices.launches
+    got = cbr.cbr_quant_indices(*t, *qm, sizes, scalar, flags=flags)
+    want = cbr.cbr_quant_indices_plain(*t, *qm, sizes, scalar)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert cbr.cbr_quant_indices.launches == launches + 1
+    over = bool((want > 119).any())
+    assert int(flags.item()) == (dp.FLAG_QMAX if over else 0)
+    assert over == (case == "no_fit")
+    if case == "climb_past_3":
+        best = cbr.bisect_plain(*t, *qm, sizes, scalar)
+        assert int((want.to(torch.int64) - best).max()) > 3

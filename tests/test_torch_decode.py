@@ -1,8 +1,9 @@
-"""The port's HQ decode on the CPU: every non-fragmented HQ golden decodes
-byte-identically through ``Decoder(device="cpu")``; the payload-level
-decode equals vc2tpu's ``synthesise_payload_to_words``; what the slice does
-not do raises NotImplementedError; and a kernel failure propagates instead
-of being skipped as a corrupt picture."""
+"""The port's HQ decode on the CPU: every HQ golden (``cbr_fragmented``
+among them) decodes byte-identically through ``Decoder(device="cpu")``;
+the payload-level decode equals vc2tpu's ``synthesise_payload_to_words``;
+LD streams raise NotImplementedError; and a kernel failure propagates
+instead of being skipped as a corrupt picture. The tap outputs and the
+fragment reassembly have their own tests (tests/test_torch_fragments.py)."""
 
 import io
 import json
@@ -18,7 +19,7 @@ from vc2tpu.pipeline.encoder import SliceGeometry as JSG
 
 from vc2tpu_torch.cli import decode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
-from vc2tpu_torch.core.config import DecOutput, PictureGeometry
+from vc2tpu_torch.core.config import PictureGeometry
 from vc2tpu_torch.pipeline import decoder as tdec
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.vlc import device_unpack
@@ -27,8 +28,8 @@ from vc2tpu_torch.wavelet import lifting, matrices
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 with open(os.path.join(GOLDEN, "meta.json")) as _f:
     _CASES = [c[0] for c in json.load(_f)["cases"]]
-HQ = [c for c in _CASES if not c.startswith("ld") and c != "cbr_fragmented"]
-NOT_PORTED = [c for c in _CASES if c.startswith("ld") or c == "cbr_fragmented"]
+HQ = [c for c in _CASES if not c.startswith("ld")]
+NOT_PORTED = [c for c in _CASES if c.startswith("ld")]
 
 
 def _read(name):
@@ -85,13 +86,6 @@ def test_payload_decode_matches_vc2tpu():
 def test_not_ported_streams_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _decode(_read(f"{case}.vc2"))
-
-
-@pytest.mark.parametrize("output", [o for o in DecOutput
-                                    if o != DecOutput.DECODED])
-def test_not_ported_outputs_raise(output):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(output=output, device="cpu")
 
 
 def _boom(*_a, **_k):

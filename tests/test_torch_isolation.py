@@ -1,9 +1,12 @@
 """The port stands alone: it imports neither jax nor vc2tpu, its entry
 points run on the card unless asked for the CPU, its kernels build only
-from source with nvcc (the chain scan with the host C++ compiler), and a
-CUDA tensor never takes a wrapper's plain route."""
+from source with nvcc (the chain scan with the host C++ compiler), a CUDA
+tensor never takes a wrapper's plain route, and a kernel error in a
+fragmented picture propagates."""
 
 import ast
+import dataclasses
+import io
 import os
 import subprocess
 import sys
@@ -15,11 +18,12 @@ from vc2tpu_torch.cli import decode_stream, encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import build
 from vc2tpu_torch.core import device as devices
-from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig,
+from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig, Mode,
                                       WaveletKernel)
 from vc2tpu_torch.pipeline.encoder import Encoder
+from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.slices import hq
-from vc2tpu_torch.vlc import device_pack
+from vc2tpu_torch.vlc import device_pack, device_unpack
 from vc2tpu_torch.wavelet import lifting
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +80,10 @@ def test_encode_imports_load_no_jax_or_vc2tpu():
                    "vc2tpu_torch.pipeline.encoder")
 
 
+def test_rate_control_imports_load_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch.rdo, vc2tpu_torch.rdo.cbr")
+
+
 def test_entry_points_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -100,11 +108,15 @@ def test_encoder_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder(_config())
     assert Encoder(_config(), device="cpu").device == torch.device("cpu")
+    cbr_cfg = dataclasses.replace(_config(), mode=Mode.HQ_CBR, q_index=0,
+                                  compressed_bytes=2048)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Encoder(cbr_cfg)
     src = os.path.join(ROOT, "tests", "golden", "tiny422.16p2")
-    argv = ["-x", "64", "-y", "32", "-f", "4:2:2", "-l", "10", "-m",
-            "HQ_ConstQ", "-k", "LeGall", "-d", "2", "-u", "1", "-a", "2",
-            "-q", "20", src, os.devnull]
-    assert encode_stream.main(argv) != 0
+    argv = ["-x", "64", "-y", "32", "-f", "4:2:2", "-l", "10", "-k",
+            "LeGall", "-d", "2", "-u", "1", "-a", "2", src, os.devnull]
+    assert encode_stream.main(["-m", "HQ_ConstQ", "-q", "20"] + argv) != 0
+    assert encode_stream.main(["-m", "HQ_CBR", "-s", "2048"] + argv) != 0
 
 
 class _OnCuda(torch.Tensor):
@@ -120,7 +132,8 @@ class _KernelReached(Exception):
     pass
 
 
-@pytest.mark.parametrize("entry", ["pack_hq", "quant_pack_hq"])
+@pytest.mark.parametrize("entry", ["pack_hq", "quant_pack_hq",
+                                   "cbr_quant_indices"])
 def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
     def plain(*_a, **_k):
         raise AssertionError(f"{entry} took the plain route for CUDA lanes")
@@ -131,16 +144,43 @@ def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
     monkeypatch.setattr(device_pack, "pack_hq_plain", plain)
     monkeypatch.setattr(device_pack, "quant_pack_hq_plain", plain)
     monkeypatch.setattr(device_pack, "launch_pack", kernel)
+    monkeypatch.setattr(cbr, "cbr_quant_indices_plain", plain)
+    monkeypatch.setattr(cbr, "bisect_plain", plain)
+    monkeypatch.setattr(cbr, "launch_search", kernel)
     lanes = [torch.zeros(shape, dtype=torch.int32).as_subclass(_OnCuda)
              for shape in ((4, 8), (4, 4), (4, 4), (4,))]
+    qm = [torch.zeros(n, dtype=torch.int32).as_subclass(_OnCuda)
+          for n in (8, 4)]
     assert lanes[0].device.type == "cuda"
     with pytest.raises(_KernelReached):
         if entry == "pack_hq":
             device_pack.pack_hq(*lanes, 0, 1)
-        else:
-            qm = [torch.zeros(n, dtype=torch.int32).as_subclass(_OnCuda)
-                  for n in (8, 4)]
+        elif entry == "quant_pack_hq":
             device_pack.quant_pack_hq(*lanes, *qm, 0, 1, keep_lanes=True)
+        else:
+            cbr.cbr_quant_indices(*lanes[:3], *qm, lanes[3], 1)
+
+
+def _boom(*_a, **_k):
+    raise RuntimeError("kernel launch failed")
+
+
+@pytest.mark.parametrize("module,name", [(lifting, "lift_level"),
+                                         (device_unpack, "unpack_hq")],
+                         ids=["lift_level", "unpack_hq"])
+def test_kernel_error_propagates_from_fragments(module, name, monkeypatch,
+                                                tmp_path):
+    """A kernel failure in a fragmented picture's decode is not skipped as
+    a corrupt picture (the JAX package skips any exception there): it
+    propagates, and the CLI exits non-zero."""
+    golden = os.path.join(ROOT, "tests", "golden", "cbr_fragmented.vc2")
+    with open(golden, "rb") as f:
+        data = f.read()
+    monkeypatch.setattr(module, name, _boom)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        Decoder(sink=io.BytesIO(), device="cpu").run(data)
+    assert decode_stream.main([golden, str(tmp_path / "out.16p2"),
+                               "--device", "cpu"]) != 0
 
 
 def test_build_needs_a_host_compiler(monkeypatch):
@@ -157,10 +197,19 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["sources", "generated_header",
-                                  "host_source"])
+                                  "host_source", "cbr_header"])
 def test_libraries_are_keyed_by_source_hash(case):
     if case == "sources":
         srcs = [lifting.kernel_source(), build.Source("hq_unpack")]
+    elif case == "cbr_header":
+        # the CBR search with a changed table in its generated header
+        src = cbr.kernel_source()
+        (fname, text), = src.headers
+        assert src.path.endswith("hq_cbr.cu") and fname == "hq_cbr_params.h"
+        changed = text.replace("#define VC2_CBR_MAX_Q 119",
+                               "#define VC2_CBR_MAX_Q 118")
+        assert changed != text
+        srcs = [src, build.Source(src.name, ((fname, changed),))]
     elif case == "host_source":
         srcs = [hq.scan_source(), device_pack.kernel_source()]
         assert srcs[0].path.endswith("hq_scan.cpp")

@@ -2,12 +2,22 @@
 
 Data-unit dispatch loop mirroring the reference decoder
 (src/DecodeStream/DecodeStream.cpp:205-981): resync, sequence-header state,
-HQ pictures, aux/padding skip, interlaced field pairing and signal clip,
-with the DECODED output. Each HQ picture decodes on the device
-(``pipeline.decoder.synthesise_payload_to_words``).
+HQ pictures and HQ fragments (reassembled into pictures), aux/padding
+skip, interlaced field pairing and signal clip. Each HQ picture decodes on
+the device (``pipeline.decoder.synthesise_payload_to_words``) for the
+DECODED output; the tap outputs write, one picture at a time and with no
+field pairing, the chain scan's q indices (INDICES), the unpacked lanes in
+transform layout (QUANTISED) or the dequantised transform planes
+(TRANSFORM), as int32 words.
 
-Not in this slice, and raising NotImplementedError: LD pictures, fragments
-and the TRANSFORM / QUANTISED / INDICES outputs (ROADMAP queue 1).
+Errors: a corrupt or short stream raises ValueError, which the stream loop
+answers by growing its window and then skipping the picture or fragment.
+Unlike the JAX package, whose fragment path turns any exception into a
+skipped picture, a kernel or CUDA error propagates here, for fragments as
+for pictures, and the CLI exits non-zero.
+
+Not in this slice, and raising NotImplementedError: LD pictures and LD
+fragments (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -22,7 +32,12 @@ import torch
 
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import DecOutput, PictureGeometry, chroma_dims
-from vc2tpu_torch.pipeline.decoder import synthesise_payload_to_words
+from vc2tpu_torch.core.picture import Picture
+from vc2tpu_torch.core.planario import SampleFormat, write_picture
+from vc2tpu_torch.pipeline.decoder import (dequantise_planes,
+                                           synthesise_payload_to_words,
+                                           unpack_payload)
+from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.wavelet import matrices
@@ -60,15 +75,27 @@ class LocatedPicture:
     cbytes: np.ndarray
 
 
+@dataclasses.dataclass
+class _FragState:
+    """Per-picture fragment reassembly (reference FragmentedPictureData,
+    DecodeStream.cpp:62-101)."""
+
+    preamble: object
+    payload_parts: dict            # first slice index -> bytes
+    slices_decoded: int = 0
+
+
+class _FragmentDecodeError(ValueError):
+    """The fragment unit was complete but the assembled picture is corrupt:
+    growing the read window cannot fix that, so the stream loop skips the
+    picture instead of retrying."""
+
+
 class Decoder:
     """Stateful stream decoder usable as a library (the CLI drives it)."""
 
     def __init__(self, output: DecOutput = DecOutput.DECODED, verbose=False,
                  sink=None, device=None):
-        if output != DecOutput.DECODED:
-            raise NotImplementedError(
-                f"output {output.value} " + _NOT_PORTED.format(
-                    "the TRANSFORM/QUANTISED/INDICES outputs"))
         self.device = devices.resolve(device)
         self.output = output
         self.verbose = verbose
@@ -77,6 +104,7 @@ class Decoder:
         self._major_version = 0
         self.pic = 0
         self.frame = 0
+        self.frags: dict[int, _FragState] = {}
         self.frames_out = 0
         self._pending: list[torch.Tensor] = []   # output bytes in flight
         self._depth = 3               # pictures in flight before blocking
@@ -169,6 +197,12 @@ class Decoder:
         if self.hdr is None:
             self.log("Cannot decode frame, no previous sequence header!")
             return rd.r.byte_pos, None
+        return self._locate(picnum, pre, rd.data, rd.r.byte_pos)
+
+    def _locate(self, picnum: int, pre, data: bytes, start: int):
+        """(end of the slice chain, LocatedPicture) of a picture whose
+        slices begin at byte ``start`` of ``data``; ValueError when the
+        chain runs past the end of ``data``."""
         hdr = self.hdr
         depth = pre.depth
         pic_h = hdr.height // 2 if hdr.interlace else hdr.height
@@ -179,20 +213,23 @@ class Decoder:
         geo = SliceGeometry(ys, xs, (padded_h, padded_w), (pch, pcw),
                             (padded_h // ys, padded_w // xs),
                             (pch // ys, pcw // xs))
-        start = rd.r.byte_pos
         q_idx, _dstart, cbytes, end = scan_hq_slice_offsets(
-            rd.data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
+            data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
             start)
-        # the data unit up to the slice chain's end: all the device needs
-        payload = np.frombuffer(rd.data, dtype=np.uint8, count=end)
+        # the data up to the slice chain's end: all the device needs
+        payload = np.frombuffer(data, dtype=np.uint8, count=end)
         return end, LocatedPicture(picnum, pre, geo, pic_h, payload, start,
                                    q_idx, cbytes)
 
     def _decode_picture(self, job: LocatedPicture):
-        """Device decode of a located picture; errors propagate."""
+        """Device decode of a located picture into the output; errors
+        propagate."""
         hdr = self.hdr
         pre = job.pre
         qmatrix = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
+        if self.output != DecOutput.DECODED:
+            self._write_tap(job, qmatrix)
+            return
         out_geom = PictureGeometry.of(job.pic_h, hdr.width, hdr.chroma_format)
         words = synthesise_payload_to_words(
             job.payload, job.q_idx, job.cbytes, qmatrix, pre.wavelet_kernel,
@@ -200,6 +237,70 @@ class Decoder:
             start=job.start, device=self.device)
         self._cur_picnum = job.picnum
         self._emit_words(words)
+
+    def _write_tap(self, job: LocatedPicture, qmatrix):
+        """One picture's INDICES, QUANTISED or TRANSFORM output
+        (DecodeStream.cpp's taps; the JAX package's ``_finish_picture``):
+        the q indices as bytes, or int32 words of the lanes in transform
+        layout, raw or dequantised (uncropped)."""
+        if self.output == DecOutput.INDICES:
+            self.sink.write(np.asarray(job.q_idx).astype(np.uint8).tobytes())
+            return
+        pre, geo = job.pre, job.geo
+        lanes, q_idx = unpack_payload(job.payload, job.q_idx, job.cbytes, geo,
+                                      pre.slice_prefix, start=job.start,
+                                      device=self.device)
+        if self.output == DecOutput.TRANSFORM:
+            planes = dequantise_planes(lanes, q_idx, qmatrix, pre.depth, geo)
+        else:
+            planes = [layout.lanes_to_plane(
+                lanes_c, geo.y_slices, geo.x_slices,
+                *(geo.luma_slice if c == 0 else geo.chroma_slice), pre.depth)
+                for c, lanes_c in enumerate(lanes)]
+        write_picture(self.sink, Picture(*planes, self.hdr.chroma_format),
+                      SampleFormat(word_width=4, offset=False))
+
+    def _handle_fragment(self, rd: StreamReader):
+        """The HQ fragment data unit at the head of ``rd`` (its parse_info
+        read). Returns (consumed bytes, LocatedPicture or None): the
+        picture once its last slices arrive. ValueError when the window is
+        too short; _FragmentDecodeError when the assembled picture is
+        corrupt."""
+        picnum = rd.read_picture_number()
+        frag = rd.read_fragment_header()
+        if frag.n_slices == 0:
+            pre = rd.read_preamble(True)
+            if self.hdr is None:
+                self.log("Cannot decode frame, no previous sequence header!")
+                return rd.r.byte_pos, None
+            self.frags[picnum] = _FragState(preamble=pre, payload_parts={})
+            return rd.r.byte_pos, None
+        body = rd.r.get_raw(frag.data_length)
+        if len(body) < frag.data_length:
+            raise ValueError("truncated fragment body")
+        st = self.frags.get(picnum)
+        if st is None:
+            self.log("Cannot decode slices as no picture header yet read "
+                     f"for picture number {picnum}")
+            return rd.r.byte_pos, None
+        first = (frag.slice_offset_y * st.preamble.slices_x
+                 + frag.slice_offset_x)
+        # idempotent under the stream loop's grow-and-retry (and under
+        # duplicate fragments): a span already seen must not count twice
+        if first not in st.payload_parts:
+            st.slices_decoded += frag.n_slices
+        st.payload_parts[first] = body
+        if st.slices_decoded < st.preamble.slices_x * st.preamble.slices_y:
+            return rd.r.byte_pos, None
+        # complete: drop the reassembly state first, so a corrupt picture
+        # leaves none behind and is not retried with a bigger window
+        del self.frags[picnum]
+        payload = b"".join(p for _, p in sorted(st.payload_parts.items()))
+        try:
+            _end, job = self._locate(picnum, st.preamble, payload, 0)
+        except ValueError as exc:
+            raise _FragmentDecodeError(exc) from exc
+        return rd.r.byte_pos, job
 
     # --- data unit handlers ---
 
@@ -354,10 +455,48 @@ class Decoder:
                     if not resync():
                         self._flush()
                         return 0
-            elif du_type in (DataUnitType.HQ_FRAGMENT,
-                             DataUnitType.LD_FRAGMENT):
-                raise NotImplementedError("fragmented picture decode "
-                                          + _NOT_PORTED.format("HQ fragments"))
+            elif du_type == DataUnitType.LD_FRAGMENT:
+                raise NotImplementedError("LD fragment decode "
+                                          + _NOT_PORTED.format("LD"))
+            elif du_type == DataUnitType.HQ_FRAGMENT:
+                fill(max(min(next_off, 64 << 20), 13 + 4 + 8))
+                grow_cap = min(max(next_off, 0), 64 << 20) + (64 << 20)
+                job = None
+                while True:
+                    # the window itself, not a copy a fragment: what the
+                    # fragment keeps is the slice of its body, copied out
+                    # before the window is consumed
+                    rd = StreamReader(window)
+                    rd.major_version = self._major_version
+                    rd.r.seek(13)
+                    try:
+                        end, job = self._handle_fragment(rd)
+                        consume(min(end, len(window)))
+                        break
+                    except _FragmentDecodeError as exc:
+                        # a bigger window cannot help: skip, and drop any
+                        # buffered first field (as a failed picture does)
+                        print(f"Failed to decode fragmented picture ({exc})",
+                              file=sys.stderr)
+                        self.pic = 0
+                        self._first_words = None
+                        skip(next_off if next_off >= 13 else 13)
+                        break
+                    except ValueError as exc:
+                        # a fragment body may run past a zero or lying
+                        # next_parse_offset: grow the window and retry (as
+                        # the picture path does) before skipping it
+                        before = len(window)
+                        if not eof and before < grow_cap:
+                            fill(min(before + 8 * chunk_bytes, grow_cap))
+                        if len(window) > before:
+                            continue
+                        print(f"Failed to read fragment ({exc})",
+                              file=sys.stderr)
+                        skip(next_off if next_off >= 13 else 13)
+                        break
+                if job is not None:
+                    self._decode_picture(job)     # device errors propagate
             else:
                 consume(13)
 

@@ -1,17 +1,19 @@
-"""EncodeStream-compatible CLI: planar file -> VC-2 HQ ConstQ stream, on
-the card.
+"""EncodeStream-compatible CLI: planar file -> VC-2 HQ stream (ConstQ or
+CBR), on the card.
 
 The flag surface mirrors the reference's (src/EncodeStream/
 EncodeParams.cpp:80-107), with the seven outputs (Transform / Quantised /
 Indices / Packaged / Stream / Decoded / PSNR, EncodeStream.cpp:486-767).
 Each picture is encoded on the device by ``pipeline.encoder.Encoder``;
 interlaced input encodes each field as a picture of half the height.
+HQ CBR with ``-F`` writes each picture as a series of fragments.
 
-Not in this slice, and raising NotImplementedError: HQ CBR and LD
-(ROADMAP queue 1).
+Not in this slice, and raising NotImplementedError: LD (ROADMAP queue 1).
 
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m HQ_ConstQ -q 20 in.16p2 out.vc2
+    python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
+        -k LeGall -d 2 -u 1 -a 2 -m HQ_CBR -S 1 -s 2048 -F 512 in.16p2 out.vc2
 """
 
 from __future__ import annotations
@@ -156,7 +158,8 @@ def _q_stats(q_indices) -> tuple[float, float]:
     return mean, float((qi * qi).mean() - mean * mean)
 
 
-def _narrate(args, cfg: EncoderConfig, output: EncOutput, geo) -> None:
+def _narrate(args, cfg: EncoderConfig, output: EncOutput, geo,
+             picture_bytes: int) -> None:
     """The reference's -v parameter dump (EncodeStream.cpp:284-293,
     349-365, 408-429)."""
     g = cfg.geometry
@@ -180,8 +183,13 @@ def _narrate(args, cfg: EncoderConfig, output: EncOutput, geo) -> None:
               f"compressed bytes = {cfg.compressed_bytes}",
               f"output = {output.value}",
               f"Vertical slices per picture          = {geo.y_slices}",
-              f"Horizontal slices per picture        = {geo.x_slices}",
-              "Quantisation matrix = " + ", ".join(str(int(v)) for v in qm)]
+              f"Horizontal slices per picture        = {geo.x_slices}"]
+    if cfg.mode == Mode.HQ_CBR:
+        num, den = intmath.rationalise(picture_bytes, geo.n_slices)
+        lines += [f"Slice bytes numerator                = {num}",
+                  f"Slice bytes denominator              = {den}"]
+    lines.append("Quantisation matrix = "
+                 + ", ".join(str(int(v)) for v in qm))
     print("\n".join(lines), file=sys.stderr)
 
 
@@ -203,10 +211,14 @@ def run(args) -> int:
                else open(args.outFile, "wb"))
     reader = PlanarReader(infile, geometry, luma_fmt, chroma_fmt)
     frame_pics = 2 if cfg.interlaced else 1
+    picture_bytes = (cfg.compressed_bytes // 2 if cfg.interlaced
+                     else cfg.compressed_bytes)
     if verbose:
-        _narrate(args, cfg, output, geo)
+        _narrate(args, cfg, output, geo, picture_bytes)
 
     writer = StreamWriter(outfile)
+    writer.fragment_length = (cfg.fragment_length
+                              if cfg.mode == Mode.HQ_CBR else 0)
     if output == EncOutput.STREAM:
         if verbose:
             print("\nWriting Sequence Header\n", file=sys.stderr)
@@ -223,6 +235,8 @@ def run(args) -> int:
         slices_x=geo.x_slices, slices_y=geo.y_slices,
         slice_prefix=cfg.slice_prefix, slice_size_scalar=cfg.slice_scalar)
     all_q_indices = []          # quantiser index stats (EncodeStream.cpp:676)
+    # the q indices come back from the device only for what shows them
+    keep_q = verbose or output == EncOutput.PSNR
     frame = 0
     while True:
         in_frame = reader.read_frame()
@@ -232,8 +246,11 @@ def run(args) -> int:
                 return 1
             break
         if verbose:
-            print(f"Reading input frame number {frame}\nForward transform\n"
-                  "Quantise transform coefficients\n"
+            print(f"Reading input frame number {frame}\nForward transform",
+                  file=sys.stderr)
+            if cfg.mode == Mode.HQ_CBR:
+                print("Determine quantisation indices", file=sys.stderr)
+            print("Quantise transform coefficients\n"
                   "Split quantised coefficients into slices",
                   file=sys.stderr)
             if output == EncOutput.STREAM:
@@ -246,7 +263,8 @@ def run(args) -> int:
                            if pic_i == 0
                            else in_frame.second_field(cfg.top_field_first))
             enc = encoder.encode_picture(picture, keep_planes=keep_planes)
-            frame_q_indices.append(enc.q_indices.ravel())
+            if keep_q:
+                frame_q_indices.append(enc.q_indices.ravel())
             if output == EncOutput.TRANSFORM:
                 write_picture(outfile, enc.transform, sig_fmt)
             elif output == EncOutput.QUANTISED:
@@ -258,7 +276,7 @@ def run(args) -> int:
             elif output == EncOutput.STREAM:
                 writer.write_picture(
                     intmath.picture_number(pic_i, frame, frame_pics),
-                    preamble, enc.payload)
+                    preamble, enc.payload, slice_sizes=enc.slice_totals)
             else:                                   # DECODED / PSNR
                 pic_geom = PictureGeometry.of(
                     geometry.luma_height // frame_pics, geometry.luma_width,

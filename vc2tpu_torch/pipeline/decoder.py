@@ -6,12 +6,15 @@ the HQ picture tail of the reference decoder
 (src/DecodeStream/DecodeStream.cpp:451-609):
 
     upload (one H2D of the payload, one of the slice fields)
-    -> component offsets -> unpack kernel -> dequantise
+    -> component offsets -> unpack kernel       (``unpack_payload``)
+    -> dequantise
     -> lanes_to_plane -> inverse_planes (one lift launch a level)
     -> crop -> clip, offset, MSB-justify, big-endian bytes (uint8)
 
 The stages are separate functions so a profiler can time each; the caller
-makes the one D2H copy of the returned bytes.
+makes the one D2H copy of the returned bytes. The decoder's tap outputs
+(TRANSFORM, QUANTISED) stop after ``unpack_payload`` or
+``dequantise_planes``.
 """
 
 from __future__ import annotations
@@ -90,6 +93,22 @@ def format_planes(planes, out_geometry: PictureGeometry,
                       fmt(c2[:g.chroma_height, :g.chroma_width])])
 
 
+def unpack_payload(payload: np.ndarray, q_indices, cbytes,
+                   geo: SliceGeometry, prefix: int, start: int = 0,
+                   device=None):
+    """The unpack half of a picture's decode: upload, component offsets
+    and the unpack kernel. Returns ((y, u, v) int32 lanes, q indices int32
+    [N]) on ``device`` (default the card), without synchronising; the
+    arguments are ``synthesise_payload_to_words``'s."""
+    dev = devices.resolve(device)
+    pay, fields = upload(payload, q_indices, cbytes, dev)
+    clen = fields[1:]
+    dstart = device_unpack.hq_component_offsets(clen, prefix, start)
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    return device_unpack.unpack_hq(pay, dstart, clen, ly, lc), fields[0]
+
+
 def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
                                 qmatrix, kernel: WaveletKernel, depth: int,
                                 geo: SliceGeometry,
@@ -101,13 +120,8 @@ def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
     first slice; ``q_indices``/``cbytes`` come from the host chain scan.
     Returns the output bytes as a uint8 tensor on ``device`` (default the
     card), without synchronising."""
-    dev = devices.resolve(device)
-    pay, fields = upload(payload, q_indices, cbytes, dev)
-    clen = fields[1:]
-    dstart = device_unpack.hq_component_offsets(clen, prefix, start)
-    ly = geo.luma_slice[0] * geo.luma_slice[1]
-    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-    lanes = device_unpack.unpack_hq(pay, dstart, clen, ly, lc)
-    planes = dequantise_planes(lanes, fields[0], qmatrix, depth, geo)
+    lanes, q_idx = unpack_payload(payload, q_indices, cbytes, geo, prefix,
+                                  start, device)
+    planes = dequantise_planes(lanes, q_idx, qmatrix, depth, geo)
     planes = lifting.inverse_planes(planes, kernel, depth)
     return format_planes(planes, out_geometry, bitdepth)

@@ -1,14 +1,17 @@
-"""HQ ConstQ picture encode on the device: planar samples -> slice payload.
+"""HQ picture encode on the device: planar samples -> slice payload.
 
-Port of ``vc2tpu.pipeline.encoder.Encoder`` for ``Mode.HQ_ConstQ``,
-covering the picture loop of the reference encoder
+Port of ``vc2tpu.pipeline.encoder.Encoder`` for ``Mode.HQ_ConstQ`` and
+``Mode.HQ_CBR``, covering the picture loop of the reference encoder
 (src/EncodeStream/EncodeStream.cpp:452-770):
 
     upload (one H2D of the picture's samples at their read width)
     -> wavelet_pad -> forward_planes (one lift launch a level)
     -> plane_to_lanes
+    -> HQ CBR only: cbr_quant_indices (the rate control, one launch; the
+       q indices stay on the device)
     -> quant_pack_hq (quant at each lane's adjusted index, fused into the
-       pack's one launch; one synchronisation for the payload size)
+       pack's one launch; one synchronisation for the payload size and
+       the flags of the search and the pack)
     -> one D2H of the [totals | payload] buffer
 
 The stages are separate functions so a profiler can time each.
@@ -16,13 +19,13 @@ The stages are separate functions so a profiler can time each.
 ``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
 decoder's ``dequantise_planes`` and ``inverse_planes``.
 
-HQ CBR (its rate control, ``rdo/cbr.py``) and LD are not ported yet, and
-raise NotImplementedError.
+LD is not ported yet, and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 
 import numpy as np
@@ -33,6 +36,7 @@ from vc2tpu_torch.core.config import EncoderConfig, Mode, PictureGeometry
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.pipeline.decoder import dequantise_planes, qm_lanes
 from vc2tpu_torch.quant.quantiser import adjust_quant_index, quant
+from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
 from vc2tpu_torch.vlc import device_pack
@@ -99,12 +103,20 @@ def slice_geometry(cfg: EncoderConfig) -> SliceGeometry:
 
 @dataclasses.dataclass
 class EncodedPicture:
-    q_indices: np.ndarray            # int32 [ySlices, xSlices]
+    q_device: torch.Tensor           # int32 [N] q indices, on the device
+    slices: tuple                    # (ySlices, xSlices)
     payload: bytes                   # the picture's slice payload
     slice_totals: np.ndarray         # int32 per-slice bytes, raster order
     transform: Picture | None = None  # in-place transform planes (device)
     quantised: Picture | None = None  # quantised planes, transform layout
     lanes: tuple | None = None        # quantised lanes (qy, qu, qv)
+
+    @functools.cached_property
+    def q_indices(self) -> np.ndarray:
+        """int32 [ySlices, xSlices] on the host, copied from the device at
+        the first read: only the outputs and statistics that show the q
+        indices pay for the copy."""
+        return self.q_device.cpu().numpy().reshape(self.slices)
 
 
 def upload_picture(picture: Picture, bytes_per_sample: int,
@@ -151,13 +163,11 @@ def quantise(lanes, q_idx: torch.Tensor, qmatrix: np.ndarray, depth: int,
 
 
 class Encoder:
-    """HQ ConstQ picture encoder on ``device`` (default: the card)."""
+    """HQ (ConstQ or CBR) picture encoder on ``device`` (default: the
+    card)."""
 
     def __init__(self, cfg: EncoderConfig, device=None):
         cfg.validate()
-        if cfg.mode == Mode.HQ_CBR:
-            raise NotImplementedError("HQ CBR encode "
-                                      + _NOT_PORTED.format("12, HQ CBR"))
         if cfg.mode == Mode.LD:
             raise NotImplementedError("LD encode " + _NOT_PORTED.format(
                 "14, LD"))
@@ -169,6 +179,16 @@ class Encoder:
         self.qm = tuple(
             qm_lanes(key, *sl, cfg.wavelet_depth, self.device).to(torch.int32)
             for sl in (self.geo.luma_slice, self.geo.chroma_slice))
+        self.budgets = None       # HQ CBR: int32 [N] slice bytes, on device
+        if cfg.mode == Mode.HQ_CBR:
+            # a field is half the frame's bytes (EncodeStream.cpp:208-215)
+            self.picture_bytes = (cfg.compressed_bytes // 2 if cfg.interlaced
+                                  else cfg.compressed_bytes)
+            budgets = layout.slice_bytes_map(
+                self.geo.y_slices, self.geo.x_slices, self.picture_bytes,
+                cfg.slice_scalar)
+            self.budgets = torch.from_numpy(budgets.ravel().copy()).to(
+                self.device)
 
     def q_indices(self) -> torch.Tensor:
         return torch.full((self.geo.n_slices,), self.cfg.q_index,
@@ -182,16 +202,27 @@ class Encoder:
         cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
         planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
         transform = analyse(planes, cfg.kernel, d)
-        q_idx = self.q_indices()
+        tlanes = planes_to_lanes(transform, geo, d)
+        scratch = None
+        if self.budgets is None:
+            q_idx = self.q_indices()
+        else:
+            # the search reports an index above 119 in the pack's flags word
+            ly, lc = tlanes[0].shape[1], tlanes[1].shape[1]
+            scratch = device_pack.pack_scratch(geo.n_slices, ly, lc,
+                                               self.device)
+            q_idx = cbr.cbr_quant_indices(*tlanes, *self.qm, self.budgets,
+                                          cfg.slice_scalar,
+                                          flags=scratch[1:2])
         buf, flags, lanes = device_pack.quant_pack_hq(
-            *planes_to_lanes(transform, geo, d), q_idx, *self.qm,
-            cfg.slice_prefix, cfg.slice_scalar, keep_lanes=keep_planes)
+            *tlanes, q_idx, *self.qm, cfg.slice_prefix, cfg.slice_scalar,
+            slice_sizes=self.budgets, keep_lanes=keep_planes,
+            scratch=scratch)
         device_pack.check_flags(flags)
         totals, payload = device_pack.split_result(buf.cpu().numpy(),
                                                    geo.n_slices)
         out = EncodedPicture(
-            q_indices=np.full((geo.y_slices, geo.x_slices), cfg.q_index,
-                              dtype=np.int32),
+            q_device=q_idx, slices=(geo.y_slices, geo.x_slices),
             payload=payload.tobytes(), slice_totals=totals)
         if keep_planes:
             out.transform = Picture(*transform, picture.chroma_format)
@@ -210,8 +241,7 @@ class Encoder:
         (EncodeStream.cpp:649-664); returns int32 NumPy planes cropped to
         ``geometry``."""
         cfg, d = self.cfg, self.cfg.wavelet_depth
-        q_idx = torch.as_tensor(enc.q_indices.ravel(), device=self.device)
-        planes = dequantise_planes(enc.lanes, q_idx, self.qmatrix, d,
+        planes = dequantise_planes(enc.lanes, enc.q_device, self.qmatrix, d,
                                    self.geo)
         y, c1, c2 = lifting.inverse_planes(planes, cfg.kernel, d)
         g = geometry

@@ -5,8 +5,10 @@ Port of the reference stream syntax layer
 (reference src/Library/src/DataUnit.cpp:80-123, 1086-1144, 1339-1410). The
 iostream iword state of the reference (prev_parse_offset,
 major_version_number) becomes explicit fields of StreamWriter and
-StreamReader. The writer writes HQ pictures, not yet fragments (HQ CBR
-and LD only) or LD pictures.
+StreamReader. The writer writes HQ pictures, whole or as a series of
+fragments (``fragment_length`` > 0, HQ CBR; ``FragmentWriter``, reference
+DataUnit.cpp:125-343), and not yet LD pictures; the reader reads fragment
+headers (``read_fragment_header``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,14 @@ _CODE_TO_TYPE = {v: k for k, v in PARSE_CODES.items()}
 
 
 @dataclasses.dataclass
+class Fragment:
+    n_slices: int = 0
+    slice_offset_x: int = 0
+    slice_offset_y: int = 0
+    data_length: int = 0
+
+
+@dataclasses.dataclass
 class PicturePreamble:
     """Transform parameters (reference PicturePreamble, DataUnit.h:221-234)."""
 
@@ -71,6 +81,7 @@ class StreamWriter:
         self.f = fileobj
         self.prev_parse_offset = 0
         self.major_version = 0
+        self.fragment_length = 0      # > 0: pictures go out as fragments
 
     def _parse_info(self, du_type: DataUnitType, data_size: int | None) -> None:
         """Reference ParseInfoIO (DataUnit.cpp:80-123)."""
@@ -89,6 +100,8 @@ class StreamWriter:
 
     def write_sequence_header(self, hdr: SequenceHeader) -> None:
         vf = video_format_of(hdr)
+        if self.fragment_length > 0 and hdr.major_version < 3:
+            vf.major_version = 3      # fragments need version 3 syntax
         self.major_version = vf.major_version
         w = BitWriter()
         write_video_format(w, vf)
@@ -96,14 +109,16 @@ class StreamWriter:
         self._parse_info(DataUnitType.SEQUENCE_HEADER, len(payload))
         self.f.write(payload)
 
-    def _transform_params(self, preamble: PicturePreamble) -> bytes:
+    def _transform_params(self, preamble: PicturePreamble,
+                          force_asym_flags: bool = False) -> bytes:
         """The preamble's transform parameters, the write twin of
-        ``StreamReader.read_preamble``."""
+        ``StreamReader.read_preamble``; a fragment series writes the
+        asymmetric-transform flags whatever the version."""
         w = BitWriter()
         w.unbounded()
         w.put_uvlc(int(preamble.wavelet_kernel))
         w.put_uvlc(preamble.depth)
-        if self.major_version >= 3:
+        if force_asym_flags or self.major_version >= 3:
             w.put_bool(False)   # asym_transform_index_flag
             w.put_bool(False)   # asym_transform_flag
         w.put_uvlc(preamble.slices_x)
@@ -115,14 +130,95 @@ class StreamWriter:
         return w.getvalue()
 
     def write_picture(self, picture_number: int, preamble: PicturePreamble,
-                      slice_payload: bytes) -> None:
-        """One HQ picture data unit: picture number, transform parameters
-        and the slice payload (reference HQWrappedPictureIO in
-        DataUnit.cpp:125-343, without fragments)."""
-        body = (picture_number.to_bytes(4, "big")
-                + self._transform_params(preamble) + slice_payload)
-        self._parse_info(DataUnitType.HQ_PICTURE, len(body))
-        self.f.write(body)
+                      slice_payload: bytes, slice_sizes=None) -> None:
+        """One HQ picture data unit (picture number, transform parameters
+        and the slice payload), or a fragment series when
+        ``fragment_length`` > 0 (reference HQWrappedPictureIO in
+        DataUnit.cpp:125-343). ``slice_sizes`` (each slice's bytes, raster
+        order) is needed for fragments."""
+        if self.fragment_length == 0:
+            body = (picture_number.to_bytes(4, "big")
+                    + self._transform_params(preamble) + slice_payload)
+            self._parse_info(DataUnitType.HQ_PICTURE, len(body))
+            self.f.write(body)
+            return
+        if slice_sizes is None:
+            raise ValueError("fragmented output needs the slice sizes")
+        fw = self.begin_fragments(picture_number, preamble)
+        fw.feed(slice_sizes, slice_payload)
+        fw.close()
+
+    def begin_fragments(self, picture_number: int,
+                        preamble: PicturePreamble) -> "FragmentWriter":
+        """Start the fragment series of one picture: writes the
+        transform-parameters fragment, returns the FragmentWriter."""
+        return FragmentWriter(self, picture_number, preamble)
+
+
+class FragmentWriter:
+    """The fragments of ONE HQ picture (reference DataUnit.cpp:267-342).
+
+    The first fragment holds the transform parameters and no slices.
+    ``feed`` takes runs of (slice sizes, their payload) in raster order and
+    writes each fragment as soon as it is complete: as many whole slices
+    as fit in ``fragment_length`` bytes, and at least one, even a slice
+    larger than that. ``close`` writes the last fragment, which the
+    reference writes even when it holds no slice."""
+
+    def __init__(self, writer: StreamWriter, picture_number: int,
+                 preamble: PicturePreamble) -> None:
+        self.w = writer
+        self.pic = picture_number
+        self.slices_x = preamble.slices_x
+        params = writer._transform_params(preamble, force_asym_flags=True)
+        writer._parse_info(DataUnitType.HQ_FRAGMENT, len(params) + 8)
+        writer.f.write(picture_number.to_bytes(4, "big")
+                       + len(params).to_bytes(2, "big")
+                       + (0).to_bytes(2, "big") + params)
+        self._first = 0              # first slice of the open fragment
+        self._count = 0              # its slices
+        self._chunks: list[bytes] = []
+        self._bytes = 0
+        self._next = 0               # the next slice feed() takes
+        self._closed = False
+
+    def _emit(self) -> None:
+        sy, sx = divmod(self._first, self.slices_x)
+        body = (self.pic.to_bytes(4, "big") + self._bytes.to_bytes(2, "big")
+                + self._count.to_bytes(2, "big") + sx.to_bytes(2, "big")
+                + sy.to_bytes(2, "big") + b"".join(self._chunks))
+        self.w._parse_info(DataUnitType.HQ_FRAGMENT, self._bytes + 12)
+        self.w.f.write(body)
+        self._first = self._next
+        self._count = 0
+        self._chunks = []
+        self._bytes = 0
+
+    def feed(self, slice_sizes, payload) -> None:
+        """Append the next run of slices: their sizes and their payload
+        bytes, contiguous, raster order. The sizes are checked against the
+        payload before any fragment is written."""
+        payload = bytes(payload)
+        sizes = [int(s) for s in slice_sizes]
+        if sum(sizes) != len(payload):
+            raise ValueError(f"fragment span: {len(payload)} payload bytes "
+                             f"but slice sizes sum to {sum(sizes)}")
+        pos = 0
+        limit = self.w.fragment_length
+        for size in sizes:
+            if self._count and self._bytes + size > limit:
+                self._emit()
+            self._chunks.append(payload[pos:pos + size])
+            self._bytes += size
+            self._count += 1
+            self._next += 1
+            pos += size
+
+    def close(self) -> None:
+        """Write the last fragment, once."""
+        if not self._closed:
+            self._emit()
+            self._closed = True
 
 
 class StreamReader:
@@ -154,6 +250,17 @@ class StreamReader:
 
     def read_picture_number(self) -> int:
         return self.r.get_bytes_value(4)
+
+    def read_fragment_header(self) -> Fragment:
+        """A fragment's data length, slice count and, when it holds
+        slices, the first slice's position."""
+        frag = Fragment()
+        frag.data_length = self.r.get_bytes_value(2)
+        frag.n_slices = self.r.get_bytes_value(2)
+        if frag.n_slices != 0:
+            frag.slice_offset_x = self.r.get_bytes_value(2)
+            frag.slice_offset_y = self.r.get_bytes_value(2)
+        return frag
 
     def read_preamble(self, hq: bool) -> PicturePreamble:
         """Reference operator>>(istream&, PicturePreamble&), DataUnit.cpp:1339-1410."""

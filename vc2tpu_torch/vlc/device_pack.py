@@ -20,7 +20,10 @@ slice's byte budget.
 Both routes return one uint8 buffer, ``[totals int32 [N] | payload]``
 (``split_result`` takes it apart), and the error flags. When a flag is
 set the payload is left out: the slice sizes are not valid, and the
-encoder raises with the reference's message (``check_flags``).
+encoder raises with the reference's message (``check_flags``). The flags
+word lies in the launch's scratch (``pack_scratch``); HQ CBR's rate
+control (``rdo/cbr.py``) sets ``FLAG_QMAX`` in it before the pack, so one
+synchronisation reads both.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ FLAG_SCALAR = 2          # a component length byte > 255 ("scalar too small")
 FLAG_CBR_FIT = 4         # CBR: y+u data leave v too few bytes
 FLAG_QINDEX = 8          # a qIndex exceeds 8 bits
 FLAG_VLEN = 32           # CBR: forced v length byte > 255 (Slices.cpp:365)
+FLAG_QMAX = 64           # CBR: the rate control chose a qIndex above 119
 
 # csrc/hq_pack.cu's work split (generated into its header): 256 threads a
 # CTA, a group of 4-32 threads a slice, each keeping up to HOLD quantised
@@ -50,7 +54,7 @@ HOLD = 32
 def check_flags(flags: int) -> None:
     """Raise the reference's error for the pack's flags (in the JAX
     encoder's order, ``vc2tpu/pipeline/encoder.py:374-387``)."""
-    if flags & FLAG_QINDEX:
+    if flags & (FLAG_QMAX | FLAG_QINDEX):
         raise ValueError(
             "quantization index exceeds maximum implemented value.")
     if flags & FLAG_CBR_FIT:
@@ -161,14 +165,18 @@ def pack_hq_plain(qy, qu, qv, q_idx, prefix: int, scalar: int,
 
 def quant_pack_hq_plain(y, u, v, q_idx, qm_y, qm_c, prefix: int,
                         scalar: int, slice_sizes=None,
-                        keep_lanes: bool = False):
+                        keep_lanes: bool = False, scratch=None):
     """Plain PyTorch version of ``quant_pack_hq``: ``quant`` of each lane
-    at max(qIndex - qm[lane], 0), then ``pack_hq_plain``."""
+    at max(qIndex - qm[lane], 0), then ``pack_hq_plain``; flags already
+    set in ``scratch`` join the result's."""
     _check_qm(y, u, qm_y, qm_c)
     q = q_idx.to(torch.int64)[:, None]
     lanes = [quant(x, adjust_quant_index(q, qm.to(torch.int64)[None, :]))
              for x, qm in ((y, qm_y), (u, qm_c), (v, qm_c))]
     buf, flags = pack_hq_plain(*lanes, q_idx, prefix, scalar, slice_sizes)
+    if scratch is not None and int(scratch[1]):
+        flags |= int(scratch[1])
+        buf = buf[:4 * y.shape[0]]
     return buf, flags, tuple(lanes) if keep_lanes else None
 
 
@@ -244,19 +252,27 @@ def payload_capacity(n: int, ly: int, lc: int, prefix: int, scalar: int,
     return n * (prefix + 4 + body)
 
 
+def pack_scratch(n: int, ly: int, lc: int, device) -> torch.Tensor:
+    """The zeroed int64 scratch of one launch of n slices: [ticket, flags,
+    payload size, a status word a tile]."""
+    tiles = -(-n // (THREADS // group_size(ly, lc)))
+    return torch.zeros(3 + tiles, dtype=torch.int64, device=device)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def launch_pack(lanes, q_idx, prefix: int, scalar: int, slice_sizes=None,
-                qm=None, keep=None, out=None):
+                qm=None, keep=None, out=None, scratch=None):
     """The one launch of csrc/hq_pack.cu on CUDA tensors (checked by the
     caller), not synchronised. ``lanes`` (y, u, v) are quantised lanes,
     or transform lanes when ``qm`` = (qm_y, qm_c) is given; ``keep`` (y,
     u, v) then receive the quantised lanes. ``out`` (uint8, 16-byte
     aligned) defaults to a buffer of ``4N + payload_capacity`` bytes;
-    nothing is stored past it. Returns (out, scratch): the payload size
-    is ``scratch[2]`` and the flags ``scratch[1]``."""
+    nothing is stored past it. ``scratch`` defaults to a new
+    ``pack_scratch``. Returns (out, scratch): the payload size is
+    ``scratch[2]`` and the flags ``scratch[1]``."""
     y, u, v = lanes
     n, ly, lc = y.shape[0], y.shape[1], u.shape[1]
     group = group_size(ly, lc)
@@ -268,8 +284,12 @@ def launch_pack(lanes, q_idx, prefix: int, scalar: int, slice_sizes=None,
           or out.data_ptr() % 16 or out.numel() < 4 * n):
         raise ValueError("pack_hq: out must be a contiguous, 16-byte aligned "
                          f"uint8 buffer of at least {4 * n} bytes")
-    tiles = -(-n // (THREADS // group))
-    scratch = torch.zeros(3 + tiles, dtype=torch.int64, device=y.device)
+    if scratch is None:
+        scratch = pack_scratch(n, ly, lc, y.device)
+    elif (scratch.dtype != torch.int64 or scratch.device != y.device
+          or not scratch.is_contiguous()
+          or scratch.numel() != 3 + -(-n // (THREADS // group))):
+        raise ValueError("pack_hq: scratch must come from pack_scratch")
     qm_y, qm_c = qm if qm is not None else (None, None)
     ky, ku, kv = keep if keep is not None else (None, None, None)
 
@@ -327,7 +347,7 @@ def pack_hq(qy, qu, qv, q_idx, prefix: int, scalar: int, slice_sizes=None):
 
 
 def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
-                  slice_sizes=None, keep_lanes: bool = False):
+                  slice_sizes=None, keep_lanes: bool = False, scratch=None):
     """Quantise and assemble the HQ slice payload of a picture.
 
     y: int32 [N, Ly], u/v: int32 [N, Lc] transform lanes in serialisation
@@ -335,12 +355,13 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
     each lane (``pipeline.decoder.qm_lanes``); each lane is quantised at
     max(q_idx - qm, 0). Returns (buffer, flags, lanes): as ``pack_hq``,
     and the quantised lanes (y, u, v) when ``keep_lanes``, else None.
-    CUDA lanes go through the one launch of csrc/hq_pack.cu (quantised in
-    its load) and one synchronisation; CPU lanes through
-    ``quant_pack_hq_plain``."""
+    ``scratch`` (``pack_scratch``) may carry flags set before the pack,
+    by the rate control. CUDA lanes go through the one launch of
+    csrc/hq_pack.cu (quantised in its load) and one synchronisation; CPU
+    lanes through ``quant_pack_hq_plain``."""
     if y.device.type == "cpu":
         return quant_pack_hq_plain(y, u, v, q_idx, qm_y, qm_c, prefix,
-                                   scalar, slice_sizes, keep_lanes)
+                                   scalar, slice_sizes, keep_lanes, scratch)
     if y.device.type != "cuda":
         raise ValueError(f"quant_pack_hq: unsupported device {y.device}")
     _check(y, u, v, q_idx, slice_sizes)
@@ -352,7 +373,8 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
     if n == 0:
         return torch.empty(0, dtype=torch.uint8, device=y.device), 0, keep
     buf, flags = _result(*launch_pack((y, u, v), q_idx, prefix, scalar,
-                                      slice_sizes, (qm_y, qm_c), keep), n)
+                                      slice_sizes, (qm_y, qm_c), keep,
+                                      scratch=scratch), n)
     return buf, flags, keep
 
 
