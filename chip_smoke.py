@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero, and the last line is then not printed):
 
-1. build the four CUDA kernels and the host chain scan from
-   ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at once;
-   timed);
+1. build the five CUDA kernels, the host chain scan and the host LD scan
+   from ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at
+   once; timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
    wavelets forward and inverse: one plane at the 1080p planes and
    sub-lattices, a shape that is not a tile multiple and tiny planes; the
@@ -21,7 +21,13 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    fixture payload cut short (regions past the payload end), on a seeded
    random-bytes payload whose CTAs span more than a window (peeks from
    device memory) and on lanes too many for the shared tile (integer ==);
-   the native chain scan against the Python loop on both fixtures;
+   the native chain scan against the Python loop on the HQ fixtures;
+   hold the LD unpack kernel against its plain version (integer ==) on the
+   1080p LD fixture, that payload cut short, seeded random slices with
+   every lead bit offset 0-31, empty U/V regions, luma regions past their
+   slice and a ragged last CTA, slices too far apart to stage, and lanes
+   too many for the shared tile; the native LD scan (header fields and the
+   LL DC-prediction recurrence) against its Python twin on the fixture;
 4. hold the pack kernel against its plain version (bytes, totals, flags
    and the quantised lanes equal): fused, on the 1080p ConstQ transform
    lanes, at every q 0-119 over values up to +-(2^31 - 1) and INT_MIN,
@@ -42,22 +48,25 @@ Phases (any failure exits non-zero, and the last line is then not printed):
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
-   package's decode; lift 2 launches a picture, unpack 1); encode the
+   package's decode; lift 2 launches a picture, unpack 1); decode the 1080p
+   LD fixture, this slice's main path (SHA-256 against the JAX package's
+   decode; ld_unpack 1, lift 2, hq_unpack 0); encode the
    1080p ConstQ input (``make_1080p.make_input``) with the encode CLI
    (bytes equal to ``constq_1080p.vc2``, its decode at the recorded
    SHA-256; lift 2, pack 1); encode the same input as HQ CBR, this
    slice's main path (bytes equal to ``cbr_1080p.vc2``; lift 2, cbr 1,
    pack 1), and again with ``-F 16384``, whose fragments ``Decoder()``
-   decodes to the recorded SHA-256; then every HQ golden of
-   ``tests/golden`` (``cbr_fragmented`` among them) decodes, the three
-   decoder taps of ``constq_legall_d2`` and ``cbr_fragmented`` equal the
-   port's on the CPU, and every ConstQ and CBR golden and tap encodes,
-   byte-identically;
-6. times on the card: end-to-end decode, ConstQ and CBR encode and
-   fragmented decode frames/s, the per-stage breakdown of one 1080p
-   picture each way (a "cbr search" stage in the CBR encode), the
-   device's idle share, and each kernel's time beside its bound and its
-   plain version's time.
+   decodes to the recorded SHA-256; then every golden of ``tests/golden``,
+   HQ and LD (``cbr_fragmented`` and ``ld_fragmented`` among them),
+   decodes, the three decoder taps of ``constq_legall_d2``,
+   ``cbr_fragmented``, ``ld_legall_d2`` and ``ld_fragmented`` equal the
+   port's on the CPU, ``decode_frame`` decodes the HQ Packaged golden, and
+   every ConstQ and CBR golden and tap encodes, byte-identically;
+6. times on the card: end-to-end HQ and LD decode, ConstQ and CBR encode
+   and fragmented decode frames/s, the per-stage breakdown of one 1080p
+   picture each way (a "cbr search" stage in the CBR encode; the LD
+   decode's host "ld scan + LL recurrence"), the device's idle share, and
+   each kernel's time beside its bound and its plain version's time.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
@@ -459,6 +468,121 @@ def check_unpack(torch, np, rng, dev, streams):
     return unpack_err, unpack_cases
 
 
+def ld_picture_of(stream: bytes, device):
+    """(decoder, byte offset, located picture) of the first LD picture of a
+    stream, via the Decoder's host half (``locate_picture``, which runs the
+    native LD scan)."""
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
+
+    dec = Decoder(sink=io.BytesIO(), device=device)
+    pos = 0
+    while pos + 13 <= len(stream):
+        rd = StreamReader(stream[pos:])
+        du, next_off, _prev = rd.read_data_unit()
+        if du == DataUnitType.SEQUENCE_HEADER:
+            dec.hdr = rd.read_sequence_header()
+            dec._major_version = rd.major_version
+        elif du == DataUnitType.LD_PICTURE:
+            return dec, pos, dec.locate_picture(stream[pos:], False)[1]
+        pos += next_off
+    raise RuntimeError("chip_smoke: the stream holds no LD picture")
+
+
+def ld_random_fields(np, rng, n: int, nbytes: int, far: bool = False):
+    """(payload, fields int32 [4, N]) of seeded LD slices: the first 64
+    slices (all, when fewer) start at every lead bit offset 0-31 in turn,
+    a fifth of the U/V
+    regions are empty, a third of the luma lengths run past the slice; with
+    ``far`` the slices spread over the whole payload, so a CTA's window is
+    too large to stage."""
+    payload = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    s_bits = np.sort(rng.integers(0, 8 * (nbytes - 64), n))
+    if not far:
+        k = min(n, 64)
+        s_bits[:k] = 8 * 64 + np.arange(k)
+    len_bits = rng.integers(0, 10, n)
+    y_bits = rng.integers(0, 260, n)
+    y_bits[::3] = rng.integers(1000, 4000, len(y_bits[::3]))
+    uv_bits = rng.integers(0, 260, n)
+    uv_bits[::5] = 0
+    return payload, np.stack([s_bits, len_bits, y_bits, uv_bits]).astype(
+        np.int32)
+
+
+def check_ld(torch, np, rng, dev, stream: bytes):
+    """The LD unpack kernel against its plain version (integer ==) and the
+    native LD scan against its Python twin. Returns the max |err|."""
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.slices import ld as slices_ld
+    from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import matrices
+
+    _dec, offset, job = ld_picture_of(stream, dev)
+    pre, geo = job.pre, job.geo
+    sizes = layout.slice_bytes_map(
+        geo.y_slices, geo.x_slices,
+        pre.slice_bytes_numerator * geo.n_slices
+        // pre.slice_bytes_denominator, 1).ravel()
+    qm = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
+    # job.ld is the native scan's, from locate_picture
+    plain = slices_ld.ld_scan_plain(stream[offset:], sizes, geo, pre.depth,
+                                    qm, job.start)
+    check(np.array_equal(plain.q, job.ld.q)
+          and np.array_equal(plain.fields, job.ld.fields)
+          and plain.end == job.ld.end
+          and all(np.array_equal(a, b)
+                  for a, b in zip(plain.grids, job.ld.grids)),
+          "the native LD scan differs from its Python twin")
+    print(f"native LD scan == Python twin on the 1080p LD fixture "
+          f"({job.geo.n_slices} slices, LL grids "
+          f"{[g.shape for g in job.ld.grids]})")
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    pay = torch.as_tensor(np.array(job.payload), device=dev)
+    fields = torch.as_tensor(job.ld.fields, device=dev)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    cases = [("1080p LD fixture", pay, fields, ly, lc),
+             ("1080p LD fixture cut short", pay[:-2000].clone(), fields, ly,
+              lc)]
+    for name, n, nbytes, far, lanes in (
+            ("random: leads 0-31, empty U/V, long luma, ragged", 4099,
+             1 << 17, False, (16, 8)),
+            ("random: slices too far apart to stage", 256, 1 << 20, True,
+             (16, 8)),
+            ("random: lanes too many for the tile", 40, 1 << 12, False,
+             (20000, 10000))):
+        payload, f = ld_random_fields(np, rng, n, nbytes, far)
+        cases.append((name, t(payload), t(f), *lanes))
+    err, n_staged, n_global, n_direct = 0, 0, 0, 0
+    for name, pay_c, f_c, ly_c, lc_c in cases:
+        s, lanes_staged = du.ld_unpack_plan(ly_c, lc_c)
+        staged = torch.full((-(-f_c.shape[1] // s),), 2, dtype=torch.uint8,
+                            device=dev)
+        got = du.unpack_ld(pay_c, f_c, ly_c, lc_c, staged=staged)
+        want = du.unpack_ld_plain(pay_c, f_c, ly_c, lc_c)
+        torch.cuda.synchronize()
+        e = max(max_err(torch, g, w) for g, w in zip(got, want))
+        check(e == 0, f"unpack_ld {name}: max |err| {e}")
+        check(int(staged.max().item()) <= 1,
+              f"unpack_ld {name}: a CTA left its branch flag unset")
+        err = max(err, e)
+        k = int(staged.sum().item())
+        n_staged += k
+        n_global += staged.numel() - k
+        n_direct += not lanes_staged
+        print(f"  ld_unpack {name}: {f_c.shape[1]} slices, {staged.numel()} "
+              f"CTAs, {staged.numel() - k} peek from device memory, lanes "
+              f"staged in shared memory: {lanes_staged}")
+    check(n_staged > 0 and n_global > 0 and n_direct > 0,
+          "the LD unpack cases miss the staged or the device-memory branch")
+    print(f"ld_unpack kernel == plain: {len(cases)} cases, max |err| {err}")
+    return err
+
+
 def fixture_lanes(dev, picture, key: str):
     """(encoder, transform planes, transform lanes) of a 1080p fixture's
     picture on the card, with the fixture's recorded flags."""
@@ -790,6 +914,7 @@ def main(argv) -> int:
         return 2
     import numpy as np
 
+    from vc2tpu_torch.cli import decode_frame
     from vc2tpu_torch.cli.decode_stream import Decoder
     from vc2tpu_torch.core import build
     from vc2tpu_torch.core.config import ColourFormat, PictureGeometry
@@ -799,6 +924,8 @@ def main(argv) -> int:
     from vc2tpu_torch.pipeline import encoder as enc_mod
     from vc2tpu_torch.rdo import cbr
     from vc2tpu_torch.slices import hq as slices_hq
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.slices import ld as slices_ld
     from vc2tpu_torch.stream.dataunit import (PicturePreamble, StreamReader,
                                               StreamWriter)
     from vc2tpu_torch.vlc import device_pack as dp
@@ -819,7 +946,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     libs = build.build(lifting.kernel_source(), du.kernel_source(),
                        dp.kernel_source(), cbr.kernel_source(),
-                       slices_hq.scan_source())
+                       du.ld_kernel_source(), slices_hq.scan_source(),
+                       slices_ld.scan_source())
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
 
@@ -827,14 +955,16 @@ def main(argv) -> int:
     rng = np.random.default_rng(2042)
     lift_err = check_lift(torch, np, rng, dev)
 
-    # 3. unpack kernel against its plain version; the native chain scan
+    # 3. unpack kernels against their plain versions; the native scans
     with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
         fixtures = json.load(f)["streams"]
     streams = {}
     for key, v in fixtures.items():
         with open(os.path.join(TESTDATA, v["stream"]), "rb") as f:
             streams[key] = f.read()
-    unpack_err, unpack_cases = check_unpack(torch, np, rng, dev, streams)
+    hq_streams = {k: v for k, v in streams.items() if not k.startswith("ld")}
+    unpack_err, unpack_cases = check_unpack(torch, np, rng, dev, hq_streams)
+    ld_err = check_ld(torch, np, rng, dev, streams["ld_1080p"])
 
     # 4. pack kernel against its plain version, quant on the card
     work = tempfile.TemporaryDirectory()
@@ -866,16 +996,18 @@ def main(argv) -> int:
         du.unpack_hq.launches = 0
         dp.pack_hq.launches = 0
         cbr.cbr_quant_indices.launches = 0
+        du.unpack_ld.launches = 0
 
     def counts():
         return {"lift_level": lifting.lift_levels.launches,
                 "hq_unpack": du.unpack_hq.launches,
                 "hq_pack": dp.pack_hq.launches,
-                "hq_cbr": cbr.cbr_quant_indices.launches}
+                "hq_cbr": cbr.cbr_quant_indices.launches,
+                "ld_unpack": du.unpack_ld.launches}
 
-    n_pictures = sum(len(pictures_of(d, dev)) for d in streams.values())
+    n_pictures = sum(len(pictures_of(d, dev)) for d in hq_streams.values())
     zero_counts()
-    for key, data in streams.items():
+    for key, data in hq_streams.items():
         sink = io.BytesIO()
         check(Decoder(sink=sink).run(data) == 0, f"decode {key} failed")
         digest = hashlib.sha256(sink.getvalue()).hexdigest()
@@ -888,8 +1020,25 @@ def main(argv) -> int:
     check(decode_launches["lift_level"] == 2 * n_pictures,
           f"lift_level launched {decode_launches['lift_level']} times in the "
           f"decode, expected {2 * n_pictures}")
-    check(decode_launches["hq_unpack"] == n_pictures,
-          f"hq_unpack launched {decode_launches['hq_unpack']} times")
+    check(decode_launches["hq_unpack"] == n_pictures
+          and decode_launches["ld_unpack"] == 0,
+          f"the HQ decode launched {decode_launches}")
+
+    # the slice's main path: the 1080p LD decode
+    zero_counts()
+    sink = io.BytesIO()
+    check(Decoder(sink=sink).run(streams["ld_1080p"]) == 0,
+          "decode ld_1080p failed")
+    ld_launches = counts()
+    digest = hashlib.sha256(sink.getvalue()).hexdigest()
+    check(digest == fixtures["ld_1080p"]["decoded_sha256"],
+          f"ld_1080p: decoded SHA-256 {digest} differs from the JAX "
+          f"package's {fixtures['ld_1080p']['decoded_sha256']}")
+    print("main path LD decode: the 1080p LD picture, SHA-256 equal to the "
+          f"JAX package's decode; launches {ld_launches}")
+    for k, want in (("ld_unpack", 1), ("lift_level", 2), ("hq_unpack", 0)):
+        check(ld_launches[k] == want, f"{k} launched {ld_launches[k]} times "
+                                      f"in the LD decode, expected {want}")
 
     out_1080p = os.path.join(work.name, "constq_1080p.vc2")
     zero_counts()
@@ -923,7 +1072,7 @@ def main(argv) -> int:
     print(f"main path CBR encode: the 1080p HQ CBR picture, {len(stream)} "
           f"bytes equal to cbr_1080p.vc2; launches {cbr_launches}")
     for k, want in (("lift_level", 2), ("hq_cbr", 1), ("hq_pack", 1),
-                    ("hq_unpack", 0)):
+                    ("hq_unpack", 0), ("ld_unpack", 0)):
         check(cbr_launches[k] == want, f"{k} launched {cbr_launches[k]} "
                                        f"times in the CBR encode, expected "
                                        f"{want}")
@@ -947,7 +1096,7 @@ def main(argv) -> int:
 
     with open(os.path.join(GOLDEN, "meta.json")) as f:
         meta = json.load(f)
-    cases = [c[0] for c in meta["cases"] if not c[0].startswith("ld")]
+    cases = [c[0] for c in meta["cases"]]
     for case in cases:
         sink = io.BytesIO()
         with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
@@ -955,10 +1104,14 @@ def main(argv) -> int:
         with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
             check(sink.getvalue() == f.read(),
                   f"golden {case}: output differs from the reference's")
-    print(f"goldens: {len(cases)} HQ cases (cbr_fragmented among them) "
-          "decode byte-identically on the card")
+    n_ld = sum(c.startswith("ld") for c in cases)
+    print(f"goldens: {len(cases) - n_ld} HQ cases and {n_ld} LD cases "
+          "(cbr_fragmented and ld_fragmented among them) decode "
+          "byte-identically on the card")
     taps = [DecOutput.TRANSFORM, DecOutput.QUANTISED, DecOutput.INDICES]
-    for case in ("constq_legall_d2", "cbr_fragmented"):
+    tap_cases = ("constq_legall_d2", "cbr_fragmented", "ld_legall_d2",
+                 "ld_fragmented")
+    for case in tap_cases:
         with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
             data = f.read()
         for tap in taps:
@@ -972,7 +1125,19 @@ def main(argv) -> int:
                   f"{case} {tap.value}: the card's output differs from the "
                   "CPU's")
     print(f"decoder taps: {', '.join(t.value for t in taps)} of "
-          "constq_legall_d2 and cbr_fragmented equal on the card and the CPU")
+          f"{', '.join(tap_cases)} equal on the card and the CPU")
+    frame_out = os.path.join(work.name, "frame.16p2")
+    check(decode_frame.main(
+        ["-x", "64", "-y", "32", "-f", "4:2:2", "-l", "10", "-k", "LeGall",
+         "-d", "2", "-u", "1", "-a", "2",
+         os.path.join(GOLDEN, "constq_legall_d2.packaged.raw"), frame_out])
+        == 0, "decode_frame of constq_legall_d2.packaged.raw failed")
+    with open(frame_out, "rb") as f, open(
+            os.path.join(GOLDEN, "constq_legall_d2.dec.16p2"), "rb") as g:
+        check(f.read() == g.read(), "decode_frame of the Packaged golden "
+                                    "differs from constq_legall_d2.dec.16p2")
+    print("decode_frame: constq_legall_d2.packaged.raw decodes to "
+          "constq_legall_d2.dec.16p2 on the card")
     encodes = ([(c[0], None) for c in meta["cases"]
                 if not c[0].startswith("ld")]
                + [tuple(t) for t in meta["taps"]
@@ -1095,6 +1260,59 @@ def main(argv) -> int:
     for i, lab in enumerate(labels):
         stages[lab] = statistics.median(r[i] for r in rows)
 
+    # per-stage breakdown of one 1080p LD picture, decode: the host scan,
+    # then the device stages
+    ld_stream = streams["ld_1080p"]
+    ld_dec, ld_offset, ld_job = ld_picture_of(ld_stream, dev)
+    lpre, lgeo = ld_job.pre, ld_job.geo
+    lqm = matrices.quant_matrix(lpre.wavelet_kernel, lpre.depth)
+    ld_sizes = layout.slice_bytes_map(
+        lgeo.y_slices, lgeo.x_slices,
+        lpre.slice_bytes_numerator * lgeo.n_slices
+        // lpre.slice_bytes_denominator, 1).ravel()
+    ld_unit = ld_stream[ld_offset:]
+    ld_scan_args = (ld_sizes, lgeo, lpre.depth, lqm, ld_job.start)
+    stages["LD decode host: ld scan + LL recurrence (native)"] = time_host(
+        lambda: slices_ld.ld_scan(ld_unit, *ld_scan_args))
+    stages["LD decode host: ld scan + LL recurrence (Python twin, the "
+           "reference)"] = time_host(
+        lambda: slices_ld.ld_scan_plain(ld_unit, *ld_scan_args), 1)
+    ld_out = PictureGeometry.of(ld_job.pic_h, ld_dec.hdr.width,
+                                ld_dec.hdr.chroma_format)
+    lly = lgeo.luma_slice[0] * lgeo.luma_slice[1]
+    llc = lgeo.chroma_slice[0] * lgeo.chroma_slice[1]
+
+    def staged_ld_decode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        pay, fields, grids = pipe.upload_ld(ld_job.payload, ld_job.ld, dev)
+        ev[1].record()
+        lanes = du.unpack_ld(pay, fields[1:], lly, llc)
+        ev[2].record()
+        planes = pipe.dequantise_ld_planes(lanes, fields[0], grids, lqm,
+                                           lpre.depth, lgeo)
+        ev[3].record()
+        planes = lifting.inverse_planes(planes, lpre.wavelet_kernel,
+                                        lpre.depth)
+        ev[4].record()
+        words = pipe.format_planes(planes, ld_out, ld_dec.hdr.bitdepth)
+        ev[5].record()
+        words.cpu()
+        ev[6].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+
+    labels = ["LD decode device: H2D (payload + fields + LL grids)",
+              "LD decode device: ld_unpack kernel",
+              "LD decode device: dequantise + lanes_to_plane + LL grids",
+              "LD decode device: inverse_planes (2 lift launches)",
+              "LD decode device: crop + format",
+              "LD decode device: D2H copy of the output bytes"]
+    staged_ld_decode()
+    rows = [staged_ld_decode() for _ in range(REPS)]
+    for i, lab in enumerate(labels):
+        stages[lab] = statistics.median(r[i] for r in rows)
+
     # per-stage breakdown of one 1080p picture, encode: ConstQ, and CBR
     # with the search before the pack
     def staged_encode(enc):
@@ -1146,6 +1364,7 @@ def main(argv) -> int:
 
     times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
     times.update(cbr_times(torch, cbr_tlanes, cbr_encoder))
+    times.update(ld_times(torch, np, ld_job, dev))
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
@@ -1206,8 +1425,21 @@ def main(argv) -> int:
                + 20 * cbr_tlanes[0].shape[1] * times["cbr_luma_passes"])
     cbr_bound, cbr_by = bound_ms(cbr_bytes, cbr_ops)
 
+    # the LD unpack: the payload, the fields and the lanes as the HQ
+    # unpack's, operations counted as the HQ unpack's
+    ld_pay = torch.as_tensor(np.array(ld_job.payload), device=dev)
+    ld_lanes = du.unpack_ld(ld_pay, torch.as_tensor(ld_job.ld.fields,
+                                                    device=dev), lly, llc)
+    ld_n_lanes = sum(t.numel() for t in ld_lanes)
+    ld_bytes = (ld_pay.numel() + ld_job.ld.fields.nbytes + 4 * ld_n_lanes)
+    ld_ndata = sum(
+        int(torch.floor(torch.log2(t.abs().double() + 1)).sum().item())
+        for t in ld_lanes)
+    ld_bound, ld_by = bound_ms(ld_bytes, 20 * ld_n_lanes + 3 * ld_ndata)
+
     paths = {"decode": decode_launches, "encode": encode_launches,
-             "encode_cbr": cbr_launches, "decode_fragments": frag_launches}
+             "encode_cbr": cbr_launches, "decode_fragments": frag_launches,
+             "decode_ld": ld_launches}
 
     def launches(k):
         return sum(p[k] for p in paths.values())
@@ -1255,6 +1487,16 @@ def main(argv) -> int:
          "plain_ms": times["cbr_plain_ms"],
          "bound_ms": cbr_bound, "bound_by": cbr_by,
          "library_ms": None},
+        {"name": "ld_unpack", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/ld_unpack.cu",
+         "replaces": "vc2tpu/vlc/device_unpack.py:262",
+         "launches": launches("ld_unpack"),
+         "launches_by_path": by_path("ld_unpack"),
+         "max_abs_err": ld_err,
+         "ms": times["ld_unpack_ms"],
+         "device_ms": times["ld_unpack_device_ms"],
+         "plain_ms": times["ld_unpack_plain_ms"],
+         "bound_ms": ld_bound, "bound_by": ld_by, "library_ms": None},
     ]
     todo = unported_bounds(n_lanes, n_slices)
     print(f"cbr search at 1080p: {times['cbr_luma_passes']} luma error "
@@ -1282,14 +1524,12 @@ def unported_bounds(n_lanes: int, n_slices: int) -> dict:
     from the 1080p shapes: ``n_lanes`` int32 lanes in ``n_slices`` slices,
     and the 829 440-byte pictures of the LD 1080p configuration
     (``bench.py``). Operation counts a lane are estimates of the work each
-    function must do: a pack or an unpack ~40 (quantised lane to code and
-    back, its place); the LD rate control 7 probes of ~15 (a trial
+    function must do: a pack ~40 (quantised lane to code, its place); the LD rate control 7 probes of ~15 (a trial
     quantise and code length). The LD wavefront's 374 dependent steps are
     not in the bound."""
     lanes_b, picture_b, index_b = 4 * n_lanes, 829440, 4 * n_slices
     return {
         "pack_ld_core": bound_ms(lanes_b + picture_b, 40 * n_lanes),
-        "unpack_ld_lanes": bound_ms(picture_b + lanes_b, 40 * n_lanes),
         "ld_rate_control": bound_ms(lanes_b + 2 * index_b,
                                     7 * 15 * n_lanes),
     }
@@ -1359,6 +1599,31 @@ def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
                                                   prefix, scalar), reps=3),
         "pack_payload_bytes": total,
         "plane_samples": [p.numel() for p in planes],
+    }
+
+
+def ld_times(torch, np, job, dev) -> dict:
+    """Times of the LD unpack on the 1080p LD picture: ``ld_unpack_ms`` as
+    the host issues 10 launches back to back, ``ld_unpack_device_ms``
+    queued (the device's time alone), ``ld_unpack_plain_ms`` of the plain
+    version on the card."""
+    from vc2tpu_torch.vlc import device_unpack as du
+
+    geo = job.geo
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    pay = torch.as_tensor(np.array(job.payload), device=dev)
+    fields = torch.as_tensor(job.ld.fields, device=dev)
+
+    def unpack():
+        return du.unpack_ld(pay, fields, ly, lc)
+
+    return {
+        "ld_unpack_ms": time_device(torch, unpack, 10),
+        "ld_unpack_device_ms": time_device(torch, unpack, KERNEL_INNER,
+                                           queued=True),
+        "ld_unpack_plain_ms": time_device(
+            torch, lambda: du.unpack_ld_plain(pay, fields, ly, lc)),
     }
 
 

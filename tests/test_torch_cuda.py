@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-HQ goldens decoded through them and the ConstQ and CBR goldens encoded
-through them. Every test here needs a CUDA device
+HQ and LD goldens decoded through them and the ConstQ and CBR goldens
+encoded through them. Every test here needs a CUDA device
 and skips without one. The file imports neither jax nor vc2tpu, so it runs
 on a machine that has only PyTorch:
 
@@ -32,6 +32,7 @@ with open(os.path.join(GOLDEN, "meta.json")) as _f:
     META = json.load(_f)
 HQ = [c[0] for c in META["cases"] if not c[0].startswith("ld")]
 HQ_ENCODE = [c[0] for c in META["cases"] if not c[0].startswith("ld")]
+LD = [c[0] for c in META["cases"] if c[0].startswith("ld")]
 KERNELS = [k for k in WaveletKernel if k != WaveletKernel.NullKernel]
 
 
@@ -214,6 +215,67 @@ def test_golden_decodes_through_the_kernels(case, cuda):
     assert sink.getvalue() == want
     assert lifting.lift_levels.launches > lifts
     assert du.unpack_hq.launches > unpacks
+
+
+def _ld_fields(rng, n, nbytes, case):
+    """(payload, fields int32 [4, N]) of seeded LD slices: every lead bit
+    offset 0-31, empty U/V regions, luma regions past their slice, slices
+    spread too far apart to stage, a payload cut short."""
+    payload = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    s_bits = np.sort(rng.integers(0, 8 * (nbytes - 64), n))
+    if case != "far_apart":
+        k = min(n, 64)
+        s_bits[:k] = 8 * 64 + np.arange(k)
+    len_bits = rng.integers(0, 10, n)
+    y_bits = rng.integers(0, 300, n)
+    uv_bits = rng.integers(0, 300, n)
+    uv_bits[::5] = 0
+    if case == "oversized_luma":
+        y_bits[::3] = rng.integers(1000, 4000, len(y_bits[::3]))
+    if case == "cut_short":
+        payload = payload[:nbytes // 2]
+    fields = np.stack([s_bits, len_bits, y_bits, uv_bits]).astype(np.int32)
+    return payload, fields
+
+
+LD_UNPACK_CASES = {"leads": (4099, 1 << 17, 16, 8),      # ragged last CTA
+                   "oversized_luma": (2000, 1 << 17, 16, 8),
+                   "far_apart": (256, 1 << 20, 16, 8),   # device memory
+                   "cut_short": (2000, 1 << 16, 16, 8),
+                   "wide_lanes": (40, 1 << 12, 20000, 10000)}
+
+
+@pytest.mark.parametrize("case", list(LD_UNPACK_CASES))
+def test_ld_unpack_kernel_matches_plain(case, cuda):
+    n, nbytes, ly, lc = LD_UNPACK_CASES[case]
+    payload, fields = _ld_fields(np.random.default_rng(len(case)), n, nbytes,
+                                 case)
+    args = (torch.from_numpy(payload).to(cuda),
+            torch.from_numpy(fields).to(cuda), ly, lc)
+    s, lanes_staged = du.ld_unpack_plan(ly, lc)
+    staged = torch.full((-(-n // s),), 2, dtype=torch.uint8, device=cuda)
+    got = du.unpack_ld(*args, staged=staged)
+    want = du.unpack_ld_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert lanes_staged == (case != "wide_lanes")
+    assert int(staged.max()) <= 1           # every CTA set its flag
+    assert bool(staged.any()) == (case != "far_apart")
+
+
+@pytest.mark.parametrize("case", LD)
+def test_ld_golden_decodes_through_the_kernels(case, cuda):
+    with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
+        data = f.read()
+    with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
+        want = f.read()
+    lifts, unpacks = lifting.lift_levels.launches, du.unpack_ld.launches
+    sink = io.BytesIO()
+    assert Decoder(sink=sink).run(data) == 0
+    assert sink.getvalue() == want
+    assert lifting.lift_levels.launches > lifts
+    assert du.unpack_ld.launches > unpacks
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])

@@ -1,9 +1,12 @@
-"""The port's HQ decode on the CPU: every HQ golden (``cbr_fragmented``
+"""The port's decode on the CPU: every HQ golden (``cbr_fragmented``
+among them) and every LD golden (``ld_fragmented`` and ``ld_interlaced``
 among them) decodes byte-identically through ``Decoder(device="cpu")``;
 the payload-level decode equals vc2tpu's ``synthesise_payload_to_words``;
-LD streams raise NotImplementedError; and a kernel failure propagates
+a picture whose header gives no slices or an LD byte fraction over zero
+is skipped as vc2tpu's decoder skips it; and a kernel failure propagates
 instead of being skipped as a corrupt picture. The tap outputs and the
-fragment reassembly have their own tests (tests/test_torch_fragments.py)."""
+fragment reassembly have their own tests (tests/test_torch_fragments.py,
+tests/test_torch_ld.py)."""
 
 import io
 import json
@@ -12,6 +15,7 @@ import os
 import numpy as np
 import pytest
 
+from vc2tpu.cli import decode_stream as j_cli
 from vc2tpu.core.config import PictureGeometry as JPG
 from vc2tpu.core.config import WaveletKernel as JK
 from vc2tpu.pipeline import decoder as jdec
@@ -19,9 +23,11 @@ from vc2tpu.pipeline.encoder import SliceGeometry as JSG
 
 from vc2tpu_torch.cli import decode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
-from vc2tpu_torch.core.config import PictureGeometry
+from vc2tpu_torch.core.config import PictureGeometry, WaveletKernel
 from vc2tpu_torch.pipeline import decoder as tdec
-from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
+from vc2tpu_torch.stream.dataunit import (PARSE_CODES, DataUnitType,
+                                          PicturePreamble, StreamReader,
+                                          StreamWriter)
 from vc2tpu_torch.vlc import device_unpack
 from vc2tpu_torch.wavelet import lifting, matrices
 
@@ -29,7 +35,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 with open(os.path.join(GOLDEN, "meta.json")) as _f:
     _CASES = [c[0] for c in json.load(_f)["cases"]]
 HQ = [c for c in _CASES if not c.startswith("ld")]
-NOT_PORTED = [c for c in _CASES if c.startswith("ld")]
+LD = [c for c in _CASES if c.startswith("ld")]
 
 
 def _read(name):
@@ -82,10 +88,58 @@ def test_payload_decode_matches_vc2tpu():
     assert got.numpy().tobytes() == post(np.asarray(words))
 
 
-@pytest.mark.parametrize("case", NOT_PORTED)
-def test_not_ported_streams_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _decode(_read(f"{case}.vc2"))
+@pytest.mark.parametrize("case", LD)
+def test_ld_golden_byte_identical(case):
+    assert _decode(_read(f"{case}.vc2")) == _read(f"{case}.dec.16p2")
+
+
+def _with_corrupt_picture(case, du_type, slices, num_den):
+    """The golden stream ``case`` with one picture data unit inserted after
+    its sequence header: picture number 77, LeGall depth 2, ``slices``
+    (x, y), then the HQ prefix and scalar or the LD byte fraction
+    ``num_den``, and 16 zero bytes of slices."""
+    data = _read(f"{case}.vc2")
+    rd = StreamReader(data)
+    _du, first, _prev = rd.read_data_unit()
+    rd.read_sequence_header()
+    w = StreamWriter(io.BytesIO())
+    w.major_version = rd.major_version
+    pre = PicturePreamble(wavelet_kernel=WaveletKernel.LeGall, depth=2,
+                          slices_x=slices[0], slices_y=slices[1],
+                          slice_prefix=num_den[0],
+                          slice_size_scalar=num_den[1])
+    body = (77).to_bytes(4, "big") + w._transform_params(pre) + bytes(16)
+    unit = (b"BBCD" + bytes([PARSE_CODES[du_type]])
+            + (13 + len(body)).to_bytes(4, "big") + first.to_bytes(4, "big")
+            + body)
+    return data[:first] + unit + data[first:]
+
+
+_CORRUPT = {
+    "hq_0x0_slices": ("constq_legall_d2", DataUnitType.HQ_PICTURE, (0, 0),
+                      (0, 1)),
+    "hq_0_rows": ("constq_legall_d2", DataUnitType.HQ_PICTURE, (4, 0),
+                  (0, 1)),
+    "ld_denominator_0": ("ld_legall_d2", DataUnitType.LD_PICTURE, (8, 8),
+                         (2048, 0)),
+    "ld_0x0_slices": ("ld_legall_d2", DataUnitType.LD_PICTURE, (0, 0),
+                      (2048, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(_CORRUPT))
+def test_corrupt_picture_header_is_skipped_as_vc2tpu_skips_it(case,
+                                                                tmp_path):
+    golden, du_type, slices, num_den = _CORRUPT[case]
+    data = _with_corrupt_picture(golden, du_type, slices, num_den)
+    want = io.BytesIO()
+    assert j_cli.Decoder(sink=want).run(data) == 0
+    assert want.getvalue() == _read(f"{golden}.dec.16p2")
+    assert _decode(data) == want.getvalue()
+    src, out = tmp_path / "in.vc2", tmp_path / "out.16p2"
+    src.write_bytes(data)
+    assert decode_stream.main([str(src), str(out), "--device", "cpu"]) == 0
+    assert out.read_bytes() == want.getvalue()
 
 
 def _boom(*_a, **_k):

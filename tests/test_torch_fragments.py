@@ -4,7 +4,8 @@ greedy cut, at least one slice a fragment, the empty final fragment, runs
 fed in pieces) and ``StreamReader.read_fragment_header`` byte for byte and
 field for field; the decoder's fragment reassembly (idempotent under a
 repeated fragment, a corrupt or truncated fragmented picture skipped,
-later pictures still decoded); and the TRANSFORM, QUANTISED and INDICES
+later pictures still decoded, a series of 0 x 0 slices skipped as vc2tpu
+skips it); and the TRANSFORM, QUANTISED and INDICES
 outputs of ``Decoder`` against ``vc2tpu.cli.decode_stream``'s."""
 
 import dataclasses
@@ -19,6 +20,7 @@ from vc2tpu.cli import decode_stream as j_cli
 from vc2tpu.stream import dataunit as jdu
 from vc2tpu.stream import headers as jhdr
 
+from vc2tpu_torch.cli import decode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import config as tcfg
 from vc2tpu_torch.stream import dataunit as tdu
@@ -208,6 +210,40 @@ def test_damaged_fragmented_picture_is_skipped(damage, capsys):
     assert len(got) == len(want) // 2 and want.endswith(got)
     if damage == "corrupt_slices":
         assert "Failed to decode fragmented picture" in capsys.readouterr().err
+
+
+def test_zero_slice_fragment_series_is_skipped_as_vc2tpu_skips_it(tmp_path):
+    """A fragment series whose transform parameters give 0 x 0 slices,
+    inserted after the sequence header: vc2tpu's decoder skips it (it
+    catches the ZeroDivisionError of its geometry), and so does the port,
+    with the same output and exit code 0."""
+    data = _read("cbr_fragmented.vc2")
+    rd = tdu.StreamReader(data)
+    _du, first, _prev = rd.read_data_unit()
+    rd.read_sequence_header()
+    sink = io.BytesIO()
+    w = tdu.StreamWriter(sink)
+    w.major_version = rd.major_version
+    w.fragment_length = 512
+    pre = tdu.PicturePreamble(wavelet_kernel=tcfg.WaveletKernel(1), depth=2,
+                              slices_x=0, slices_y=0, slice_prefix=0,
+                              slice_size_scalar=1)
+    w.begin_fragments(77, pre)                   # the preamble fragment
+    # then one fragment of 2 slices of 8 bytes at slice (0, 0)
+    body = ((77).to_bytes(4, "big") + (16).to_bytes(2, "big")
+            + (2).to_bytes(2, "big") + bytes(4) + bytes(16))
+    sink.write(b"BBCD" + bytes([tdu.PARSE_CODES[tdu.DataUnitType
+                                                .HQ_FRAGMENT]])
+               + (13 + len(body)).to_bytes(4, "big") + bytes(4) + body)
+    data = data[:first] + sink.getvalue() + data[first:]
+    want = io.BytesIO()
+    assert j_cli.Decoder(sink=want).run(data) == 0
+    assert want.getvalue() == _read("cbr_fragmented.dec.16p2")
+    assert _decode(data) == want.getvalue()
+    src, out = tmp_path / "in.vc2", tmp_path / "out.16p2"
+    src.write_bytes(data)
+    assert decode_stream.main([str(src), str(out), "--device", "cpu"]) == 0
+    assert out.read_bytes() == want.getvalue()
 
 
 def test_truncated_fragmented_stream_decodes_a_prefix():

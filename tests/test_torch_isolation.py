@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither jax nor vc2tpu, its entry
 points run on the card unless asked for the CPU, its kernels build only
-from source with nvcc (the chain scan with the host C++ compiler), a CUDA
-tensor never takes a wrapper's plain route, and a kernel error in a
-fragmented picture propagates."""
+from source with nvcc (the chain scan and the LD scan with the host C++
+compiler) into libraries keyed by their sources and the headers they
+include, a CUDA tensor never takes a wrapper's plain route, and a kernel
+error in a fragmented picture propagates."""
 
 import ast
 import dataclasses
@@ -14,7 +15,7 @@ import sys
 import pytest
 import torch
 
-from vc2tpu_torch.cli import decode_stream, encode_stream
+from vc2tpu_torch.cli import decode_frame, decode_stream, encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import build
 from vc2tpu_torch.core import device as devices
@@ -84,6 +85,10 @@ def test_rate_control_imports_load_no_jax_or_vc2tpu():
     _imports_clean("vc2tpu_torch.rdo, vc2tpu_torch.rdo.cbr")
 
 
+def test_ld_and_decode_frame_imports_load_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch.slices.ld, vc2tpu_torch.cli.decode_frame")
+
+
 def test_entry_points_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -93,6 +98,11 @@ def test_entry_points_need_a_card(monkeypatch):
     assert devices.resolve("cpu") == torch.device("cpu")
     golden = os.path.join(ROOT, "tests", "golden", "constq_legall_d2.vc2")
     assert decode_stream.main([golden, os.devnull]) != 0
+    packaged = os.path.join(ROOT, "tests", "golden",
+                            "constq_legall_d2.packaged.raw")
+    assert decode_frame.main(
+        ["-x", "64", "-y", "32", "-f", "4:2:2", "-l", "10", "-k", "LeGall",
+         "-d", "2", "-u", "1", "-a", "2", packaged, os.devnull]) != 0
 
 
 def _config():
@@ -130,6 +140,22 @@ class _OnCuda(torch.Tensor):
 
 class _KernelReached(Exception):
     pass
+
+
+def test_cuda_payload_never_takes_the_plain_ld_unpack(monkeypatch):
+    """A CUDA payload reaching ``unpack_ld`` without a card raises (the
+    kernel's outputs cannot be allocated, nor the kernel built); it never
+    runs the plain version."""
+    called = []
+    monkeypatch.setattr(device_unpack, "unpack_ld_plain",
+                        lambda *a: called.append(a))
+    monkeypatch.setattr(device_unpack, "unpack_signed_streams",
+                        lambda *a, **k: called.append(a))
+    payload = torch.zeros(64, dtype=torch.uint8).as_subclass(_OnCuda)
+    fields = torch.zeros((4, 3), dtype=torch.int32).as_subclass(_OnCuda)
+    with pytest.raises(Exception):
+        device_unpack.unpack_ld(payload, fields, 16, 8)
+    assert not called
 
 
 @pytest.mark.parametrize("entry", ["pack_hq", "quant_pack_hq",
@@ -194,6 +220,25 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.nvcc_path()
+
+
+def test_libraries_are_keyed_by_their_shared_header(monkeypatch, tmp_path):
+    """An edit of the decode core that both unpack kernels include changes
+    both libraries' names, so a stale library is never loaded."""
+    srcs = [device_unpack.kernel_source(), device_unpack.ld_kernel_source()]
+    before = [build.library_path(s) for s in srcs]
+    for s in srcs:
+        assert os.path.join(build.CSRC, "golomb_decode.cuh") in \
+            build.included_headers(s.path)
+    for name in ("hq_unpack.cu", "ld_unpack.cu", "golomb_decode.cuh"):
+        with open(os.path.join(build.CSRC, name)) as f:
+            (tmp_path / name).write_text(f.read())
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    assert [build.library_path(s) for s in srcs] == before
+    header = tmp_path / "golomb_decode.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [build.library_path(s) for s in srcs]
+    assert all(a != b for a, b in zip(after, before))
 
 
 @pytest.mark.parametrize("case", ["sources", "generated_header",

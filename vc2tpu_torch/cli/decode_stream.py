@@ -2,22 +2,27 @@
 
 Data-unit dispatch loop mirroring the reference decoder
 (src/DecodeStream/DecodeStream.cpp:205-981): resync, sequence-header state,
-HQ pictures and HQ fragments (reassembled into pictures), aux/padding
-skip, interlaced field pairing and signal clip. Each HQ picture decodes on
-the device (``pipeline.decoder.synthesise_payload_to_words``) for the
+HQ and LD pictures and fragments (reassembled into pictures), aux/padding
+skip, interlaced field pairing and signal clip. Each picture decodes on
+the device (``pipeline.decoder.synthesise_payload_to_words``, or
+``synthesise_ld_payload_to_words`` after the host's LD scan) for the
 DECODED output; the tap outputs write, one picture at a time and with no
-field pairing, the chain scan's q indices (INDICES), the unpacked lanes in
-transform layout (QUANTISED) or the dequantised transform planes
-(TRANSFORM), as int32 words.
+field pairing, the q indices (INDICES), the unpacked lanes in transform
+layout (QUANTISED; for LD the LL residuals as coded) or the dequantised
+transform planes (TRANSFORM; for LD with the DC prediction), as int32
+words.
+
+An LD picture's bytes come from its preamble's slice_bytes fraction with
+no second halving when interlaced: the JAX package's deliberate deviation
+from the reference decoder (``vc2tpu/cli/decode_stream.py``,
+``tests/test_golden.py::test_ld_interlaced_reference_defect``).
 
 Errors: a corrupt or short stream raises ValueError, which the stream loop
-answers by growing its window and then skipping the picture or fragment.
+answers by growing its window and then skipping the picture or fragment;
+a header that would give no slices or divide by zero is such an error.
 Unlike the JAX package, whose fragment path turns any exception into a
 skipped picture, a kernel or CUDA error propagates here, for fragments as
 for pictures, and the CLI exits non-zero.
-
-Not in this slice, and raising NotImplementedError: LD pictures and LD
-fragments (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -34,22 +39,23 @@ from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import DecOutput, PictureGeometry, chroma_dims
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.core.planario import SampleFormat, write_picture
-from vc2tpu_torch.pipeline.decoder import (dequantise_planes,
+from vc2tpu_torch.pipeline.decoder import (dequantise_ld_planes,
+                                           dequantise_planes,
+                                           synthesise_ld_payload_to_words,
                                            synthesise_payload_to_words,
-                                           unpack_payload)
+                                           unpack_ld_payload, unpack_payload)
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
+from vc2tpu_torch.slices.ld import LDScan, ld_scan
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.wavelet import matrices
-
-_NOT_PORTED = "is not ported to vc2tpu_torch yet (ROADMAP queue 1: {})"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vc2tpu-torch-decode",
-        description="Decodes a VC-2 HQ stream to an uncompressed planar "
-                    "file on a CUDA device")
+        description="Decodes a VC-2 stream to an uncompressed planar file "
+                    "on a CUDA device")
     p.add_argument("inFile")
     p.add_argument("outFile")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -62,8 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 @dataclasses.dataclass
 class LocatedPicture:
-    """One HQ picture located by the host: everything the device decode
-    needs (``synthesise_payload_to_words`` arguments)."""
+    """One picture located by the host: everything the device decode
+    needs. HQ: the chain scan's q indices and component byte lengths
+    (``synthesise_payload_to_words`` arguments); LD: the LD scan
+    (``ld``, for ``synthesise_ld_payload_to_words``)."""
 
     picnum: int
     pre: object
@@ -72,7 +80,8 @@ class LocatedPicture:
     payload: np.ndarray
     start: int
     q_idx: np.ndarray
-    cbytes: np.ndarray
+    cbytes: np.ndarray | None = None
+    ld: LDScan | None = None
 
 
 @dataclasses.dataclass
@@ -186,9 +195,6 @@ class Decoder:
         slice chain. Returns (consumed bytes, LocatedPicture or None). A
         window too short for the picture raises ValueError, which the stream
         loop answers by growing the window."""
-        if not hq:
-            raise NotImplementedError("LD picture decode "
-                                      + _NOT_PORTED.format("LD"))
         rd = StreamReader(bytes(window))
         rd.major_version = self._major_version
         rd.r.seek(13)
@@ -197,12 +203,15 @@ class Decoder:
         if self.hdr is None:
             self.log("Cannot decode frame, no previous sequence header!")
             return rd.r.byte_pos, None
-        return self._locate(picnum, pre, rd.data, rd.r.byte_pos)
+        return self._locate(picnum, pre, rd.data, rd.r.byte_pos, hq)
 
-    def _locate(self, picnum: int, pre, data: bytes, start: int):
-        """(end of the slice chain, LocatedPicture) of a picture whose
-        slices begin at byte ``start`` of ``data``; ValueError when the
-        chain runs past the end of ``data``."""
+    def _locate(self, picnum: int, pre, data: bytes, start: int, hq: bool,
+                whole: bool = True):
+        """(end of the slices, LocatedPicture) of a picture whose slices
+        begin at byte ``start`` of ``data``. ValueError when they run past
+        the end of ``data`` (an LD picture is checked only when ``whole``:
+        an assembled fragmented one reads 1-bits past its end, as the JAX
+        package's does), or when the header's geometry is corrupt."""
         hdr = self.hdr
         depth = pre.depth
         pic_h = hdr.height // 2 if hdr.interlace else hdr.height
@@ -213,13 +222,31 @@ class Decoder:
         geo = SliceGeometry(ys, xs, (padded_h, padded_w), (pch, pcw),
                             (padded_h // ys, padded_w // xs),
                             (pch // ys, pcw // xs))
-        q_idx, _dstart, cbytes, end = scan_hq_slice_offsets(
-            data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
-            start)
-        # the data up to the slice chain's end: all the device needs
-        payload = np.frombuffer(data, dtype=np.uint8, count=end)
+        if hq:
+            q_idx, _dstart, cbytes, end = scan_hq_slice_offsets(
+                data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
+                start)
+            # the data up to the slice chain's end: all the device needs
+            payload = np.frombuffer(data, dtype=np.uint8, count=end)
+            return end, LocatedPicture(picnum, pre, geo, pic_h, payload,
+                                       start, q_idx, cbytes)
+        ts = 1 << depth
+        if any(d % ts for d in (*geo.luma_slice, *geo.chroma_slice)):
+            raise ValueError("LD slices do not hold whole LL blocks")
+        # this picture's bytes, with no second halving when interlaced
+        picture_bytes = (pre.slice_bytes_numerator * geo.n_slices
+                         // pre.slice_bytes_denominator)
+        sizes = layout.slice_bytes_map(ys, xs, picture_bytes, 1).ravel()
+        end = start + int(sizes.sum())
+        if whole and end > len(data):
+            raise ValueError("LD slice payload runs past the window")
+        scan = ld_scan(data, sizes, geo, depth,
+                       matrices.quant_matrix(pre.wavelet_kernel, depth),
+                       start)
+        payload = np.frombuffer(data, dtype=np.uint8,
+                                count=min(end, len(data)))
         return end, LocatedPicture(picnum, pre, geo, pic_h, payload, start,
-                                   q_idx, cbytes)
+                                   scan.q, ld=scan)
 
     def _decode_picture(self, job: LocatedPicture):
         """Device decode of a located picture into the output; errors
@@ -231,10 +258,16 @@ class Decoder:
             self._write_tap(job, qmatrix)
             return
         out_geom = PictureGeometry.of(job.pic_h, hdr.width, hdr.chroma_format)
-        words = synthesise_payload_to_words(
-            job.payload, job.q_idx, job.cbytes, qmatrix, pre.wavelet_kernel,
-            pre.depth, job.geo, out_geom, hdr.bitdepth, pre.slice_prefix,
-            start=job.start, device=self.device)
+        if job.ld is not None:
+            words = synthesise_ld_payload_to_words(
+                job.payload, job.ld, qmatrix, pre.wavelet_kernel, pre.depth,
+                job.geo, out_geom, hdr.bitdepth, device=self.device)
+        else:
+            words = synthesise_payload_to_words(
+                job.payload, job.q_idx, job.cbytes, qmatrix,
+                pre.wavelet_kernel, pre.depth, job.geo, out_geom,
+                hdr.bitdepth, pre.slice_prefix, start=job.start,
+                device=self.device)
         self._cur_picnum = job.picnum
         self._emit_words(words)
 
@@ -242,15 +275,23 @@ class Decoder:
         """One picture's INDICES, QUANTISED or TRANSFORM output
         (DecodeStream.cpp's taps; the JAX package's ``_finish_picture``):
         the q indices as bytes, or int32 words of the lanes in transform
-        layout, raw or dequantised (uncropped)."""
+        layout, raw or dequantised (uncropped; an LD picture's LL band
+        with its DC prediction)."""
         if self.output == DecOutput.INDICES:
             self.sink.write(np.asarray(job.q_idx).astype(np.uint8).tobytes())
             return
         pre, geo = job.pre, job.geo
-        lanes, q_idx = unpack_payload(job.payload, job.q_idx, job.cbytes, geo,
-                                      pre.slice_prefix, start=job.start,
-                                      device=self.device)
-        if self.output == DecOutput.TRANSFORM:
+        if job.ld is not None:
+            lanes, q_idx, grids = unpack_ld_payload(job.payload, job.ld, geo,
+                                                    device=self.device)
+        else:
+            lanes, q_idx = unpack_payload(job.payload, job.q_idx, job.cbytes,
+                                          geo, pre.slice_prefix,
+                                          start=job.start, device=self.device)
+        if self.output == DecOutput.TRANSFORM and job.ld is not None:
+            planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix,
+                                          pre.depth, geo)
+        elif self.output == DecOutput.TRANSFORM:
             planes = dequantise_planes(lanes, q_idx, qmatrix, pre.depth, geo)
         else:
             planes = [layout.lanes_to_plane(
@@ -260,16 +301,16 @@ class Decoder:
         write_picture(self.sink, Picture(*planes, self.hdr.chroma_format),
                       SampleFormat(word_width=4, offset=False))
 
-    def _handle_fragment(self, rd: StreamReader):
-        """The HQ fragment data unit at the head of ``rd`` (its parse_info
-        read). Returns (consumed bytes, LocatedPicture or None): the
+    def _handle_fragment(self, rd: StreamReader, hq: bool):
+        """The HQ or LD fragment data unit at the head of ``rd`` (its
+        parse_info read). Returns (consumed bytes, LocatedPicture or None): the
         picture once its last slices arrive. ValueError when the window is
         too short; _FragmentDecodeError when the assembled picture is
         corrupt."""
         picnum = rd.read_picture_number()
         frag = rd.read_fragment_header()
         if frag.n_slices == 0:
-            pre = rd.read_preamble(True)
+            pre = rd.read_preamble(hq)
             if self.hdr is None:
                 self.log("Cannot decode frame, no previous sequence header!")
                 return rd.r.byte_pos, None
@@ -297,7 +338,8 @@ class Decoder:
         del self.frags[picnum]
         payload = b"".join(p for _, p in sorted(st.payload_parts.items()))
         try:
-            _end, job = self._locate(picnum, st.preamble, payload, 0)
+            _end, job = self._locate(picnum, st.preamble, payload, 0, hq,
+                                     whole=False)
         except ValueError as exc:
             raise _FragmentDecodeError(exc) from exc
         return rd.r.byte_pos, job
@@ -455,10 +497,8 @@ class Decoder:
                     if not resync():
                         self._flush()
                         return 0
-            elif du_type == DataUnitType.LD_FRAGMENT:
-                raise NotImplementedError("LD fragment decode "
-                                          + _NOT_PORTED.format("LD"))
-            elif du_type == DataUnitType.HQ_FRAGMENT:
+            elif du_type in (DataUnitType.HQ_FRAGMENT,
+                             DataUnitType.LD_FRAGMENT):
                 fill(max(min(next_off, 64 << 20), 13 + 4 + 8))
                 grow_cap = min(max(next_off, 0), 64 << 20) + (64 << 20)
                 job = None
@@ -470,7 +510,8 @@ class Decoder:
                     rd.major_version = self._major_version
                     rd.r.seek(13)
                     try:
-                        end, job = self._handle_fragment(rd)
+                        end, job = self._handle_fragment(
+                            rd, du_type == DataUnitType.HQ_FRAGMENT)
                         consume(min(end, len(window)))
                         break
                     except _FragmentDecodeError as exc:

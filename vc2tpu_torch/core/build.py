@@ -6,8 +6,9 @@ kernel ``csrc/<name>.cu`` by ``nvcc``, a host routine ``csrc/<name>.cpp``
 by the host C++ compiler (``Source.compiler``). A kernel may include
 headers generated from Python tables (``Source.headers``: file name and
 text); they are written next to the library and put on the include path.
-The hash covers the source, the generated headers, the compiler and its
-flags, so a stale library is never loaded. The library is opened with
+The hash covers the source, the headers of ``csrc/`` it includes (the
+decode core ``golomb_decode.cuh`` that two kernels share), the generated
+headers, the compiler and its flags, so a stale library is never loaded. The library is opened with
 ctypes; the wrappers set ``argtypes``.
 
 A missing compiler or a failed build raises: there is no other route.
@@ -19,6 +20,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -72,9 +74,29 @@ def cxx_path() -> str:
                        "routines cannot be built (set CXX)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(path: str) -> list[str]:
+    """The headers of ``csrc/`` that the file at ``path`` includes with
+    ``#include "..."``, and theirs, in the order first met."""
+    out, todo = [], [path]
+    while todo:
+        with open(todo.pop(0), "rb") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            dep = os.path.join(CSRC, name.decode())
+            if os.path.exists(dep) and dep not in out:
+                out.append(dep)
+                todo.append(dep)
+    return out
+
+
 def library_path(src: Source) -> str:
-    with open(src.path, "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for path in [src.path, *included_headers(src.path)]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     for fname, text in src.headers:
         h.update(fname.encode() + b"\0" + text.encode() + b"\0")
     h.update(src.compiler.encode() + b"\0" + " ".join(src.flags).encode())

@@ -1,9 +1,10 @@
-"""HQ picture decode on the device: payload bytes -> planar output bytes.
+"""HQ and LD picture decode on the device: payload bytes -> planar output
+bytes.
 
-Port of ``vc2tpu.pipeline.decoder.synthesise_payload_to_words`` on the
-in-place synthesis route (the JAX package's ``_synthesis_fn``), covering
-the HQ picture tail of the reference decoder
-(src/DecodeStream/DecodeStream.cpp:451-609):
+Ports of ``vc2tpu.pipeline.decoder.synthesise_payload_to_words`` and
+``synthesise_ld_payload_to_words`` on the in-place synthesis route (the
+JAX package's ``_synthesis_fn``), covering the HQ picture tail of the
+reference decoder (src/DecodeStream/DecodeStream.cpp:451-609):
 
     upload (one H2D of the payload, one of the slice fields)
     -> component offsets -> unpack kernel       (``unpack_payload``)
@@ -11,10 +12,20 @@ the HQ picture tail of the reference decoder
     -> lanes_to_plane -> inverse_planes (one lift launch a level)
     -> crop -> clip, offset, MSB-justify, big-endian bytes (uint8)
 
-The stages are separate functions so a profiler can time each; the caller
-makes the one D2H copy of the returned bytes. The decoder's tap outputs
-(TRANSFORM, QUANTISED) stop after ``unpack_payload`` or
-``dequantise_planes``.
+and its LD picture tail (:289-450), after the host scan
+(``slices.ld.ld_scan``: the header fields and the LL band dequantised with
+DC prediction):
+
+    upload (one H2D each of the payload, the fields and the LL grids)
+    -> LD unpack kernel                          (``unpack_ld_payload``)
+    -> dequantise -> lanes_to_plane -> the LL samples from the host grids
+    -> inverse_planes -> crop and format, as for HQ
+
+The JAX package's LD band route (``lanes_to_bands``/``inverse_bands``) is
+not carried over. The stages are separate functions so a profiler can time
+each; the caller makes the one D2H copy of the returned bytes. The
+decoder's tap outputs (TRANSFORM, QUANTISED) stop after the unpack or the
+dequantise.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from vc2tpu_torch.core.planario import SampleFormat, encode_plane
 from vc2tpu_torch.quant.quantiser import adjust_quant_index, scale
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
+from vc2tpu_torch.slices.ld import LDScan
 from vc2tpu_torch.vlc import device_unpack
 from vc2tpu_torch.wavelet import lifting
 
@@ -123,5 +135,58 @@ def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
     lanes, q_idx = unpack_payload(payload, q_indices, cbytes, geo, prefix,
                                   start, device)
     planes = dequantise_planes(lanes, q_idx, qmatrix, depth, geo)
+    planes = lifting.inverse_planes(planes, kernel, depth)
+    return format_planes(planes, out_geometry, bitdepth)
+
+
+def upload_ld(payload: np.ndarray, scan: LDScan, device: torch.device):
+    """An LD picture's host data to the device, one copy each: the payload
+    bytes (uint8 [P]), the scan's fields as int32 [5, N] (q, s_bits,
+    len_bits, y_bits, uv_bits) and its three LL grids (int32)."""
+    fields = np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
+    flat = np.concatenate([g.ravel() for g in scan.grids]).astype(np.int32)
+    pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
+    grids = torch.from_numpy(flat).to(device).split(
+        [g.size for g in scan.grids])
+    return (pay.to(device), torch.from_numpy(fields).to(device),
+            [t.view(g.shape) for t, g in zip(grids, scan.grids)])
+
+
+def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
+                      device=None):
+    """The unpack half of an LD picture's decode: upload and the LD unpack
+    kernel. Returns ((y, u, v) int32 lanes, q indices int32 [N], the three
+    LL grids) on ``device`` (default the card), without synchronising."""
+    dev = devices.resolve(device)
+    pay, fields, grids = upload_ld(payload, scan, dev)
+    ly = geo.luma_slice[0] * geo.luma_slice[1]
+    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+    return device_unpack.unpack_ld(pay, fields[1:], ly, lc), fields[0], grids
+
+
+def dequantise_ld_planes(lanes, q_idx: torch.Tensor, grids, qmatrix,
+                         depth: int, geo: SliceGeometry):
+    """``dequantise_planes``, then every plane's LL samples (the
+    ``(::2^depth, ::2^depth)`` sub-lattice, where the reference's
+    ``ld_ll_dequantise`` writes them) replaced by the host's grids, which
+    carry the DC prediction the lanes lack."""
+    planes = dequantise_planes(lanes, q_idx, qmatrix, depth, geo)
+    ts = 1 << depth
+    for plane, grid in zip(planes, grids):
+        plane[::ts, ::ts] = grid
+    return planes
+
+
+def synthesise_ld_payload_to_words(payload: np.ndarray, scan: LDScan,
+                                   qmatrix, kernel: WaveletKernel,
+                                   depth: int, geo: SliceGeometry,
+                                   out_geometry: PictureGeometry,
+                                   bitdepth: int, device=None) -> torch.Tensor:
+    """Full device decode of one LD picture from its compressed payload and
+    its host scan (``slices.ld.ld_scan``, whose bit offsets index
+    ``payload``). Returns the output bytes as a uint8 tensor on ``device``
+    (default the card), without synchronising."""
+    lanes, q_idx, grids = unpack_ld_payload(payload, scan, geo, device)
+    planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix, depth, geo)
     planes = lifting.inverse_planes(planes, kernel, depth)
     return format_planes(planes, out_geometry, bitdepth)

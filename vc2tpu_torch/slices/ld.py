@@ -1,0 +1,299 @@
+"""LD-profile slices: the header scan, the slice decode, and the LL
+DC-prediction dequantise.
+
+Wire format per slice (reference src/Library/src/Slices.cpp:195-303): a
+7-bit qIndex, an ``intlog2(8*size-7)``-bit luma-length field, a bounded
+luma exp-Golomb region of that many bits, then the remaining bits as a
+bounded interleaved-U,V region. Slices are fixed-size (``layout
+.slice_bytes_map`` of the picture's bytes), so every offset follows from
+the sizes. Reads past the payload give 1-bits (the JAX package's 0xFF
+pad, the reference's at-EOF rule).
+
+``ld_scan`` is the host half of the device LD decode, in native code
+(``csrc/ld_scan.cpp``, built with the host C++ compiler at first use): the
+header fields of every slice, and the LL band's codes dequantised with DC
+prediction (a strict raster recurrence, reference Quantisation.cpp:
+287-306) into three compact grids. ``ld_scan_plain`` is the same from
+``ld_header_fields``, the plain bit reader and a Python loop of the
+recurrence: the reference the tests hold the native scan against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from vc2tpu_torch.core import build
+from vc2tpu_torch.core.intmath import wrap32
+from vc2tpu_torch.quant.quantiser import MAX_QINDEX, QUANT_FACTORS_I32, \
+    QUANT_OFFSETS
+from vc2tpu_torch.slices import layout
+from vc2tpu_torch.vlc import device_unpack
+
+
+def len_bits_of(sizes: np.ndarray) -> np.ndarray:
+    """``intlog2(8 * size - 7)`` of every slice size, int64: the bit length
+    of ``8 * size - 8`` (0 where that is not positive)."""
+    x = 8 * np.asarray(sizes, np.int64) - 8
+    return np.where(x > 0, np.frexp(np.maximum(x, 1))[1], 0).astype(np.int64)
+
+
+def ld_header_fields(payload, slice_sizes, start: int = 0):
+    """Per-slice LD header scan, vectorised: (q int32, s_bits, len_bits,
+    y_bits, uv_bits int64, end offset). ``payload`` is bytes, a bytearray,
+    a memoryview or a uint8 array; only the first bytes of each slice are
+    read. The luma length is not clamped to the slice; ``uv_bits`` is
+    ``max(8 size - 7 - len_bits - y_bits, 0)``."""
+    sizes = np.asarray(slice_sizes, np.int64).ravel()
+    n = len(sizes)
+    starts = start + np.cumsum(sizes) - sizes
+    len_bits = len_bits_of(sizes)
+    width = int(len_bits.max(initial=0))
+    k = (7 + width + 7) // 8
+    data = np.frombuffer(payload, np.uint8)
+    buf = np.concatenate([data, np.full(k + 1, 0xFF, np.uint8)])
+    idx = np.minimum(starts[:, None] + np.arange(k), len(buf) - 1)
+    hbits = np.unpackbits(buf[idx], axis=1).astype(np.int64)   # (n, 8k)
+    q = hbits[:, :7] @ (1 << np.arange(6, -1, -1, dtype=np.int64))
+    b = np.arange(width, dtype=np.int64)
+    weight = np.where(b < len_bits[:, None],
+                      np.left_shift(1, np.maximum(len_bits[:, None] - 1 - b,
+                                                  0)), 0)
+    y_bits = (hbits[:, 7:7 + width] * weight).sum(1) if n else np.zeros(
+        0, np.int64)
+    uv_bits = np.maximum(8 * sizes - 7 - len_bits - y_bits, 0)
+    end = int(start + sizes.sum())
+    return q.astype(np.int32), 8 * starts, len_bits, y_bits, uv_bits, end
+
+
+def _fields(s_bits, len_bits, y_bits, uv_bits) -> np.ndarray:
+    """The four bit fields as the int32 [4, N] the unpack takes."""
+    f = np.stack([s_bits, len_bits, y_bits, uv_bits]).astype(np.int64)
+    if f.size and int((f[0] + 7 + f[1] + f[2] + f[3]).max()) > 2**31 - 1:
+        raise ValueError("LD slice fields exceed the int32 range")
+    return f.astype(np.int32)
+
+
+def decode_ld_slices(payload, slice_sizes, lane_counts: tuple[int, int],
+                     start: int = 0, device="cpu"):
+    """Decode LD slices: the header scan on the host, then both regions of
+    every slice through ``device_unpack.unpack_ld`` (the kernel for a CUDA
+    ``device``, its plain version on the CPU). Returns (q_indices int32 [N]
+    numpy, lanes_y, lanes_u, lanes_v int32 tensors on ``device``, end
+    offset)."""
+    ly, lc = lane_counts
+    q, *bits, end = ld_header_fields(payload, slice_sizes, start)
+    pay = torch.from_numpy(np.array(np.frombuffer(payload, np.uint8)))
+    fields = torch.from_numpy(_fields(*bits))
+    qy, qu, qv = device_unpack.unpack_ld(pay.to(device), fields.to(device),
+                                         ly, lc)
+    return q, qy, qu, qv, end
+
+
+def qm_block(slice_h: int, slice_w: int, depth: int, qmatrix) -> np.ndarray:
+    """Quant matrix entry of every position of a slice block, row-major,
+    int32 [slice_h * slice_w] (the JAX package's ``pipeline.ld._qm_block``,
+    reference EncodeStream.cpp:159-171)."""
+    perm, band = layout.lane_order(slice_h, slice_w, depth)
+    out = np.zeros(slice_h * slice_w, dtype=np.int32)
+    out[perm] = np.asarray(qmatrix)[band]
+    return out
+
+
+@dataclasses.dataclass
+class LLGeometry:
+    """One component's compact LL grid: its slice block (sh x sw), the nll
+    LL codes a slice, each code's offset in its slice's block of the grid
+    (row-major at the grid width llw; the first nll codes of a region, in
+    ``layout.lane_order``), and the grid's size (llh x llw)."""
+
+    sh: int
+    sw: int
+    nll: int
+    llh: int
+    llw: int
+    offset: np.ndarray
+
+    @staticmethod
+    def of(sh: int, sw: int, depth: int, ys: int, xs: int) -> "LLGeometry":
+        ts = 1 << depth
+        nll = (sh // ts) * (sw // ts)
+        perm, _ = layout.lane_order(sh, sw, depth)
+        llw = (xs * sw) // ts
+        by, bx = np.divmod(perm[:nll].astype(np.int64), max(sw, 1))
+        return LLGeometry(sh, sw, nll, (ys * sh) // ts, llw,
+                          (by // ts) * llw + bx // ts)
+
+    def origins(self, ys: int, xs: int, ts: int) -> np.ndarray:
+        """Offset of every slice's LL block in the grid, int64 [N]."""
+        sy, sx = np.divmod(np.arange(ys * xs, dtype=np.int64), xs)
+        return sy * (self.sh // ts) * self.llw + sx * (self.sw // ts)
+
+
+@dataclasses.dataclass
+class LDScan:
+    """The host half of an LD picture's decode: the q indices (int32 [N]),
+    the bit fields (int32 [4, N]: s_bits, len_bits, y_bits, uv_bits), the
+    three dequantised LL grids (int32, luma then U and V) and the offset
+    just past the last slice."""
+
+    q: np.ndarray
+    fields: np.ndarray
+    grids: tuple
+    end: int
+
+
+def scan_source() -> build.Source:
+    return build.Source("ld_scan", compiler="c++")
+
+
+class _LLGrid(ctypes.Structure):
+    _fields_ = [("sh", ctypes.c_int64), ("sw", ctypes.c_int64),
+                ("nll", ctypes.c_int64), ("llh", ctypes.c_int64),
+                ("llw", ctypes.c_int64), ("offset", ctypes.c_void_p),
+                ("qm_block", ctypes.c_void_p)]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = build.load(scan_source())
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.ld_scan.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, p, p, p,
+                            p, p, p, p, p]
+    lib.ld_scan.restype = i64
+    return lib
+
+
+_QF = np.ascontiguousarray(QUANT_FACTORS_I32, np.int32)
+_QO = np.ascontiguousarray(QUANT_OFFSETS, np.int32)
+_LL_OUTSIDE = "an LL code of the slice grid lands outside its LL grid"
+
+
+def _geometries(geo, depth: int):
+    ys, xs = geo.y_slices, geo.x_slices
+    return (LLGeometry.of(*geo.luma_slice, depth, ys, xs),
+            LLGeometry.of(*geo.chroma_slice, depth, ys, xs))
+
+
+def ld_scan(payload, slice_sizes, geo, depth: int, qmatrix,
+            start: int = 0) -> LDScan:
+    """Scan an LD picture's slices in native code (``csrc/ld_scan.cpp``):
+    the header fields, and the LL grids dequantised with DC prediction.
+    ``payload`` is bytes, a bytearray, a memoryview or a uint8 array whose
+    slices begin at byte ``start``; ``geo`` a ``SliceGeometry``. Raises
+    ValueError on a corrupt geometry or fields."""
+    data = np.frombuffer(payload, np.uint8)
+    sizes = np.ascontiguousarray(np.asarray(slice_sizes).ravel(), np.int32)
+    n = sizes.size
+    gl, gc = _geometries(geo, depth)
+    keep = []
+
+    def grid_arg(g: LLGeometry, sh, sw):
+        off = np.ascontiguousarray(g.offset, np.int64)
+        qm = qm_block(sh, sw, depth, qmatrix)
+        keep.extend((off, qm))
+        return _LLGrid(g.sh, g.sw, g.nll, g.llh, g.llw, off.ctypes.data,
+                       qm.ctypes.data)
+
+    luma = grid_arg(gl, *geo.luma_slice)
+    chroma = grid_arg(gc, *geo.chroma_slice)
+    q = np.zeros(n, np.int32)
+    fields = np.zeros((4, n), np.int32)
+    gy = np.zeros((gl.llh, gl.llw), np.int32)
+    gu = np.zeros((gc.llh, gc.llw), np.int32)
+    gv = np.zeros((gc.llh, gc.llw), np.int32)
+    end = _lib().ld_scan(
+        data.ctypes.data, data.size, n, start, sizes.ctypes.data,
+        geo.y_slices, geo.x_slices, 1 << depth, ctypes.byref(luma),
+        ctypes.byref(chroma), _QF.ctypes.data, _QO.ctypes.data,
+        q.ctypes.data, fields.ctypes.data, gy.ctypes.data, gu.ctypes.data,
+        gv.ctypes.data)
+    if end == -1:
+        raise ValueError("LD slice fields exceed the int32 range")
+    if end < 0:
+        raise ValueError(_LL_OUTSIDE)
+    return LDScan(q, fields, (gy, gu, gv), int(end))
+
+
+def _c_scale(value: int, q: int) -> int:
+    """The reference's scalar inverse quantise (Quantisation.cpp:86-95)
+    with int32 wrap and C truncating division."""
+    q = min(max(q, 0), MAX_QINDEX)
+    neg = value < 0
+    v = wrap32(-value) if neg else value
+    v = wrap32(v * int(QUANT_FACTORS_I32[q]))
+    if v > 0:
+        v = wrap32(v + int(QUANT_OFFSETS[q]))
+    v = wrap32(v + 2)
+    v = -(-v // 4) if v < 0 else v // 4
+    return wrap32(-v) if neg else v
+
+
+def _trunc3(r: int) -> int:
+    return -(-r // 3) if r < 0 else r // 3
+
+
+def dequantise_ll_plain(grid: np.ndarray, ys: int, xs: int, ts: int,
+                        sh: int, sw: int, qm_blk: np.ndarray,
+                        q: np.ndarray) -> np.ndarray:
+    """The LL DC-prediction recurrence as a Python loop: each value is
+    c_scale(code, adjusted q) plus the truncating mean of its left, above
+    and above-left values (reference Quantisation.cpp:287-306)."""
+    llh, llw = grid.shape
+    out = [[0] * llw for _ in range(llh)]
+    codes = grid.tolist()
+    qs, qm = q.tolist(), qm_blk.tolist()
+    for y in range(llh):
+        yb = ((y + 1) * ys - 1) // llh
+        row, up = out[y], out[y - 1] if y else None
+        for x in range(llw):
+            xb = ((x + 1) * xs - 1) // llw
+            aq = max(qs[yb * xs + xb] - qm[((y * ts) % sh) * sw + (x * ts) % sw],
+                     0)
+            if y and x:
+                r = wrap32(up[x - 1] + up[x] + row[x - 1])
+                pred = _trunc3(wrap32(r + 1)) if r >= 0 else _trunc3(
+                    wrap32(r - 1))
+            elif y:
+                pred = up[x]
+            elif x:
+                pred = row[x - 1]
+            else:
+                pred = 0
+            row[x] = wrap32(_c_scale(codes[y][x], aq) + pred)
+    return np.asarray(out, np.int32).reshape(llh, llw)
+
+
+def ld_scan_plain(payload, slice_sizes, geo, depth: int, qmatrix,
+                  start: int = 0) -> LDScan:
+    """``ld_scan`` from ``ld_header_fields``, the plain bit reader
+    (``device_unpack.unpack_signed_streams``) and a Python loop of the
+    recurrence: the reference of the native scan."""
+    q, s_bits, len_bits, y_bits, uv_bits, end = ld_header_fields(
+        payload, slice_sizes, start)
+    fields = _fields(s_bits, len_bits, y_bits, uv_bits)
+    pay = torch.from_numpy(np.array(np.frombuffer(payload, np.uint8)))
+    luma, chroma = device_unpack.ld_regions(torch.from_numpy(fields))
+    ts = 1 << depth
+    ys, xs = geo.y_slices, geo.x_slices
+    gl, gc = _geometries(geo, depth)
+    lly = device_unpack.unpack_signed_streams(
+        pay, luma, torch.from_numpy(fields[2]), gl.nll).numpy()
+    lluv = device_unpack.unpack_signed_streams(
+        pay, chroma, torch.from_numpy(fields[3]), 2 * gc.nll).numpy()
+    grids = []
+    for g, codes, (sh, sw) in ((gl, lly, geo.luma_slice),
+                               (gc, lluv[:, 0::2], geo.chroma_slice),
+                               (gc, lluv[:, 1::2], geo.chroma_slice)):
+        at = g.origins(ys, xs, ts)[:, None] + g.offset[None, :]
+        if at.size and (at.min() < 0 or at.max() >= g.llh * g.llw):
+            raise ValueError(_LL_OUTSIDE)
+        grid = np.zeros((g.llh, g.llw), np.int32)
+        grid.ravel()[at] = codes
+        grids.append(dequantise_ll_plain(grid, ys, xs, ts, sh, sw,
+                                         qm_block(sh, sw, depth, qmatrix), q))
+    return LDScan(q, fields, tuple(grids), end)

@@ -291,4 +291,11 @@ class StreamReader:
         if r.get_bool():
             raise ValueError("DataUnitIO: Custom Quantisation Matrix flag not supported")
         r.align()
+        # a corrupt header that would leave no slices, or divide by zero,
+        # is a corrupt picture: the decoder skips it, as the JAX package's
+        # does (it catches the ZeroDivisionError that follows)
+        if p.slices_x == 0 or p.slices_y == 0:
+            raise ValueError(f"picture of {p.slices_x} x {p.slices_y} slices")
+        if not hq and p.slice_bytes_denominator == 0:
+            raise ValueError("LD slice_bytes_denominator is 0")
         return p

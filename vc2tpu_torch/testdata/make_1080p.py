@@ -1,9 +1,10 @@
-"""Regenerate the 1080p HQ fixtures of this directory.
+"""Regenerate the 1080p fixtures of this directory.
 
 Makes one synthetic 1920x1080 4:2:2 10-bit frame (sinusoid + noise, a
 saturated block and a gradient band; seed 42, the content of the JAX
 package's 1080p parity test), encodes it with the JAX package's encoder
-CLI in HQ ConstQ and HQ CBR, decodes each stream with the JAX package's
+CLI in HQ ConstQ, HQ CBR and LD (the LD configuration ``bench.py`` runs),
+decodes each stream with the JAX package's
 decoder CLI, and writes ``fixtures_1080p.json`` with the SHA-256 of each
 decode and the exact commands. Both CLIs run as subprocesses; this script
 imports neither. Run from the repository root:
@@ -29,6 +30,7 @@ ARGS = ["-x", "1920", "-y", "1080", "-f", "4:2:2", "-l", "10", "-n", "2",
 MODES = {
     "constq_1080p": ["-m", "HQ_ConstQ", "-q", "40"],
     "cbr_1080p": ["-m", "HQ_CBR", "-S", "2", "-s", "829440"],
+    "ld_1080p": ["-m", "LD", "-s", "829440"],
 }
 
 

@@ -1,11 +1,16 @@
-"""On-device entropy unpack: HQ slice payload bytes -> coefficient lanes.
+"""On-device entropy unpack: slice payload bytes -> coefficient lanes.
 
-Port of ``vc2tpu.vlc.device_unpack.unpack_hq_lanes``. Every slice
-component is a bounded region of interleaved exp-Golomb codes (reference
-src/Library/src/VLC.cpp:54-94; the slice layout is
-src/Library/src/Slices.cpp:384-467). ``unpack_hq`` decodes all of a
-picture's regions: a CUDA kernel (``csrc/hq_unpack.cu``) for CUDA tensors,
-the plain PyTorch version ``unpack_hq_plain`` for CPU tensors.
+Ports of ``vc2tpu.vlc.device_unpack.unpack_hq_lanes`` and
+``unpack_ld_lanes``. Every slice component is a bounded region of
+interleaved exp-Golomb codes (reference src/Library/src/VLC.cpp:54-94;
+the slice layouts are src/Library/src/Slices.cpp:384-467 for HQ, whose
+regions are byte-granular, and :195-303 for LD, whose two regions a slice
+start mid-byte and are bounded in bits). ``unpack_hq`` and ``unpack_ld``
+decode all of a picture's regions: CUDA kernels (``csrc/hq_unpack.cu``,
+``csrc/ld_unpack.cu``, one decode core in ``csrc/golomb_decode.cuh``) for
+CUDA tensors, the plain PyTorch versions ``unpack_hq_plain`` and
+``unpack_ld_plain`` for CPU tensors. Both plain versions are the one
+bit-granular reader ``unpack_signed_streams``.
 
 Semantics, as in the JAX package:
 
@@ -57,30 +62,41 @@ def _check(payload, dstart, clen):
         raise ValueError("unpack_hq: dstart and clen differ in shape")
 
 
-def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
-                    clen: torch.Tensor, ly: int, lc: int):
-    """Plain PyTorch unpack, one code per step for every region at once.
+def unpack_signed_streams(payload: torch.Tensor, start_bits: torch.Tensor,
+                          bound_bits: torch.Tensor, n_lanes: int,
+                          lane_limits: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Plain bounded-stream reader: decode rows of interleaved exp-Golomb
+    codes from bit-granular regions, one code a step for every row at once.
+
+    payload: uint8 [P]. start_bits: int64 [S] absolute first bit of each
+    row's region; bound_bits: int64 [S] its length in bits. Each row decodes
+    ``n_lanes`` codes, or its entry of ``lane_limits`` (int64 [S], each at
+    most ``n_lanes``). Returns int32 [S, n_lanes], lanes a row never
+    reached 0. Bits at or past a row's bound, and past the payload's end,
+    read as 1. The twin of ``vc2tpu.vlc.bitpack
+    .unpack_signed_streams`` (which reads codes of more than 31 data bits
+    bit by bit, where this clamps them, as the device unpacks do).
+
     The stream is expanded to one byte per bit, so a 64-bit peek is a
-    gather and the follow-bit search an argmax (torch has no clz).
-    Returns (qy [N, ly], qu [N, lc], qv [N, lc]) int32."""
-    _check(payload, dstart, clen)
+    gather and the follow-bit search an argmax (torch has no clz)."""
     dev = payload.device
-    n = dstart.shape[1]
+    s = start_bits.numel()
+    lim = (torch.full((s,), n_lanes, dtype=torch.int64, device=dev)
+           if lane_limits is None
+           else lane_limits.to(device=dev, dtype=torch.int64))
     shifts = torch.arange(7, -1, -1, device=dev)
     bits = ((payload.to(torch.int64)[:, None] >> shifts) & 1).reshape(-1)
     nbits = bits.numel()
     bits = torch.cat([bits, torch.ones(1, dtype=torch.int64, device=dev)])
-    pos = 8 * dstart.reshape(-1).to(torch.int64)
-    bound = pos + 8 * clen.reshape(-1).to(torch.int64)
-    lim = torch.tensor([ly] * n + [lc] * (2 * n), dtype=torch.int64,
-                       device=dev)
-    width = max(ly, lc)
-    out = torch.zeros((3 * n, width), dtype=torch.int32, device=dev)
-    nd = torch.zeros(3 * n, dtype=torch.int64, device=dev)
+    pos = start_bits.to(device=dev, dtype=torch.int64).reshape(-1)
+    bound = pos + bound_bits.to(device=dev, dtype=torch.int64).reshape(-1)
+    out = torch.zeros((s, n_lanes), dtype=torch.int32, device=dev)
+    nd = torch.zeros(s, dtype=torch.int64, device=dev)
     k64 = torch.arange(64, device=dev)
     j32 = torch.arange(32, device=dev)
-    rows = torch.arange(3 * n, device=dev)
-    for _ in range(width):
+    rows = torch.arange(s, device=dev)
+    for _ in range(n_lanes):
         active = (pos < bound) & (nd < lim)
         if not bool(active.any()):
             break
@@ -99,6 +115,21 @@ def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
         out[rows[active], nd[active]] = wrap32(val[active]).to(torch.int32)
         pos = torch.where(active, pos + torch.where(z == 0, 1, z + 2), pos)
         nd = nd + active.to(torch.int64)
+    return out
+
+
+def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
+                    clen: torch.Tensor, ly: int, lc: int):
+    """Plain PyTorch unpack of an HQ picture: its byte-granular regions
+    through ``unpack_signed_streams``. Returns (qy [N, ly], qu [N, lc],
+    qv [N, lc]) int32."""
+    _check(payload, dstart, clen)
+    n = dstart.shape[1]
+    pos = 8 * dstart.reshape(-1).to(torch.int64)
+    lim = torch.tensor([ly] * n + [lc] * (2 * n), dtype=torch.int64)
+    out = unpack_signed_streams(payload, pos,
+                                8 * clen.reshape(-1).to(torch.int64),
+                                max(ly, lc), lim)
     return (out[:n, :ly].contiguous(), out[n:2 * n, :lc].contiguous(),
             out[2 * n:, :lc].contiguous())
 
@@ -115,12 +146,22 @@ WINDOW_BYTES = 8192
 LANE_TILE_BYTES = 98304
 
 
-def unpack_plan(ly: int, lc: int) -> tuple:
-    """(slices a CTA, lanes staged in shared memory?) for these lane
-    counts."""
-    row = 4 * ((ly | 1) + 2 * (lc | 1))
+def _plan(rows: tuple) -> tuple:
+    row = 4 * sum(length | 1 for length in rows)
     s = min(SLICES_PER_CTA, LANE_TILE_BYTES // row)
     return (s, True) if s >= 1 else (SLICES_PER_CTA, False)
+
+
+def unpack_plan(ly: int, lc: int) -> tuple:
+    """(slices a CTA, lanes staged in shared memory?) of the HQ kernel for
+    these lane counts (three regions a slice)."""
+    return _plan((ly, lc, lc))
+
+
+def ld_unpack_plan(ly: int, lc: int) -> tuple:
+    """The same for the LD kernel (two regions a slice: luma, and U/V
+    interleaved)."""
+    return _plan((ly, 2 * lc))
 
 
 def kernel_source() -> build.Source:
@@ -159,26 +200,14 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
             raise ValueError("unpack_hq: staged flags come from the CUDA "
                              "kernel only")
         return unpack_hq_plain(payload, dstart, clen, ly, lc)
-    if payload.device.type != "cuda":
-        raise ValueError(f"unpack_hq: unsupported device {payload.device}")
     _check(payload, dstart, clen)
-    if not (payload.is_contiguous() and dstart.is_contiguous()
-            and clen.is_contiguous()):
-        raise ValueError("unpack_hq: inputs must be contiguous")
-    if payload.data_ptr() % 16:
-        payload = payload.clone()          # the kernel loads 16-byte words
     n = dstart.shape[1]
-    qy = torch.empty((n, ly), dtype=torch.int32, device=payload.device)
-    qu = torch.empty((n, lc), dtype=torch.int32, device=payload.device)
-    qv = torch.empty((n, lc), dtype=torch.int32, device=payload.device)
-    if n == 0:
-        return qy, qu, qv
     s, stage = unpack_plan(ly, lc)
-    if staged is not None and (
-            staged.device != payload.device or staged.dtype != torch.uint8
-            or not staged.is_contiguous() or staged.numel() != -(-n // s)):
-        raise ValueError("unpack_hq: staged must be a contiguous uint8 "
-                         f"tensor of {-(-n // s)} CTAs on {payload.device}")
+    payload, out = _kernel_inputs("unpack_hq", payload, (dstart, clen), n,
+                                  ly, lc, s, staged)
+    qy, qu, qv = out
+    if n == 0:
+        return out
     rc = _lib().hq_unpack_launch(
         payload.data_ptr(), payload.numel(), dstart.data_ptr(),
         clen.data_ptr(), n, ly, lc, qy.data_ptr(), qu.data_ptr(),
@@ -192,3 +221,113 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
 
 
 unpack_hq.launches = 0
+
+
+def _kernel_inputs(name: str, payload: torch.Tensor, tensors: tuple, n: int,
+                   ly: int, lc: int, s: int, staged):
+    """The checks an unpack kernel's wrapper makes before its launch, and
+    its outputs: (the payload, 16-byte aligned, (qy, qu, qv) empty)."""
+    if payload.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {payload.device}")
+    if not all(t.is_contiguous() for t in (payload, *tensors)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if payload.data_ptr() % 16:
+        payload = payload.clone()          # the kernel loads 16-byte words
+    if staged is not None and (
+            staged.device != payload.device or staged.dtype != torch.uint8
+            or not staged.is_contiguous() or staged.numel() != -(-n // s)):
+        raise ValueError(f"{name}: staged must be a contiguous uint8 "
+                         f"tensor of {-(-n // s)} CTAs on {payload.device}")
+    return payload, tuple(
+        torch.empty((n, lanes), dtype=torch.int32, device=payload.device)
+        for lanes in (ly, lc, lc))
+
+
+# --- LD -------------------------------------------------------------------
+
+def _check_ld(payload, fields):
+    if payload.dtype != torch.uint8 or payload.dim() != 1:
+        raise ValueError("unpack_ld: payload must be a 1-D uint8 tensor")
+    if fields.dtype != torch.int32 or fields.dim() != 2 or fields.shape[0] != 4:
+        raise ValueError("unpack_ld: fields must be int32 [4, N], got "
+                         f"{fields.dtype} {tuple(fields.shape)}")
+    if fields.device != payload.device:
+        raise ValueError(f"unpack_ld: fields are on {fields.device}, "
+                         f"payload on {payload.device}")
+
+
+def ld_regions(fields: torch.Tensor):
+    """(luma start, U/V start) absolute bits of every LD slice's two
+    regions, int64 [N] each, from its fields [s_bits, len_bits, y_bits,
+    uv_bits]: the luma region follows the 7-bit qIndex and the length
+    field, the U/V region follows the luma region."""
+    f = fields.to(torch.int64)
+    luma = f[0] + 7 + f[1]
+    return luma, luma + f[2]
+
+
+def unpack_ld_plain(payload: torch.Tensor, fields: torch.Tensor, ly: int,
+                    lc: int):
+    """Plain PyTorch unpack of an LD picture: both bit-granular regions of
+    every slice through ``unpack_signed_streams``, the U/V codes split into
+    U (even) and V (odd). Returns (qy [N, ly], qu [N, lc], qv [N, lc])
+    int32."""
+    _check_ld(payload, fields)
+    luma, chroma = ld_regions(fields)
+    qy = unpack_signed_streams(payload, luma, fields[2], ly)
+    quv = unpack_signed_streams(payload, chroma, fields[3], 2 * lc)
+    return qy, quv[:, 0::2].contiguous(), quv[:, 1::2].contiguous()
+
+
+def ld_kernel_source() -> build.Source:
+    return build.Source("ld_unpack")
+
+
+@functools.lru_cache(maxsize=None)
+def _ld_lib():
+    lib = build.load(ld_kernel_source())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ld_unpack_launch.argtypes = [p, ctypes.c_longlong, p, i, i, i, p, p,
+                                     p, i, i, i, p, p]
+    lib.ld_unpack_launch.restype = ctypes.c_int
+    return lib
+
+
+def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
+              staged: torch.Tensor | None = None):
+    """Decode both regions of every slice of an LD picture.
+
+    payload: uint8 [P] (the bytes the bit offsets index; bits past its end
+    read as 1).
+    fields: int32 [4, N]: each slice's s_bits (absolute first bit),
+    len_bits, y_bits and uv_bits, from the host header scan
+    (``slices.ld.ld_scan``).
+    staged: as for ``unpack_hq`` (CTAs of ``ld_unpack_plan``).
+    Returns (qy [N, ly], qu [N, lc], qv [N, lc]) int32 in lane order. A CUDA
+    payload goes through the kernel of csrc/ld_unpack.cu; a CPU payload
+    through unpack_ld_plain."""
+    if payload.device.type == "cpu":
+        if staged is not None:
+            raise ValueError("unpack_ld: staged flags come from the CUDA "
+                             "kernel only")
+        return unpack_ld_plain(payload, fields, ly, lc)
+    _check_ld(payload, fields)
+    n = fields.shape[1]
+    s, stage = ld_unpack_plan(ly, lc)
+    payload, out = _kernel_inputs("unpack_ld", payload, (fields,), n, ly, lc,
+                                  s, staged)
+    qy, qu, qv = out
+    if n == 0:
+        return out
+    rc = _ld_lib().ld_unpack_launch(
+        payload.data_ptr(), payload.numel(), fields.data_ptr(), n, ly, lc,
+        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), s, WINDOW_BYTES,
+        int(stage), staged.data_ptr() if staged is not None else None,
+        torch.cuda.current_stream(payload.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"ld_unpack kernel launch failed: CUDA error {rc}")
+    unpack_ld.launches += 1
+    return out
+
+
+unpack_ld.launches = 0
