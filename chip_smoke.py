@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero, and the last line is then not printed):
 
-1. build the five CUDA kernels, the host chain scan and the host LD scan
+1. build the seven CUDA kernels, the host chain scan and the host LD scan
    from ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at
    once; timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
@@ -44,7 +44,23 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    fused pack at the searched indices), seeded lanes up to +-(2^29 - 1),
    all-zero slices, budgets no q meets, slices whose climb runs past 3
    steps, a ragged slice count and slices too large for the kernel's
-   shared-memory stage;
+   shared-memory stage; hold the LD rate control kernel against its plain
+   version (integer == on q and the three LL lane sets; the plain version
+   on the card for the fixture's budgets, on the host CPU for the rest):
+   the 1080p LD transform lanes at the fixture's budgets, at x0.25 and x4,
+   and with all-zero bodies, seeded grids (Haar1, LeGall and DD97 at
+   depths 1-3, coefficients up to +-(2^29 - 1)) of a single slice, a
+   single row, a single column and 7 x 11 slices, budgets no q meets,
+   more rows than the card runs at once (the row ticket), and slices too
+   large to stage in shared memory; its q on the 1080p picture against
+   the q indices the LD scan reads from ``ld_1080p.vc2``; hold the LD pack
+   kernel against its plain version (the buffer [flags | payload] byte
+   for byte, and its quantised lanes): on the 1080p LD transform lanes,
+   and, with a quant matrix that quantises every body lane at index 0
+   (the identity), on the 1080p quantised lanes, seeded lanes with codes
+   longer than 32 bits, all-zero slices, a FLAG_LD_FIT case and a ragged
+   last CTA, and with guard bytes after its payload that must stay
+   untouched;
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
@@ -56,17 +72,26 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    SHA-256; lift 2, pack 1); encode the same input as HQ CBR, this
    slice's main path (bytes equal to ``cbr_1080p.vc2``; lift 2, cbr 1,
    pack 1), and again with ``-F 16384``, whose fragments ``Decoder()``
-   decodes to the recorded SHA-256; then every golden of ``tests/golden``,
-   HQ and LD (``cbr_fragmented`` and ``ld_fragmented`` among them),
-   decodes, the three decoder taps of ``constq_legall_d2``,
-   ``cbr_fragmented``, ``ld_legall_d2`` and ``ld_fragmented`` equal the
-   port's on the CPU, ``decode_frame`` decodes the HQ Packaged golden, and
-   every ConstQ and CBR golden and tap encodes, byte-identically;
-6. times on the card: end-to-end HQ and LD decode, ConstQ and CBR encode
-   and fragmented decode frames/s, the per-stage breakdown of one 1080p
-   picture each way (a "cbr search" stage in the CBR encode; the LD
-   decode's host "ld scan + LL recurrence"), the device's idle share, and
-   each kernel's time beside its bound and its plain version's time.
+   decodes to the recorded SHA-256; encode the same input as LD, this
+   slice's main path (bytes equal to ``ld_1080p.vc2``; lift 2, ld_rate 1,
+   ld_pack 1, hq_pack 0, hq_cbr 0; one synchronisation from the forward
+   lift to the result's read, counted by PyTorch's sync debug mode); then
+   every golden of ``tests/golden``, HQ and LD (``cbr_fragmented`` and
+   ``ld_fragmented`` among them), decodes, the three decoder taps of
+   ``constq_legall_d2``, ``cbr_fragmented``, ``ld_legall_d2`` and
+   ``ld_fragmented`` equal the port's on the CPU, ``decode_frame`` decodes
+   the HQ Packaged golden, and every golden and encoder tap (ConstQ, CBR
+   and LD) encodes, byte-identically;
+6. times on the card: end-to-end HQ and LD decode, ConstQ, CBR and LD
+   encode (in turns) and fragmented decode frames/s, the per-stage
+   breakdown of one 1080p picture each way (a "cbr search" stage in the
+   CBR encode, a "rate control" stage in the LD encode; the LD decode's
+   host "ld scan + LL recurrence"), the device's idle share, each kernel's
+   time beside its bound and its plain version's time, and the LD rate
+   control's dependent step (the kernel on one row and on one column of
+   the picture's slices).
+
+Each phase prints its time.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``. A kernel's
@@ -738,6 +763,273 @@ def check_cbr(torch, np, rng, dev, enc, tlanes):
     return 0, n_cases, longest[cases[0][0]]
 
 
+def ld_fixture_lanes(dev, picture):
+    """(LD encoder, transform lanes) of the 1080p LD fixture's picture on
+    the card, with the fixture's recorded flags."""
+    from vc2tpu_torch.cli import encode_stream
+    from vc2tpu_torch.pipeline import encoder as enc_mod
+    from vc2tpu_torch.pipeline.ld import LDEncoder
+
+    args = encode_stream.build_parser().parse_args(
+        fixture_encode_args("ld_1080p") + ["in", "out"])
+    enc = LDEncoder(encode_stream.config_from_args(args), device=dev)
+    cfg, d = enc.cfg, enc.cfg.wavelet_depth
+    planes = enc_mod.upload_picture(picture, cfg.bytes_per_sample, dev)
+    transform = enc_mod.analyse(planes, cfg.kernel, d)
+    return enc, enc_mod.planes_to_lanes(transform, enc.geo, d)
+
+
+def ld_rate_grid(torch, np, rng, dev, kernel, depth, luma, chroma, grid,
+                 span, budgets):
+    """The arguments of ``ld_rate_control`` for seeded lanes of slices
+    ``luma`` / ``chroma`` (height, width) at ``depth`` in a ``grid`` of
+    (rows, columns), values up to +-span (a third zero), budgets drawn from
+    [lo, hi) bytes."""
+    from vc2tpu_torch.rdo import ld as rdo_ld
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.wavelet import matrices
+
+    ts, n = 1 << depth, grid[0] * grid[1]
+    lanes, bands = [], []
+    for h, w in (luma, chroma, chroma):
+        _, band = layout.lane_order(h, w, depth)
+        bands.append(tuple(int(c) for c in np.bincount(
+            band, minlength=3 * depth + 1)))
+        v = rng.integers(-span, span + 1, (n, h * w))
+        v[rng.random(v.shape) < 0.3] = 0
+        lanes.append(torch.as_tensor(v.astype(np.int32), device=dev))
+    avail = rdo_ld.avail_bits(rng.integers(*budgets, n))
+    return (*lanes, matrices.quant_matrix(kernel, depth), bands[0], bands[1],
+            torch.as_tensor(avail, device=dev), grid,
+            (luma[0] // ts, luma[1] // ts), (chroma[0] // ts, chroma[1] // ts))
+
+
+def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
+    """The LD rate control kernel against its plain version, integer == on
+    q and the three LL lane sets, and its q on the fixture's picture
+    against the q indices the LD scan reads from ``ld_1080p.vc2``. The
+    plain version runs on the card for the fixture's budgets (its time is
+    the kernel line's ``plain_ms``) and on the host CPU for the other
+    cases, where its small per-diagonal ops cost less. Returns (max |err|,
+    number of cases, the plain version's ms, the kernel's result on the
+    fixture's picture)."""
+    from vc2tpu_torch.core.config import WaveletKernel as K
+    from vc2tpu_torch.rdo import ld as rdo_ld
+    from vc2tpu_torch.slices import layout
+
+    geo = enc.geo
+    grid = (geo.y_slices, geo.x_slices)
+
+    def at_budget(lanes, avail):
+        return (*lanes, enc.qmatrix, enc.band_sizes_y, enc.band_sizes_c,
+                avail, grid, enc.ll_y, enc.ll_c)
+
+    def scaled(factor):
+        b = layout.slice_bytes_map(*grid, int(enc.picture_bytes * factor), 1)
+        return torch.as_tensor(rdo_ld.avail_bits(b), device=dev)
+
+    nll = (enc.ll_y[0] * enc.ll_y[1], enc.ll_c[0] * enc.ll_c[1])
+    zero_bodies = [x.clone() for x in tlanes]
+    for x, k in zip(zero_bodies, (nll[0], nll[1], nll[1])):
+        x[:, k:] = 0
+    big = (1 << 29) - 1
+    # large slices, staged, so few CTAs fit an SM: more rows than the card
+    # runs at once
+    resident = rdo_ld.resident_rows(1024, 1024, (1, 1), (1, 1))
+    cases = [  # name, arguments; the plain version on the card
+        ("1080p LD lanes, the fixture's budgets",
+         at_budget(tlanes, enc.avail_device), True),
+        ("1080p LD lanes, budgets x0.25", at_budget(tlanes, scaled(0.25)),
+         False),
+        ("1080p LD lanes, budgets x4", at_budget(tlanes, scaled(4)), False),
+        ("1080p LD lanes, all-zero bodies",
+         at_budget(zero_bodies, enc.avail_device), False),
+        ("Haar1 depth 1, a single slice", ld_rate_grid(
+            torch, np, rng, dev, K.Haar1, 1, (4, 4), (4, 2), (1, 1), big,
+            (6, 50)), False),
+        ("LeGall depth 2, a single row of 240", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4), (1, 240), big,
+            (8, 64)), False),
+        ("DD97 depth 3, a single column of 135", ld_rate_grid(
+            torch, np, rng, dev, K.DD97, 3, (8, 16), (8, 8), (135, 1), big,
+            (8, 64)), False),
+        ("LeGall depth 2, 7 x 11 slices", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4), (7, 11), big,
+            (30, 400)), False),
+        ("budgets no q meets", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4), (9, 13),
+            (1 << 28) - 1, (2, 3)), False),
+        (f"{resident + 64} rows of one slice, {resident} resident",
+         ld_rate_grid(torch, np, rng, dev, K.LeGall, 5, (32, 32), (32, 32),
+                      (resident + 64, 1), 3000, (300, 700)), False),
+        ("LeGall depth 3, 64 x 64 slices too large to stage", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 3, (64, 64), (64, 32), (5, 6),
+            3000, (300, 4000)), False),
+    ]
+    plain_ms, fixture, paths, staging = None, None, set(), set()
+    for name, args, on_card in cases:
+        before = rdo_ld.ld_rate_control.launches
+        got = rdo_ld.ld_rate_control(*args)
+        torch.cuda.synchronize()
+        check(rdo_ld.ld_rate_control.launches == before + 1,
+              f"ld_rate {name}: the kernel was not launched once")
+        t0 = time.perf_counter()
+        if on_card:
+            want = rdo_ld.ld_rate_control_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        else:
+            want = rdo_ld.ld_rate_control_plain(*[
+                a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+        secs = time.perf_counter() - t0
+        for g, w, part in zip(got, want, ("q", "LL y", "LL u", "LL v")):
+            check(bool(torch.equal(g.cpu(), w.cpu())),
+                  f"ld_rate {name}: {part} differs in "
+                  f"{int((g.cpu() != w.cpu()).sum())} places")
+        q = want[0].cpu()
+        fixed = rdo_ld.fixed_shape(args[0].shape[1], args[1].shape[1],
+                                   args[8], args[9])
+        staged = rdo_ld.staged(args[0].shape[1], args[1].shape[1], args[8],
+                               args[9])
+        paths.add(fixed)
+        staging.add(staged)
+        print(f"  ld_rate {name}: {q.numel()} slices in a {args[7]} grid "
+              f"equal, q {int(q.min())}-{int(q.max())} ({int((q == 127).sum())}"
+              f" at 127), {'fixed-shape' if fixed else 'generic'} kernel"
+              f"{'' if staged else ', lanes unstaged'}; "
+              f"plain {'on the card' if on_card else 'on the CPU'} "
+              f"{secs:.1f} s")
+        if name.startswith("budgets no q meets"):
+            check(int((q == 127).sum()) > q.numel() // 2,
+                  "the no-fit case has too few slices at q 127")
+        if on_card:
+            fixture = got
+    check(paths == {True, False}, "the ld_rate cases miss the fixed-shape "
+                                  "or the generic kernel")
+    check(staging == {True, False}, "the ld_rate cases miss the staged or "
+                                    "the unstaged lanes")
+    check(np.array_equal(fixture[0].cpu().numpy(), fixture_q),
+          "the rate control's q on the 1080p picture differs from the q "
+          "indices of ld_1080p.vc2")
+    print(f"ld_rate kernel == plain: {len(cases)} cases, q and LL lanes "
+          f"equal; its q on the 1080p picture == the {fixture_q.size} q "
+          "indices the LD scan reads from ld_1080p.vc2")
+    return 0, len(cases), plain_ms, fixture
+
+
+def check_ld_pack(torch, np, rng, dev, enc, tlanes, rate):
+    """The LD pack kernel against its plain version, the buffer [flags |
+    payload] byte for byte and the quantised lanes: on the 1080p picture's
+    transform lanes with the rate control's LL lanes, and on seeded lanes
+    with every quant matrix entry 127, so each body lane is quantised at
+    index 0, where quant is the identity, and the kernel packs them as they
+    are; its stores bounded by the buffer. Returns (max |err|, number of
+    cases, the 1080p picture's quantised lanes)."""
+    from vc2tpu_torch.vlc import device_pack as dp
+    from vc2tpu_torch.vlc import golomb
+
+    q, *ll = rate
+    got, kept = dp.quant_pack_ld(*tlanes, ll, q, *enc.qm, enc.sizes,
+                                 enc.starts, enc.payload_bytes,
+                                 keep_lanes=True)
+    want, want_kept = dp.quant_pack_ld_plain(*tlanes, ll, q, *enc.qm,
+                                             enc.sizes, keep_lanes=True)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, want))
+          and all(bool(torch.equal(a, b)) for a, b in zip(kept, want_kept)),
+          "ld_pack 1080p: the buffer or the quantised lanes differ")
+    check(dp.ld_result(got)[0] == 0, "ld_pack 1080p: flags set")
+    print(f"  ld_pack 1080p LD transform lanes: {got.numel()} bytes and the "
+          "quantised lanes equal")
+
+    def lanes_of(n, span, zero_frac):
+        out = []
+        for length, s in ((64, span), (32, span >> 1), (32, span >> 1)):
+            v = rng.integers(-s, s + 1, (n, length))
+            v[rng.random((n, length)) < zero_frac] = 0
+            out.append(torch.as_tensor(v.astype(np.int32), device=dev))
+        return out
+
+    def fitting(lanes, slack=2):
+        need = (golomb.truncated_bits(lanes[0]) + golomb.truncated_bits(
+            golomb.interleave(lanes[1], lanes[2]))).cpu().numpy()
+        return torch.as_tensor(((need + 31) // 8 + rng.integers(
+            0, slack + 1, need.size)).astype(np.int32), device=dev)
+
+    def as_is(lanes, q_):
+        """quant_pack_ld's arguments that pack ``lanes`` unchanged."""
+        ll = [x[:, :k].contiguous() for x, k in zip(lanes, (4, 2, 2))]
+        qm = [torch.full((x.shape[1],), 127, dtype=torch.int32, device=dev)
+              for x in lanes[:2]]
+        return ll, q_, *qm
+
+    n = enc.geo.n_slices
+    q_rand = torch.as_tensor(rng.integers(0, 128, n).astype(np.int32),
+                             device=dev)
+    rand = lanes_of(n, 1 << 20, 0.5)
+    rand[0][::97, 5] = (1 << 30) + 12345            # codes of 62 bits
+    rand[1][::89, 3] = -(1 << 31)                   # |INT_MIN|: 64 bits
+    small = lanes_of(n, 40, 0.5)
+    cut = fitting(small).cpu().numpy()
+    cut[::7] = np.maximum(cut[::7] - 4, 2)
+    zeros = [torch.zeros_like(x) for x in rand]
+    ragged = [x[:333].contiguous() for x in small]
+    cases = [  # name, lanes, q, sizes, expected flags
+        ("1080p LD quantised lanes", list(kept), q, enc.sizes, 0),
+        ("random, codes over 32 bits", rand, q_rand, fitting(rand), 0),
+        ("all-zero slices", zeros, q_rand, enc.sizes, 0),
+        ("flag LD_FIT", small, q_rand, torch.as_tensor(cut, device=dev),
+         dp.FLAG_LD_FIT),
+        ("ragged: 333 slices", ragged, q_rand[:333].contiguous(),
+         fitting(ragged), 0),
+    ]
+    for name, lanes, q_, sizes, flags in cases:
+        got, got_kept = dp.quant_pack_ld(*lanes, *as_is(lanes, q_), sizes,
+                                         keep_lanes=True)
+        want = dp.pack_ld_plain(*lanes, q_, sizes)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)), f"ld_pack {name}: the buffers "
+                                            "differ")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(got_kept, lanes)),
+              f"ld_pack {name}: the lanes at index 0 changed")
+        check(dp.ld_result(got)[0] == flags, f"ld_pack {name}: flags "
+                                             f"{dp.ld_result(got)[0]}")
+        print(f"  ld_pack {name}: {got.numel()} bytes equal, flags {flags}")
+    guard = 4096
+    sizes = fitting(small)
+    total = int(sizes.sum())
+    buf = torch.full((4 + total + guard,), 0xA5, dtype=torch.uint8,
+                     device=dev)
+    ll, q_, qm_y, qm_c = as_is(small, q_rand)
+    dp.launch_ld_pack(small, ll, q_, (qm_y, qm_c), sizes,
+                      dp._ld_starts(sizes), total, out=buf)
+    want = dp.pack_ld_plain(*small, q_rand, sizes)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(buf[:4 + total], want))
+          and bool((buf[4 + total:] == 0xA5).all()),
+          "ld_pack into a larger buffer differs or stored past its payload")
+    print(f"  ld_pack bounded by its payload: {guard} guard bytes untouched")
+    print(f"ld_pack kernel == plain: {len(cases) + 2} cases, bytes, flags "
+          "and quantised lanes equal")
+    return 0, len(cases) + 2, kept
+
+
+def count_syncs(torch, fn) -> int:
+    """The synchronising CUDA calls that ``fn`` makes (PyTorch's sync debug
+    mode warns at each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
 def tiles_of(dp, n: int, ly: int, lc: int) -> str:
     per = dp.THREADS // dp.group_size(ly, lc)
     return (f"{-(-n // per)} tiles of {per} slices, the last "
@@ -918,11 +1210,13 @@ def main(argv) -> int:
     from vc2tpu_torch.cli.decode_stream import Decoder
     from vc2tpu_torch.core import build
     from vc2tpu_torch.core.config import ColourFormat, PictureGeometry
+    from vc2tpu_torch.core.intmath import rationalise
     from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
     from vc2tpu_torch.pipeline import decoder as pipe
     from vc2tpu_torch.core.config import DecOutput
     from vc2tpu_torch.pipeline import encoder as enc_mod
     from vc2tpu_torch.rdo import cbr
+    from vc2tpu_torch.rdo import ld as rdo_ld
     from vc2tpu_torch.slices import hq as slices_hq
     from vc2tpu_torch.slices import layout
     from vc2tpu_torch.slices import ld as slices_ld
@@ -946,14 +1240,24 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     libs = build.build(lifting.kernel_source(), du.kernel_source(),
                        dp.kernel_source(), cbr.kernel_source(),
-                       du.ld_kernel_source(), slices_hq.scan_source(),
+                       du.ld_kernel_source(), rdo_ld.kernel_source(),
+                       dp.ld_kernel_source(), slices_hq.scan_source(),
                        slices_ld.scan_source())
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
+    t_last = [t0]
+
+    def phase_done(label: str):
+        now = time.perf_counter()
+        print(f"phase {label}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
+    phase_done("1 build")
 
     # 2. lift kernel (and forward_planes) against its plain version
     rng = np.random.default_rng(2042)
     lift_err = check_lift(torch, np, rng, dev)
+    phase_done("2 lift")
 
     # 3. unpack kernels against their plain versions; the native scans
     with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
@@ -965,6 +1269,7 @@ def main(argv) -> int:
     hq_streams = {k: v for k, v in streams.items() if not k.startswith("ld")}
     unpack_err, unpack_cases = check_unpack(torch, np, rng, dev, hq_streams)
     ld_err = check_ld(torch, np, rng, dev, streams["ld_1080p"])
+    phase_done("3 unpack")
 
     # 4. pack kernel against its plain version, quant on the card
     work = tempfile.TemporaryDirectory()
@@ -988,6 +1293,14 @@ def main(argv) -> int:
                                                  "cbr_1080p")
     cbr_err, _n_cbr, cbr_climb = check_cbr(torch, np, rng, dev, cbr_encoder,
                                            cbr_tlanes)
+    # the LD rate control and pack kernels against their plain versions
+    ld_encoder, ld_tlanes = ld_fixture_lanes(dev, picture_1080p)
+    ld_fixture_job = ld_picture_of(streams["ld_1080p"], dev)[2]
+    ld_rate_err, _n_rate, ld_rate_plain_ms, ld_rate_1080p = check_ld_rate(
+        torch, np, rng, dev, ld_encoder, ld_tlanes, ld_fixture_job.ld.q)
+    ld_pack_err, _n_ld_pack, ld_qlanes = check_ld_pack(
+        torch, np, rng, dev, ld_encoder, ld_tlanes, ld_rate_1080p)
+    phase_done("4 pack, cbr search, ld rate control and ld pack")
 
     # 5. the main paths; the counts are zeroed just before each and read
     # just after
@@ -997,13 +1310,17 @@ def main(argv) -> int:
         dp.pack_hq.launches = 0
         cbr.cbr_quant_indices.launches = 0
         du.unpack_ld.launches = 0
+        rdo_ld.ld_rate_control.launches = 0
+        dp.quant_pack_ld.launches = 0
 
     def counts():
         return {"lift_level": lifting.lift_levels.launches,
                 "hq_unpack": du.unpack_hq.launches,
                 "hq_pack": dp.pack_hq.launches,
                 "hq_cbr": cbr.cbr_quant_indices.launches,
-                "ld_unpack": du.unpack_ld.launches}
+                "ld_unpack": du.unpack_ld.launches,
+                "ld_rate": rdo_ld.ld_rate_control.launches,
+                "ld_pack": dp.quant_pack_ld.launches}
 
     n_pictures = sum(len(pictures_of(d, dev)) for d in hq_streams.values())
     zero_counts()
@@ -1094,6 +1411,40 @@ def main(argv) -> int:
           f"fragments, decodes to the recorded SHA-256; launches "
           f"{frag_launches}")
 
+    # the slice's main path: the 1080p LD encode
+    out_ld = os.path.join(work.name, "ld_1080p.vc2")
+    zero_counts()
+    stream = run_encode_cli(fixture_encode_args("ld_1080p"), src_1080p,
+                            out_ld)
+    ld_enc_launches = counts()
+    check(stream == streams["ld_1080p"],
+          "the 1080p LD encode differs from ld_1080p.vc2")
+    print(f"main path LD encode: the 1080p LD picture, {len(stream)} bytes "
+          f"equal to ld_1080p.vc2; launches {ld_enc_launches}")
+    for k, want in (("lift_level", 2), ("ld_rate", 1), ("ld_pack", 1),
+                    ("hq_pack", 0), ("hq_cbr", 0), ("ld_unpack", 0)):
+        check(ld_enc_launches[k] == want, f"{k} launched {ld_enc_launches[k]}"
+                                          f" times in the LD encode, expected "
+                                          f"{want}")
+    ld_planes = enc_mod.upload_picture(picture_1080p, 2, dev)
+
+    def ld_device_half():
+        lcfg, lgeo_ = ld_encoder.cfg, ld_encoder.geo
+        tr = enc_mod.analyse(ld_planes, lcfg.kernel, lcfg.wavelet_depth)
+        lanes = enc_mod.planes_to_lanes(tr, lgeo_, lcfg.wavelet_depth)
+        q, *ll = ld_encoder.rate_control(lanes)
+        dp.ld_result(ld_encoder.pack(lanes, q, ll)[0].cpu().numpy())
+
+    syncs = count_syncs(torch, ld_device_half)
+    picture_syncs = count_syncs(
+        torch, lambda: ld_encoder.encode_picture(picture_1080p))
+    check(syncs == 1, f"the LD encode's device half synchronised {syncs} "
+                      "times, expected 1")
+    print(f"LD encode synchronisations: {syncs} from the forward lift to "
+          f"the result's read (the D2H of [flags | payload]); "
+          f"{picture_syncs} in encode_picture with the upload")
+    phase_done("5 main paths")
+
     with open(os.path.join(GOLDEN, "meta.json")) as f:
         meta = json.load(f)
     cases = [c[0] for c in meta["cases"]]
@@ -1138,19 +1489,25 @@ def main(argv) -> int:
                                     "differs from constq_legall_d2.dec.16p2")
     print("decode_frame: constq_legall_d2.packaged.raw decodes to "
           "constq_legall_d2.dec.16p2 on the card")
-    encodes = ([(c[0], None) for c in meta["cases"]
-                if not c[0].startswith("ld")]
-               + [tuple(t) for t in meta["taps"]
-                  if not t[0].startswith("ld")])
+    encodes = ([(c[0], None) for c in meta["cases"]]
+               + [tuple(t) for t in meta["taps"]])
+    n_ld_encodes = 0
     for case, tap in encodes:
         argv, src, ref = golden_encode_args(meta, case, tap)
+        before = rdo_ld.ld_rate_control.launches
         got = run_encode_cli(argv, src, os.path.join(work.name, "golden"))
         with open(ref, "rb") as f:
             check(got == f.read(), f"golden encode {case} {tap or 'Stream'}: "
                                    "output differs from the reference's")
-    print(f"goldens: {sum(t is None for _c, t in encodes)} HQ streams "
-          f"(ConstQ and CBR) and {sum(t is not None for _c, t in encodes)} "
-          "HQ taps encode byte-identically on the card")
+        if case.startswith("ld"):
+            check(rdo_ld.ld_rate_control.launches > before,
+                  f"golden encode {case}: the LD rate control did not run")
+            n_ld_encodes += 1
+    print(f"goldens: {sum(t is None for _c, t in encodes)} streams (ConstQ, "
+          f"CBR and LD) and {sum(t is not None for _c, t in encodes)} taps "
+          f"encode byte-identically on the card ({n_ld_encodes} of them LD: "
+          "the four LD goldens and the ld_legall_d2 Quantised tap)")
+    phase_done("5 goldens and taps")
 
     # 6. times
     for key, data in streams.items():
@@ -1179,12 +1536,26 @@ def main(argv) -> int:
         enc = cbr_encoder.encode_picture(read_picture())
         StreamWriter(io.BytesIO()).write_picture(0, cbr_preamble, enc.payload)
 
+    lcfg, lgeo = ld_encoder.cfg, ld_encoder.geo
+    num, den = rationalise(ld_encoder.picture_bytes, lgeo.n_slices)
+    ld_preamble = PicturePreamble(
+        wavelet_kernel=lcfg.kernel, depth=lcfg.wavelet_depth,
+        slices_x=lgeo.x_slices, slices_y=lgeo.y_slices,
+        slice_bytes_numerator=num, slice_bytes_denominator=den)
+
+    def encode_ld_once():
+        enc = ld_encoder.encode_picture(read_picture())
+        StreamWriter(io.BytesIO()).write_picture(0, ld_preamble, enc.payload,
+                                                 hq=False)
+
     report_rates_in_turns(
         {"encode constq_1080p (read, encode, write a picture)": encode_once,
-         "encode cbr_1080p (read, encode, write a picture)": encode_cbr_once},
+         "encode cbr_1080p (read, encode, write a picture)": encode_cbr_once,
+         "encode ld_1080p (read, encode, write a picture)": encode_ld_once},
         card)
     report_busy(torch, "encode constq_1080p", encode_once, card)
     report_busy(torch, "encode cbr_1080p", encode_cbr_once, card)
+    report_busy(torch, "encode ld_1080p", encode_ld_once, card)
 
     def decode_fragments_once():
         Decoder(sink=io.BytesIO()).run(frag_stream)
@@ -1355,6 +1726,34 @@ def main(argv) -> int:
             if enc.budgets is not None or i != 3:
                 stages[f"{prefix} device: {lab}"] = statistics.median(
                     r[i] for r in rows)
+    def staged_ld_encode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        planes = enc_mod.upload_picture(picture_1080p, 2, dev)
+        ev[1].record()
+        tr = enc_mod.analyse(planes, lcfg.kernel, lcfg.wavelet_depth)
+        ev[2].record()
+        lanes = enc_mod.planes_to_lanes(tr, lgeo, lcfg.wavelet_depth)
+        ev[3].record()
+        q, *ll = ld_encoder.rate_control(lanes)
+        ev[4].record()
+        buf, _ = ld_encoder.pack(lanes, q, ll)
+        ev[5].record()
+        buf.cpu()
+        ev[6].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+
+    labels = ["H2D of the samples (int16)",
+              "pad + forward_planes (2 lift launches)", "plane_to_lanes",
+              "rate control (1 launch, no sync)",
+              "quantise + pack (1 launch, no sync)",
+              "D2H of flags + payload (the picture's one sync)"]
+    staged_ld_encode()
+    rows = [staged_ld_encode() for _ in range(REPS)]
+    for i, lab in enumerate(labels):
+        stages[f"LD encode device: {lab}"] = statistics.median(
+            r[i] for r in rows)
     stages["encode host: read a picture (PlanarReader, NumPy)"] = time_host(
         read_picture)
     payload = encoder.encode_picture(picture_1080p).payload
@@ -1365,6 +1764,7 @@ def main(argv) -> int:
     times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
     times.update(cbr_times(torch, cbr_tlanes, cbr_encoder))
     times.update(ld_times(torch, np, ld_job, dev))
+    times.update(ld_encode_times(torch, ld_encoder, ld_tlanes, ld_rate_1080p))
     for lab, ms in stages.items():
         print(f"stage {lab}: {ms:.4f} ms ({card})")
     print(f"kernel times: {json.dumps(times)} ({card})")
@@ -1437,9 +1837,34 @@ def main(argv) -> int:
         for t in ld_lanes)
     ld_bound, ld_by = bound_ms(ld_bytes, 20 * ld_n_lanes + 3 * ld_ndata)
 
+    # the LD rate control: the transform lanes, the budgets and the quant
+    # matrix tables read once, the q indices and the LL lanes written once.
+    # Operations: each of the 7 probes ~15 a lane (the trial quantise as a
+    # multiply-high, the code length, the sums); the LL recurrence and
+    # the final requantise touch 1/16 of the lanes. The 374 dependent
+    # slice steps of the wavefront are not in the bound: their latency is
+    # measured apart (a single row and a single column of the same slices)
+    n_ld_lanes = sum(t.numel() for t in ld_tlanes)
+    n_ld = ld_tlanes[0].shape[0]
+    n_ll = sum(t.shape[1] for t in ld_rate_1080p[1:])
+    ld_rate_bytes = (4 * n_ld_lanes + 4 * n_ld
+                     + 4 * sum(t.numel() for t in ld_encoder.qm)
+                     + 4 * n_ld + 4 * n_ld * n_ll)
+    ld_rate_bound, ld_rate_by = bound_ms(ld_rate_bytes, 7 * 15 * n_ld_lanes)
+    # the LD pack: the transform lanes, the LL lanes, the q indices, the
+    # sizes, the offsets and the quant matrix tables read once, the flags
+    # and the payload written once; operations as the HQ pack's
+    ld_nonzero = sum(int(torch.count_nonzero(t).item()) for t in ld_qlanes)
+    ld_pack_bytes = (4 * n_ld_lanes + 4 * n_ld * n_ll + 4 * n_ld
+                     + 4 * n_ld + 8 * n_ld
+                     + 4 * sum(t.numel() for t in ld_encoder.qm)
+                     + 4 + ld_encoder.payload_bytes)
+    ld_pack_bound, ld_pack_by = bound_ms(ld_pack_bytes,
+                                         20 * n_ld_lanes + 38 * ld_nonzero)
+
     paths = {"decode": decode_launches, "encode": encode_launches,
              "encode_cbr": cbr_launches, "decode_fragments": frag_launches,
-             "decode_ld": ld_launches}
+             "decode_ld": ld_launches, "encode_ld": ld_enc_launches}
 
     def launches(k):
         return sum(p[k] for p in paths.values())
@@ -1497,19 +1922,45 @@ def main(argv) -> int:
          "device_ms": times["ld_unpack_device_ms"],
          "plain_ms": times["ld_unpack_plain_ms"],
          "bound_ms": ld_bound, "bound_by": ld_by, "library_ms": None},
+        {"name": "ld_rate", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/ld_rate.cu",
+         "replaces": "vc2tpu/rdo/ld.py:233",
+         "launches": launches("ld_rate"),
+         "launches_by_path": by_path("ld_rate"),
+         "max_abs_err": ld_rate_err,
+         "ms": times["ld_rate_ms"], "device_ms": times["ld_rate_device_ms"],
+         "plain_ms": ld_rate_plain_ms,
+         "bound_ms": ld_rate_bound, "bound_by": ld_rate_by,
+         "step_us": times["ld_rate_step_us"], "library_ms": None},
+        {"name": "ld_pack", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/ld_pack.cu",
+         "replaces": "vc2tpu/vlc/device_pack.py:302",
+         "launches": launches("ld_pack"),
+         "launches_by_path": by_path("ld_pack"),
+         "max_abs_err": ld_pack_err,
+         "ms": times["ld_pack_ms"], "device_ms": times["ld_pack_device_ms"],
+         "plain_ms": times["ld_pack_plain_ms"],
+         "bound_ms": ld_pack_bound, "bound_by": ld_pack_by,
+         "library_ms": None},
     ]
-    todo = unported_bounds(n_lanes, n_slices)
     print(f"cbr search at 1080p: {times['cbr_luma_passes']} luma error "
           f"passes over {cbr_slices} slices, longest climb {cbr_climb}")
-    print("bounds of the XLA functions still to port, 1080p: "
-          + ", ".join(f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in
-                      todo.items()))
+    steps = lgeo.y_slices + lgeo.x_slices - 1
+    print(f"ld_rate dependent step: {times['ld_rate_row_us']:.3f} us a slice "
+          f"on the picture's first row ({lgeo.x_slices} slices, no waits), "
+          f"{times['ld_rate_col_us']:.3f} us on its first column "
+          f"({lgeo.y_slices} slices, each waiting on the one above); the "
+          f"picture's {steps} steps at the column's rate: "
+          f"{steps * times['ld_rate_col_us'] / 1e3:.4f} ms, device_ms / that "
+          f"{times['ld_rate_device_ms'] / (steps * times['ld_rate_col_us'] / 1e3):.3f} "
+          f"({card})")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture "
               f"(device alone {k['device_ms']:.4f} ms), bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, launches {k['launches']} "
               f"{k['launches_by_path']} ({card})")
+    phase_done("6 times")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -1517,22 +1968,6 @@ def main(argv) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
-
-
-def unported_bounds(n_lanes: int, n_slices: int) -> dict:
-    """Bounds (ms, and what bounds them) of the XLA functions still to port,
-    from the 1080p shapes: ``n_lanes`` int32 lanes in ``n_slices`` slices,
-    and the 829 440-byte pictures of the LD 1080p configuration
-    (``bench.py``). Operation counts a lane are estimates of the work each
-    function must do: a pack ~40 (quantised lane to code, its place); the LD rate control 7 probes of ~15 (a trial
-    quantise and code length). The LD wavefront's 374 dependent steps are
-    not in the bound."""
-    lanes_b, picture_b, index_b = 4 * n_lanes, 829440, 4 * n_slices
-    return {
-        "pack_ld_core": bound_ms(lanes_b + picture_b, 40 * n_lanes),
-        "ld_rate_control": bound_ms(lanes_b + 2 * index_b,
-                                    7 * 15 * n_lanes),
-    }
 
 
 def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
@@ -1624,6 +2059,57 @@ def ld_times(torch, np, job, dev) -> dict:
                                            queued=True),
         "ld_unpack_plain_ms": time_device(
             torch, lambda: du.unpack_ld_plain(pay, fields, ly, lc)),
+    }
+
+
+def ld_encode_times(torch, enc, tlanes, rate) -> dict:
+    """Times of the LD rate control and pack on the 1080p LD picture:
+    ``*_ms`` as the host issues one launch (the pack's with the read of its
+    flags word), ``*_device_ms`` queued (the device's time alone),
+    ``ld_pack_plain_ms`` of the plain pack on the card; and the rate
+    control's dependent step: the kernel on the picture's first row of
+    slices (one CTA, no waits) and on its first column (each slice waits
+    on the one above), device time per slice in microseconds
+    (``ld_rate_step_us`` the column's)."""
+    from vc2tpu_torch.rdo import ld as rdo_ld
+    from vc2tpu_torch.vlc import device_pack as dp
+
+    q, *ll = rate
+    geo = enc.geo
+    rows, cols = geo.y_slices, geo.x_slices
+
+    def rate_fn():
+        return enc.rate_control(tlanes)
+
+    def pack_fn():
+        return enc.pack(tlanes, q, ll)[0][:4].cpu()
+
+    def pack_queued():
+        return enc.pack(tlanes, q, ll)
+
+    def grid_fn(index, grid):
+        lanes = [x[index].contiguous() for x in tlanes]
+        avail = enc.avail_device[index].contiguous()
+        return lambda: rdo_ld.ld_rate_control(
+            *lanes, enc.qmatrix, enc.band_sizes_y, enc.band_sizes_c, avail,
+            grid, enc.ll_y, enc.ll_c)
+
+    row_ms = time_device(torch, grid_fn(slice(0, cols), (1, cols)), 5,
+                         queued=True)
+    col_ms = time_device(torch, grid_fn(slice(0, None, cols), (rows, 1)), 5,
+                         queued=True)
+    return {
+        "ld_rate_ms": time_device(torch, rate_fn),
+        "ld_rate_device_ms": time_device(torch, rate_fn, 5, queued=True),
+        "ld_rate_row_us": 1e3 * row_ms / cols,
+        "ld_rate_col_us": 1e3 * col_ms / rows,
+        "ld_rate_step_us": 1e3 * col_ms / rows,
+        "ld_pack_ms": time_device(torch, pack_fn),
+        "ld_pack_device_ms": time_device(torch, pack_queued, KERNEL_INNER,
+                                         queued=True),
+        "ld_pack_plain_ms": time_device(
+            torch, lambda: dp.quant_pack_ld_plain(*tlanes, ll, q, *enc.qm,
+                                                  enc.sizes), reps=3),
     }
 
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain versions, the
-HQ and LD goldens decoded through them and the ConstQ and CBR goldens
+HQ and LD goldens decoded through them and the ConstQ, CBR and LD goldens
 encoded through them. Every test here needs a CUDA device
 and skips without one. The file imports neither jax nor vc2tpu, so it runs
 on a machine that has only PyTorch:
@@ -19,10 +19,12 @@ from vc2tpu_torch.cli import encode_stream
 from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.rdo import cbr
+from vc2tpu_torch.rdo import ld as rdo_ld
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.vlc import device_pack as dp
 from vc2tpu_torch.vlc import device_unpack as du
+from vc2tpu_torch.vlc import golomb
 from vc2tpu_torch.wavelet import lifting, matrices
 
 pytestmark = pytest.mark.cuda
@@ -499,3 +501,157 @@ def test_cbr_kernel_matches_plain(case, cuda):
     if case == "climb_past_3":
         best = cbr.bisect_plain(*t, *qm, sizes, scalar)
         assert int((want.to(torch.int64) - best).max()) > 3
+
+
+# name: (wavelet, depth, luma slice, chroma slice, grid, span, budget bytes)
+LD_RATE_CASES = {
+    "legall_d2_grid": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (20, 30),
+                       4000, (20, 32)),
+    "single_slice": (WaveletKernel.Haar1, 1, (4, 4), (4, 2), (1, 1), 3000,
+                     (6, 50)),
+    "single_row": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (1, 60), 3000,
+                   (8, 64)),
+    "single_column": (WaveletKernel.DD97, 3, (8, 16), (8, 8), (60, 1),
+                      3000, (8, 64)),
+    "lanes_to_2^29": (WaveletKernel.DD97, 2, (8, 8), (8, 4), (7, 11),
+                      (1 << 29) - 1, (30, 400)),
+    "no_fit": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (6, 9),
+               (1 << 28) - 1, (2, 3)),
+    "zero_bodies": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (9, 13), 3000,
+                    (8, 40)),
+    # slices too large to stage: the lanes are read from device memory at
+    # every probe
+    "unstaged": (WaveletKernel.LeGall, 3, (64, 64), (64, 32), (5, 6), 3000,
+                 (300, 4000)),
+    # large slices, staged in shared memory, so few CTAs fit an SM; more
+    # rows than the card runs at once (the grid is set at run time): the
+    # later rows wait for a CTA and take the next ticket
+    "rows_past_residency": (WaveletKernel.LeGall, 5, (32, 32), (32, 32),
+                            None, 3000, (300, 700)),
+}
+
+
+def _ld_rate_inputs(case, cuda):
+    kernel, depth, ys, cs, grid, span, (lo, hi) = LD_RATE_CASES[case]
+    rng = np.random.default_rng(300 + list(LD_RATE_CASES).index(case))
+    qmatrix = matrices.quant_matrix(kernel, depth)
+    ts = 1 << depth
+    if grid is None:
+        rows = rdo_ld.resident_rows(ys[0] * ys[1], cs[0] * cs[1],
+                                    (ys[0] // ts, ys[1] // ts),
+                                    (cs[0] // ts, cs[1] // ts))
+        grid = (rows + 64, 1)
+    n = grid[0] * grid[1]
+    bs, lanes = [], []
+    for h, w in (ys, cs, cs):
+        _, band = layout.lane_order(h, w, depth)
+        bs.append(tuple(int(c) for c in np.bincount(band,
+                                                    minlength=3 * depth + 1)))
+        v = rng.integers(-span, span + 1, (n, h * w))
+        v[rng.random(v.shape) < 0.3] = 0
+        if case == "zero_bodies":
+            v[:, bs[-1][0]:] = 0
+        lanes.append(torch.from_numpy(v.astype(np.int32)).to(cuda))
+    avail = rdo_ld.avail_bits(rng.integers(lo, hi, n))
+    return (*lanes, qmatrix, bs[0], bs[1],
+            torch.from_numpy(avail).to(cuda), grid,
+            (ys[0] // ts, ys[1] // ts), (cs[0] // ts, cs[1] // ts))
+
+
+@pytest.mark.parametrize("case", list(LD_RATE_CASES))
+def test_ld_rate_kernel_matches_plain(case, cuda):
+    """The LD rate control on the card against its plain version (run on
+    the CPU, where its small per-diagonal ops cost less): integer == on q
+    and the three LL lane sets."""
+    args = _ld_rate_inputs(case, cuda)
+    assert rdo_ld.staged(args[0].shape[1], args[1].shape[1], args[8],
+                         args[9]) == (case != "unstaged")
+    launches = rdo_ld.ld_rate_control.launches
+    got = rdo_ld.ld_rate_control(*args)
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    want = rdo_ld.ld_rate_control_plain(*cpu)
+    torch.cuda.synchronize()
+    assert rdo_ld.ld_rate_control.launches == launches + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if case == "no_fit":
+        assert int((want[0] == 127).sum()) > want[0].numel() // 2
+
+
+LD_PACK_CASES = ["random", "codes_over_32_bits", "zeros", "uv_fit_flag",
+                 "ragged", "fused", "guard"]
+
+
+@pytest.mark.parametrize("case", LD_PACK_CASES)
+def test_ld_pack_kernel_matches_plain(case, cuda):
+    """The LD pack on the card against its plain version: the buffer
+    [flags | payload] byte for byte, the quantised lanes, and nothing
+    stored past the buffer. But for "fused", every quant matrix entry is
+    127, so each body lane is quantised at index 0, where quant is the
+    identity: the kernel packs the seeded lanes as they are."""
+    rng = np.random.default_rng(400 + LD_PACK_CASES.index(case))
+    n = 333 if case == "ragged" else 3000
+    span = {"codes_over_32_bits": 1 << 20, "zeros": 0}.get(case, 40)
+    lanes = []
+    for length, s in ((64, span), (32, span // 2), (32, span // 2)):
+        v = rng.integers(-s, s + 1, (n, length))
+        v[rng.random(v.shape) < 0.5] = 0
+        lanes.append(torch.from_numpy(v.astype(np.int32)).to(cuda))
+    if case == "codes_over_32_bits":
+        lanes[0][::97, 5] = (1 << 30) + 12345           # codes of 62 bits
+        lanes[1][::89, 3] = -(1 << 31)                  # |INT_MIN|: 64 bits
+    q = torch.from_numpy(rng.integers(0, 128, n).astype(np.int32)).to(cuda)
+    need = (golomb.truncated_bits(lanes[0]) + golomb.truncated_bits(
+        golomb.interleave(lanes[1], lanes[2]))).cpu().numpy()
+    sizes = ((need + 31) // 8 + rng.integers(0, 3, n)).astype(np.int32)
+    if case == "uv_fit_flag":
+        sizes[::7] = np.maximum(sizes[::7] - 4, 2)
+    sizes = torch.from_numpy(sizes).to(cuda)
+    qm = [torch.from_numpy((rng.integers(0, 8, k) if case == "fused"
+                            else np.full(k, 127)).astype(np.int32)).to(cuda)
+          for k in (64, 32)]
+    ll = [x[:, :k].contiguous() for x, k in zip(lanes, (4, 2, 2))]
+    want, want_kept = dp.quant_pack_ld_plain(*lanes, ll, q, *qm, sizes,
+                                             keep_lanes=True)
+    if case == "guard":
+        total = int(sizes.sum())
+        buf = torch.full((4 + total + 4096,), 0xA5, dtype=torch.uint8,
+                         device=cuda)
+        kept = tuple(torch.empty_like(x) for x in lanes)
+        dp.launch_ld_pack(lanes, ll, q, qm, sizes, dp._ld_starts(sizes),
+                          total, keep=kept, out=buf)
+        torch.cuda.synchronize()
+        assert bool((buf[4 + total:] == 0xA5).all())
+        got = buf[:4 + total]
+    else:
+        got, kept = dp.quant_pack_ld(*lanes, ll, q, *qm, sizes,
+                                     keep_lanes=True)
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kept, want_kept))
+    if case != "fused":
+        assert all(torch.equal(a, b) for a, b in zip(kept, lanes))
+        assert torch.equal(want, dp.pack_ld_plain(*lanes, q, sizes))
+    assert torch.equal(got, want)
+    flags, _ = dp.ld_result(got)
+    assert flags == (dp.FLAG_LD_FIT if case == "uv_fit_flag" else 0)
+
+
+@pytest.mark.parametrize("case,tap", [(c, None) for c in LD] + [
+    tuple(t) for t in META["taps"] if t[0].startswith("ld")])
+def test_ld_golden_encodes_through_the_kernels(case, tap, cuda, tmp_path):
+    _, inp, extra = next(c for c in META["cases"] if c[0] == case)
+    m = META["inputs"][inp]
+    argv = ["-x", str(m["width"]), "-y", str(m["height"]), "-f", m["fmt"],
+            "-l", str(m["depth"]), "-n", "2", *extra,
+            *(["-o", tap] if tap else []),
+            os.path.join(GOLDEN, f"{inp}.16p2"), str(tmp_path / "out.bin")]
+    rates, packs = (rdo_ld.ld_rate_control.launches,
+                    dp.quant_pack_ld.launches)
+    hq = dp.pack_hq.launches
+    assert encode_stream.main(argv) == 0
+    ref = f"{case}.vc2" if tap is None else f"{case}.{tap.lower()}.raw"
+    with open(os.path.join(GOLDEN, ref), "rb") as f:
+        assert (tmp_path / "out.bin").read_bytes() == f.read()
+    pictures = rdo_ld.ld_rate_control.launches - rates
+    assert pictures > 0 and dp.quant_pack_ld.launches - packs == pictures
+    assert dp.pack_hq.launches == hq

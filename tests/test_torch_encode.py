@@ -2,9 +2,9 @@
 (bits, video format, data units), the planar reader and writer, the
 forward transform and lane layout, the quantiser, the encode CLI's flag
 checks, and the whole ``cli/encode_stream.py`` with ``--device cpu`` on
-the 13 ConstQ goldens and the 6 ConstQ taps, byte for byte. LD encode
-raises NotImplementedError; HQ CBR has its own tests
-(tests/test_torch_cbr.py)."""
+the 13 ConstQ goldens and the 6 ConstQ taps, byte for byte. HQ CBR and LD
+encode have their own tests (tests/test_torch_cbr.py,
+tests/test_torch_ld_encode.py)."""
 
 import dataclasses
 import io
@@ -114,22 +114,6 @@ def test_encode_1080p_fixture(tmp_path):
     argv = cmd[cmd.index("vc2tpu.cli.encode_stream") + 1:-2]
     assert _encode(argv, src, tmp_path) == _read(
         os.path.join(TESTDATA, "constq_1080p.vc2"))
-
-
-@pytest.mark.parametrize("mode", ["LD"])
-def test_cbr_and_ld_encode_not_ported(mode, tmp_path):
-    cfg = tcfg.EncoderConfig(
-        height=32, width=64, chroma_format=tcfg.ColourFormat.CF422,
-        kernel=tcfg.WaveletKernel.LeGall, wavelet_depth=2, y_size=1,
-        x_size=2, mode=tcfg.Mode(mode), luma_depth=10, chroma_depth=10,
-        compressed_bytes=2048)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.Encoder(cfg, device="cpu")
-    argv, src = _golden_argv("constq_legall_d2")
-    argv = argv[:argv.index("-m")] + ["-m", mode, "-k", "LeGall", "-d", "2",
-                                      "-u", "1", "-a", "2", "-s", "2048"]
-    out = str(tmp_path / "out.vc2")
-    assert encode_stream.main(argv + ["--device", "cpu", src, out]) == 1
 
 
 _BAD_ARGS = [

@@ -22,7 +22,9 @@ from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig, Mode,
                                       WaveletKernel)
 from vc2tpu_torch.pipeline.encoder import Encoder
+from vc2tpu_torch.pipeline.ld import LDEncoder
 from vc2tpu_torch.rdo import cbr
+from vc2tpu_torch.rdo import ld as rdo_ld
 from vc2tpu_torch.slices import hq
 from vc2tpu_torch.vlc import device_pack, device_unpack
 from vc2tpu_torch.wavelet import lifting
@@ -89,6 +91,10 @@ def test_ld_and_decode_frame_imports_load_no_jax_or_vc2tpu():
     _imports_clean("vc2tpu_torch.slices.ld, vc2tpu_torch.cli.decode_frame")
 
 
+def test_ld_encode_imports_load_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch.pipeline.ld, vc2tpu_torch.rdo.ld")
+
+
 def test_entry_points_need_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -127,6 +133,16 @@ def test_encoder_needs_a_card(monkeypatch):
             "LeGall", "-d", "2", "-u", "1", "-a", "2", src, os.devnull]
     assert encode_stream.main(["-m", "HQ_ConstQ", "-q", "20"] + argv) != 0
     assert encode_stream.main(["-m", "HQ_CBR", "-s", "2048"] + argv) != 0
+    assert encode_stream.main(["-m", "LD", "-s", "2048"] + argv) != 0
+
+
+def test_ld_encoder_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dataclasses.replace(_config(), mode=Mode.LD, q_index=0,
+                              compressed_bytes=2048)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LDEncoder(cfg)
+    assert LDEncoder(cfg, device="cpu").device == torch.device("cpu")
 
 
 class _OnCuda(torch.Tensor):
@@ -159,7 +175,8 @@ def test_cuda_payload_never_takes_the_plain_ld_unpack(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["pack_hq", "quant_pack_hq",
-                                   "cbr_quant_indices"])
+                                   "cbr_quant_indices", "ld_rate_control",
+                                   "quant_pack_ld", "quant_pack_ld_unkept"])
 def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
     def plain(*_a, **_k):
         raise AssertionError(f"{entry} took the plain route for CUDA lanes")
@@ -173,6 +190,11 @@ def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
     monkeypatch.setattr(cbr, "cbr_quant_indices_plain", plain)
     monkeypatch.setattr(cbr, "bisect_plain", plain)
     monkeypatch.setattr(cbr, "launch_search", kernel)
+    monkeypatch.setattr(rdo_ld, "ld_rate_control_plain", plain)
+    monkeypatch.setattr(rdo_ld, "launch_rate", kernel)
+    monkeypatch.setattr(device_pack, "pack_ld_plain", plain)
+    monkeypatch.setattr(device_pack, "quant_pack_ld_plain", plain)
+    monkeypatch.setattr(device_pack, "launch_ld_pack", kernel)
     lanes = [torch.zeros(shape, dtype=torch.int32).as_subclass(_OnCuda)
              for shape in ((4, 8), (4, 4), (4, 4), (4,))]
     qm = [torch.zeros(n, dtype=torch.int32).as_subclass(_OnCuda)
@@ -183,8 +205,17 @@ def test_cuda_lanes_never_take_the_plain_route(entry, monkeypatch):
             device_pack.pack_hq(*lanes, 0, 1)
         elif entry == "quant_pack_hq":
             device_pack.quant_pack_hq(*lanes, *qm, 0, 1, keep_lanes=True)
-        else:
+        elif entry == "cbr_quant_indices":
             cbr.cbr_quant_indices(*lanes[:3], *qm, lanes[3], 1)
+        elif entry == "ld_rate_control":
+            # 2 x 2 slices; a luma slice of one LL lane and 7 of one band
+            rdo_ld.ld_rate_control(*lanes[:3], (0, 1), (1, 7), (1, 3),
+                                   lanes[3], (2, 2), (1, 1), (1, 1))
+        else:
+            ll = [x[:, :1].contiguous() for x in lanes[:3]]
+            device_pack.quant_pack_ld(*lanes[:3], ll, lanes[3], *qm,
+                                      lanes[3],
+                                      keep_lanes=entry == "quant_pack_ld")
 
 
 def _boom(*_a, **_k):
@@ -239,6 +270,16 @@ def test_libraries_are_keyed_by_their_shared_header(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = [build.library_path(s) for s in srcs]
     assert all(a != b for a, b in zip(after, before))
+
+
+def test_encode_libraries_are_keyed_by_their_shared_header():
+    """The code writer and quotient of csrc/golomb_encode.cuh are included
+    by the three kernels that write or size codes, so they are hashed into
+    each library's name."""
+    header = os.path.join(build.CSRC, "golomb_encode.cuh")
+    for src in (device_pack.kernel_source(), device_pack.ld_kernel_source(),
+                rdo_ld.kernel_source()):
+        assert header in build.included_headers(src.path), src.name
 
 
 @pytest.mark.parametrize("case", ["sources", "generated_header",

@@ -1,16 +1,17 @@
 """vc2tpu_torch — the VC-2 (SMPTE ST 2042-1) codec on PyTorch and CUDA.
 
-A port of ``vc2tpu`` to an NVIDIA Hopper GPU. It decodes HQ pictures
-(DECODED output) from stream bytes to planar output bytes, and encodes HQ
-ConstQ pictures from planar samples to stream bytes:
+A port of ``vc2tpu`` to an NVIDIA Hopper GPU. It decodes HQ and LD
+streams from stream bytes to planar output bytes, and encodes HQ (ConstQ
+and CBR) and LD pictures from planar samples to stream bytes:
 
-* the host walks the stream syntax and, in native code (``csrc/hq_scan.cpp``,
-  built with the host C++ compiler), the HQ slice chain;
+* the host walks the stream syntax and, in native code (``csrc/hq_scan.cpp``
+  and ``csrc/ld_scan.cpp``, built with the host C++ compiler), the HQ
+  slice chain and the LD slice headers and LL recurrence;
 * a picture's compressed payload, or its samples, go to the device in one
   copy; its output bytes come back in one;
-* the bounded exp-Golomb unpack, the slice pack and each lifting level are
-  CUDA kernels written for ``sm_90a`` (``csrc/``), built with ``nvcc`` at
-  first use (``core/build.py``);
+* the exp-Golomb unpacks, the slice packs, the HQ CBR and LD rate controls
+  and each lifting level are CUDA kernels written for ``sm_90a``
+  (``csrc/``), built with ``nvcc`` at first use (``core/build.py``);
 * quantisation, layout and output formatting are torch ops.
 
 Every kernel wrapper takes its plain PyTorch version for a CPU tensor, so

@@ -1,19 +1,20 @@
-"""EncodeStream-compatible CLI: planar file -> VC-2 HQ stream (ConstQ or
-CBR), on the card.
+"""EncodeStream-compatible CLI: planar file -> VC-2 stream (HQ ConstQ, HQ
+CBR or LD), on the card.
 
 The flag surface mirrors the reference's (src/EncodeStream/
 EncodeParams.cpp:80-107), with the seven outputs (Transform / Quantised /
 Indices / Packaged / Stream / Decoded / PSNR, EncodeStream.cpp:486-767).
-Each picture is encoded on the device by ``pipeline.encoder.Encoder``;
-interlaced input encodes each field as a picture of half the height.
-HQ CBR with ``-F`` writes each picture as a series of fragments.
-
-Not in this slice, and raising NotImplementedError: LD (ROADMAP queue 1).
+Each picture is encoded on the device by ``pipeline.encoder.Encoder``
+(HQ) or ``pipeline.ld.LDEncoder`` (LD); interlaced input encodes each
+field as a picture of half the height (and, for LD, half the bytes). HQ
+CBR and LD with ``-F`` write each picture as a series of fragments.
 
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m HQ_ConstQ -q 20 in.16p2 out.vc2
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m HQ_CBR -S 1 -s 2048 -F 512 in.16p2 out.vc2
+    python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
+        -k LeGall -d 2 -u 1 -a 2 -m LD -s 2048 in.16p2 out.vc2
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from vc2tpu_torch.core.picture import interleave_fields, signal_clip
 from vc2tpu_torch.core.planario import (PlanarReader, SampleFormat,
                                         write_picture)
 from vc2tpu_torch.pipeline.encoder import Encoder
+from vc2tpu_torch.pipeline.ld import LDEncoder
 from vc2tpu_torch.stream.dataunit import PicturePreamble, StreamWriter
 from vc2tpu_torch.stream.headers import SequenceHeader
 from vc2tpu_torch.wavelet import matrices
@@ -41,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vc2tpu-torch-encode",
         description="Encodes an uncompressed planar video file to a VC-2 "
-                    "HQ stream on a CUDA device")
+                    "stream on a CUDA device")
     p.add_argument("inFile")
     p.add_argument("outFile")
     p.add_argument("-v", "--verbose", action="store_true")
@@ -203,7 +205,8 @@ def run(args) -> int:
     chroma_fmt = SampleFormat(word_width=cfg.bytes_per_sample,
                               bit_depth=cfg.chroma_depth)
     sig_fmt = SampleFormat(word_width=4, offset=False)
-    encoder = Encoder(cfg, device=args.device)
+    ld = cfg.mode == Mode.LD
+    encoder = (LDEncoder if ld else Encoder)(cfg, device=args.device)
     geo = encoder.geo
 
     infile = sys.stdin.buffer if args.inFile == "-" else open(args.inFile, "rb")
@@ -218,13 +221,14 @@ def run(args) -> int:
 
     writer = StreamWriter(outfile)
     writer.fragment_length = (cfg.fragment_length
-                              if cfg.mode == Mode.HQ_CBR else 0)
+                              if cfg.mode in (Mode.HQ_CBR, Mode.LD) else 0)
     if output == EncOutput.STREAM:
         if verbose:
             print("\nWriting Sequence Header\n", file=sys.stderr)
         writer.start_sequence()
         writer.write_sequence_header(SequenceHeader(
-            profile=Profile.PROFILE_HQ, height=geometry.luma_height,
+            profile=Profile.PROFILE_LD if ld else Profile.PROFILE_HQ,
+            height=geometry.luma_height,
             width=geometry.luma_width, chroma_format=cfg.chroma_format,
             interlace=cfg.interlaced, frame_rate=cfg.frame_rate,
             top_field_first=cfg.top_field_first, bitdepth=cfg.luma_depth))
@@ -234,6 +238,10 @@ def run(args) -> int:
         wavelet_kernel=cfg.kernel, depth=cfg.wavelet_depth,
         slices_x=geo.x_slices, slices_y=geo.y_slices,
         slice_prefix=cfg.slice_prefix, slice_size_scalar=cfg.slice_scalar)
+    if ld:
+        (preamble.slice_bytes_numerator,
+         preamble.slice_bytes_denominator) = intmath.rationalise(
+            picture_bytes, geo.n_slices)
     all_q_indices = []          # quantiser index stats (EncodeStream.cpp:676)
     # the q indices come back from the device only for what shows them
     keep_q = verbose or output == EncOutput.PSNR
@@ -248,7 +256,7 @@ def run(args) -> int:
         if verbose:
             print(f"Reading input frame number {frame}\nForward transform",
                   file=sys.stderr)
-            if cfg.mode == Mode.HQ_CBR:
+            if cfg.mode in (Mode.HQ_CBR, Mode.LD):
                 print("Determine quantisation indices", file=sys.stderr)
             print("Quantise transform coefficients\n"
                   "Split quantised coefficients into slices",
@@ -276,7 +284,8 @@ def run(args) -> int:
             elif output == EncOutput.STREAM:
                 writer.write_picture(
                     intmath.picture_number(pic_i, frame, frame_pics),
-                    preamble, enc.payload, slice_sizes=enc.slice_totals)
+                    preamble, enc.payload, slice_sizes=enc.slice_totals,
+                    hq=not ld)
             else:                                   # DECODED / PSNR
                 pic_geom = PictureGeometry.of(
                     geometry.luma_height // frame_pics, geometry.luma_width,

@@ -7,8 +7,10 @@ by the host C++ compiler (``Source.compiler``). A kernel may include
 headers generated from Python tables (``Source.headers``: file name and
 text); they are written next to the library and put on the include path.
 The hash covers the source, the headers of ``csrc/`` it includes (the
-decode core ``golomb_decode.cuh`` that two kernels share), the generated
-headers, the compiler and its flags, so a stale library is never loaded. The library is opened with
+decode core ``golomb_decode.cuh`` that the two unpacks share, the code
+writer ``golomb_encode.cuh`` of the packs and the LD rate control), the
+generated headers, the compiler and its flags, so a stale library is never
+loaded. The library is opened with
 ctypes; the wrappers set ``argtypes``.
 
 A missing compiler or a failed build raises: there is no other route.

@@ -44,11 +44,14 @@
 //            A range larger than the window (large slices, CBR at high
 //            rates) is assembled one window after another.
 // Every int32 codes in at most 64 bits (|v| + 1 <= 2^31 + 1), so there is
-// no overflow case and no host fallback. Chunks too long to keep in shared
-// memory (slices of over ~1000 lanes) are read and quantised again to be
-// written. Every store is bounded by the payload capacity the caller
-// gives, so a call whose flags are set (its payload is thrown away)
-// writes nothing past the buffer; a tile that set a flag writes none.
+// no overflow case and no host fallback. The quotient, the code lengths,
+// the codes and the 64-bit accumulator are golomb_encode.cuh's, which
+// csrc/ld_pack.cu and csrc/ld_rate.cu include too. Chunks too long to keep
+// in shared memory (slices of over ~1000 lanes) are read and quantised
+// again to be written. Every store is bounded by the payload capacity the
+// caller gives, so a call whose flags are set (its payload is thrown
+// away) writes nothing past the buffer; a tile that set a flag writes
+// none.
 //
 // What bounds it on the card: the lanes read once and the payload written
 // once, ~17 MB at 1080p, ~5 us of memory time; the arithmetic (quantise,
@@ -62,9 +65,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "golomb_encode.cuh"
 #include "hq_pack_params.h"
 
 namespace {
+
+using vc2::code_bits;
+using vc2::code_of;
+using vc2::quantise;
 
 constexpr int FLAG_SCALAR = 2;     // a component's length byte exceeds 255
 constexpr int FLAG_CBR_FIT = 4;    // CBR: y + u leave v too few bytes
@@ -101,72 +109,6 @@ struct PackArgs {
   int n, group, prefix, scalar;
 };
 
-__device__ __forceinline__ uint32_t magnitude(int32_t v) {
-  return v < 0 ? 0u - static_cast<uint32_t>(v) : static_cast<uint32_t>(v);
-}
-
-// quant(v, q) of vc2tpu_torch/quant/quantiser.py: sign(v) * ((|v| << 2) /
-// factor(q)), C division by the int32-wrapped factor, wrapped to int32.
-// For n = |v| << 2 < 2^32 the quotient is the high 64 bits of n * ceil(2^64
-// / |factor|), exact for every n < 2^32 and factor <= 2^32; from |v| >=
-// 2^30 on (|INT_MIN| included) n needs 34 bits and is divided in 64 bits.
-__device__ __forceinline__ int32_t quantise(int32_t v, int q,
-                                            const int32_t* factors,
-                                            const unsigned long long* recips) {
-  const int32_t f = factors[q];
-  const uint32_t m = magnitude(v);
-  uint32_t r;
-  if (m < (1u << 30)) {
-    const uint32_t n = m << 2;
-    const unsigned long long rc = recips[q];
-    r = static_cast<uint32_t>(
-        (static_cast<unsigned long long>(n) * static_cast<uint32_t>(rc >> 32) +
-         __umulhi(n, static_cast<uint32_t>(rc))) >> 32);
-  } else {
-    r = static_cast<uint32_t>((static_cast<unsigned long long>(m) << 2) /
-                              magnitude(f));
-  }
-  return static_cast<int32_t>(((v < 0) != (f < 0)) ? 0u - r : r);
-}
-
-// Bits of the signed interleaved exp-Golomb code of v: 1 for 0, else
-// 2 * bit_length(|v| + 1), at most 64.
-__device__ __forceinline__ int code_bits(int32_t v) {
-  return v == 0 ? 1 : 2 * (32 - __clz(magnitude(v) + 1u));
-}
-
-// Bit j of m to bit 2j.
-__device__ __forceinline__ unsigned long long spread(uint32_t m) {
-  unsigned long long x = m;
-  x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
-  x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
-  x = (x | (x << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  x = (x | (x << 2)) & 0x3333333333333333ull;
-  x = (x | (x << 1)) & 0x5555555555555555ull;
-  return x;
-}
-
-// Bit j of m (< 2^16) to bit 2j.
-__device__ __forceinline__ uint32_t spread16(uint32_t x) {
-  x = (x | (x << 8)) & 0x00FF00FFu;
-  x = (x | (x << 4)) & 0x0F0F0F0Fu;
-  x = (x | (x << 2)) & 0x33333333u;
-  x = (x | (x << 1)) & 0x55555555u;
-  return x;
-}
-
-// The code of v in its low nb = code_bits(v) bits, MSB first on the wire:
-// [0 u_{k-2} 0 u_{k-3} .. 0 u_0 1 s], u = |v| + 1 of k bits, s the sign;
-// in 32-bit arithmetic when it fits 32 bits (|v| < 2^16).
-__device__ __forceinline__ unsigned long long code_of(int32_t v, int nb) {
-  if (v == 0) return 1ull;
-  const uint32_t u = magnitude(v) + 1u;
-  const uint32_t low = u ^ (1u << (nb / 2 - 1));      // u below its top bit
-  const uint32_t sign = v < 0 ? 1u : 0u;
-  if (nb <= 32) return (spread16(low) << 2) | 2u | sign;
-  return (((spread(low) << 1) | 1ull) << 1) | sign;
-}
-
 __device__ __forceinline__ long long warp_sum64(long long x) {
   for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
@@ -181,63 +123,19 @@ __device__ __forceinline__ void put_byte(uint32_t* win, long long pos,
     atomicOr(&win[pos >> 5], x << (24 - (pos & 31)));
 }
 
-// A thread's codes, appended one after another at a window bit position:
-// the words it fills alone are stored, its first and last word (which
-// other threads' bits may share) are ORed in. Words outside the window
-// are dropped.
-struct BitWriter {
+// Where a thread's codes land: words of the window, those it fills alone
+// stored, its first and last word (which other threads' bits may share)
+// ORed in; words outside the window are dropped.
+struct WindowSink {
   uint32_t* win;
-  int word;                   // the window word the accumulator starts at
-  unsigned long long acc;     // `fill` bits, MSB first from bit 63
-  int fill;
-  bool first;
-
-  __device__ void start(uint32_t* w, long long pos) {
-    win = w;
-    word = static_cast<int>(pos >> 5);
-    fill = static_cast<int>(pos & 31);
-    acc = 0;
-    first = true;
-  }
-  __device__ void emit(uint32_t x, bool shared) {
-    if (x && word >= 0 && word < WINDOW_WORDS) {
-      if (shared) atomicOr(&win[word], x);
-      else win[word] = x;
+  __device__ void word(long long w, uint32_t x, bool shared) const {
+    if (x && w >= 0 && w < WINDOW_WORDS) {
+      if (shared) atomicOr(&win[w], x);
+      else win[w] = x;
     }
-  }
-  __device__ void put32(uint32_t code, int n) {     // 1 <= n <= 32
-    acc |= static_cast<unsigned long long>(code) << (64 - fill - n);
-    fill += n;
-    if (fill >= 32) {
-      emit(static_cast<uint32_t>(acc >> 32), first);
-      first = false;
-      acc <<= 32;
-      fill -= 32;
-      ++word;
-    }
-  }
-  __device__ void put(unsigned long long code, int n) {    // 1 <= n <= 64
-    if (n > 32) {
-      put32(static_cast<uint32_t>(code >> 32), n - 32);
-      n = 32;
-    }
-    put32(static_cast<uint32_t>(code), n);
-  }
-  __device__ void put_one() {                        // the code of 0
-    acc |= 1ull << (63 - fill);
-    if (++fill == 32) {
-      emit(static_cast<uint32_t>(acc >> 32), first);
-      first = false;
-      acc <<= 32;
-      fill = 0;
-      ++word;
-    }
-  }
-  __device__ bool past_window() const { return word >= WINDOW_WORDS; }
-  __device__ void finish() {
-    if (fill) emit(static_cast<uint32_t>(acc >> 32), true);
   }
 };
+using BitWriter = vc2::BitAccumulator<WindowSink>;
 
 // Four lanes from p (those past cnt read 0): one 16-byte load where p is
 // aligned and all four are wanted.
@@ -517,12 +415,12 @@ __global__ void __launch_bounds__(THREADS, 4) hq_pack(PackArgs a) {
         const int hold_at = c == 0 ? 0 : ((a.len[0] + g - 1) >> lg) +
                                          (c - 1) * ((a.len[1] + g - 1) >> lg);
         BitWriter w;
-        w.start(win, at + off);
+        w.start(WindowSink{win}, at + off);
         // held lanes: a run of zeros (1-bit codes, each a 1) is one put,
         // each non-zero lane one more
         const int n = hi - lo;
         const uint32_t nonzero = s_nonzero[c][tid];
-        for (int j = 0; held && j < n && off < bound[c] && !w.past_window();) {
+        for (int j = 0; held && j < n && off < bound[c] && w.word < WINDOW_WORDS;) {
           const uint32_t rest = nonzero >> j;         // j < n <= HOLD
           const int z = rest ? __ffs(rest) - 1 : n - j;
           if (!rest || off + z >= bound[c]) {   // zeros to the end or bound
@@ -545,7 +443,7 @@ __global__ void __launch_bounds__(THREADS, 4) hq_pack(PackArgs a) {
           j += z + 1;
         }
         for (int b = lo; !held && b < hi && off < bound[c] &&
-                            !w.past_window(); b += 4) {
+                            w.word < WINDOW_WORDS; b += 4) {
           int32_t v[4];
           lanes4(v, a, c, row, b, hi - b, q, s_factors, s_recips);
 #pragma unroll

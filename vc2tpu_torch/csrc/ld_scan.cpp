@@ -23,6 +23,10 @@
 //
 // It stays on the host: the recurrence is serial over the whole grid, and
 // the grids are 1/4^depth of the picture (0.26 M values at 1080p depth 2).
+//
+// ld_dequantise_grid is the recurrence alone, on a grid of LL codes: the
+// encoder's Decoded and PSNR outputs run it on the quantised LL band (the
+// JAX package's vc2host.cpp ld_dequantise_plane, LL part).
 
 #include <cstdint>
 
@@ -214,4 +218,17 @@ extern "C" int64_t ld_scan(const uint8_t* payload, int64_t paylen, int64_t n,
   dequantise_grid(gv, chroma->llh, chroma->llw, ys, xs, ts, chroma->sh,
                   chroma->sw, chroma->qm_block, q, t);
   return pos;
+}
+
+// The LL DC-prediction recurrence alone, in place on a grid (llh x llw) of
+// quantised LL codes of slices (sh x sw blocks, ys x xs of them, transform
+// depth log2(ts)) with the q indices q [ys * xs]; qf / qo the 120-entry
+// int32-wrapped quant factors and offsets.
+extern "C" void ld_dequantise_grid(int32_t* grid, int64_t llh, int64_t llw,
+                                   int64_t ys, int64_t xs, int64_t ts,
+                                   int64_t sh, int64_t sw,
+                                   const int32_t* qm_block, const int32_t* q,
+                                   const int32_t* qf, const int32_t* qo) {
+  const Tables t{qf, qo};
+  dequantise_grid(grid, llh, llw, ys, xs, ts, sh, sw, qm_block, q, t);
 }

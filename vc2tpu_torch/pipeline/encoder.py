@@ -19,7 +19,8 @@ The stages are separate functions so a profiler can time each.
 ``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
 decoder's ``dequantise_planes`` and ``inverse_planes``.
 
-LD is not ported yet, and raises NotImplementedError.
+LD pictures are encoded by ``pipeline.ld.LDEncoder``, which shares the
+upload, the forward transform and the lane layout with this module.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
 from vc2tpu_torch.vlc import device_pack
 from vc2tpu_torch.wavelet import lifting, matrices
-
-_NOT_PORTED = "is not ported to vc2tpu_torch yet (ROADMAP queue 1: {})"
-
 
 def _print_slice_suggestions(cfg: EncoderConfig, luma_h: int,
                              chroma_h: int) -> None:
@@ -169,8 +167,8 @@ class Encoder:
     def __init__(self, cfg: EncoderConfig, device=None):
         cfg.validate()
         if cfg.mode == Mode.LD:
-            raise NotImplementedError("LD encode " + _NOT_PORTED.format(
-                "14, LD"))
+            raise ValueError("Encoder encodes HQ pictures; LD pictures are "
+                             "encoded by pipeline.ld.LDEncoder")
         self.device = devices.resolve(device)
         self.cfg = cfg
         self.geo = slice_geometry(cfg)

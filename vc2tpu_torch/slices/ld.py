@@ -16,6 +16,12 @@ prediction (a strict raster recurrence, reference Quantisation.cpp:
 287-306) into three compact grids. ``ld_scan_plain`` is the same from
 ``ld_header_fields``, the plain bit reader and a Python loop of the
 recurrence: the reference the tests hold the native scan against.
+``dequantise_ll`` runs the recurrence alone on a grid of LL codes
+(``ld_dequantise_grid`` of the same library), for the encoder's Decoded
+and PSNR outputs; ``dequantise_ll_plain`` is its twin.
+
+``encode_ld_slices`` packs a whole picture's slices on the host from
+quantised lanes, through ``device_pack.pack_ld_plain``.
 """
 
 from __future__ import annotations
@@ -165,6 +171,9 @@ def _lib():
     lib.ld_scan.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, p, p, p,
                             p, p, p, p, p]
     lib.ld_scan.restype = i64
+    lib.ld_dequantise_grid.argtypes = [p, i64, i64, i64, i64, i64, i64, i64,
+                                       p, p, p, p]
+    lib.ld_dequantise_grid.restype = None
     return lib
 
 
@@ -217,6 +226,44 @@ def ld_scan(payload, slice_sizes, geo, depth: int, qmatrix,
     if end < 0:
         raise ValueError(_LL_OUTSIDE)
     return LDScan(q, fields, (gy, gu, gv), int(end))
+
+
+def dequantise_ll(grid: np.ndarray, ys: int, xs: int, ts: int, sh: int,
+                  sw: int, qm_blk: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """The LL DC-prediction recurrence of ``dequantise_ll_plain`` in native
+    code (``csrc/ld_scan.cpp``): the values of a grid of quantised LL codes,
+    int32, with the slices' q indices (int32 [ys * xs], raster order)."""
+    out = np.ascontiguousarray(grid, np.int32).copy()
+    qm = np.ascontiguousarray(qm_blk, np.int32)
+    qs = np.ascontiguousarray(np.asarray(q).ravel(), np.int32)
+    if qs.size != ys * xs or qm.size != sh * sw:
+        raise ValueError(f"dequantise_ll: {qs.size} q indices, "
+                         f"{qm.size} quant matrix entries")
+    llh, llw = out.shape
+    _lib().ld_dequantise_grid(out.ctypes.data, llh, llw, ys, xs, ts, sh, sw,
+                              qm.ctypes.data, qs.ctypes.data, _QF.ctypes.data,
+                              _QO.ctypes.data)
+    return out
+
+
+def encode_ld_slices(q_indices, lanes_y, lanes_u, lanes_v, slice_sizes):
+    """Pack all LD slices from quantised lanes (int32 [N, L], lane order)
+    on the host: (payload bytes, per-slice sizes int64). Raises the
+    reference's error when a slice's U/V codes do not fit."""
+    from vc2tpu_torch.vlc import device_pack
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+    sizes = np.asarray(slice_sizes, np.int64).ravel()
+    buf = device_pack.pack_ld_plain(t(lanes_y), t(lanes_u), t(lanes_v),
+                                    t(np.asarray(q_indices).ravel()),
+                                    t(sizes))
+    flags, payload = device_pack.ld_result(buf)
+    if flags & device_pack.FLAG_LD_FIT:
+        raise ValueError(
+            "SliceIO, LD mode: Too many bytes for the U and V slices")
+    return payload.tobytes(), sizes
 
 
 def _c_scale(value: int, q: int) -> int:

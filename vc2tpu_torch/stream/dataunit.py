@@ -110,10 +110,12 @@ class StreamWriter:
         self.f.write(payload)
 
     def _transform_params(self, preamble: PicturePreamble,
-                          force_asym_flags: bool = False) -> bytes:
+                          force_asym_flags: bool = False,
+                          hq: bool = True) -> bytes:
         """The preamble's transform parameters, the write twin of
-        ``StreamReader.read_preamble``; a fragment series writes the
-        asymmetric-transform flags whatever the version."""
+        ``StreamReader.read_preamble``: HQ's slice prefix and scalar, or
+        LD's slice bytes numerator and denominator; a fragment series
+        writes the asymmetric-transform flags whatever the version."""
         w = BitWriter()
         w.unbounded()
         w.put_uvlc(int(preamble.wavelet_kernel))
@@ -123,40 +125,49 @@ class StreamWriter:
             w.put_bool(False)   # asym_transform_flag
         w.put_uvlc(preamble.slices_x)
         w.put_uvlc(preamble.slices_y)
-        w.put_uvlc(preamble.slice_prefix)
-        w.put_uvlc(preamble.slice_size_scalar)
+        if hq:
+            w.put_uvlc(preamble.slice_prefix)
+            w.put_uvlc(preamble.slice_size_scalar)
+        else:
+            w.put_uvlc(preamble.slice_bytes_numerator)
+            w.put_uvlc(preamble.slice_bytes_denominator)
         w.put_bool(False)       # custom quant matrix
         w.align()
         return w.getvalue()
 
     def write_picture(self, picture_number: int, preamble: PicturePreamble,
-                      slice_payload: bytes, slice_sizes=None) -> None:
-        """One HQ picture data unit (picture number, transform parameters
-        and the slice payload), or a fragment series when
-        ``fragment_length`` > 0 (reference HQWrappedPictureIO in
-        DataUnit.cpp:125-343). ``slice_sizes`` (each slice's bytes, raster
-        order) is needed for fragments."""
+                      slice_payload: bytes, slice_sizes=None,
+                      hq: bool = True) -> None:
+        """One HQ (or, with ``hq`` False, LD) picture data unit (picture
+        number, transform parameters and the slice payload), or a fragment
+        series when ``fragment_length`` > 0 (reference HQ/LDWrappedPictureIO
+        in DataUnit.cpp:125-343). ``slice_sizes`` (each slice's bytes,
+        raster order) is needed for fragments."""
         if self.fragment_length == 0:
             body = (picture_number.to_bytes(4, "big")
-                    + self._transform_params(preamble) + slice_payload)
-            self._parse_info(DataUnitType.HQ_PICTURE, len(body))
+                    + self._transform_params(preamble, hq=hq)
+                    + slice_payload)
+            self._parse_info(DataUnitType.HQ_PICTURE if hq
+                             else DataUnitType.LD_PICTURE, len(body))
             self.f.write(body)
             return
         if slice_sizes is None:
             raise ValueError("fragmented output needs the slice sizes")
-        fw = self.begin_fragments(picture_number, preamble)
+        fw = self.begin_fragments(picture_number, preamble, hq)
         fw.feed(slice_sizes, slice_payload)
         fw.close()
 
     def begin_fragments(self, picture_number: int,
-                        preamble: PicturePreamble) -> "FragmentWriter":
+                        preamble: PicturePreamble,
+                        hq: bool = True) -> "FragmentWriter":
         """Start the fragment series of one picture: writes the
         transform-parameters fragment, returns the FragmentWriter."""
-        return FragmentWriter(self, picture_number, preamble)
+        return FragmentWriter(self, picture_number, preamble, hq)
 
 
 class FragmentWriter:
-    """The fragments of ONE HQ picture (reference DataUnit.cpp:267-342).
+    """The fragments of ONE HQ or LD picture (reference DataUnit.cpp:
+    267-342).
 
     The first fragment holds the transform parameters and no slices.
     ``feed`` takes runs of (slice sizes, their payload) in raster order and
@@ -166,12 +177,14 @@ class FragmentWriter:
     reference writes even when it holds no slice."""
 
     def __init__(self, writer: StreamWriter, picture_number: int,
-                 preamble: PicturePreamble) -> None:
+                 preamble: PicturePreamble, hq: bool = True) -> None:
         self.w = writer
         self.pic = picture_number
         self.slices_x = preamble.slices_x
-        params = writer._transform_params(preamble, force_asym_flags=True)
-        writer._parse_info(DataUnitType.HQ_FRAGMENT, len(params) + 8)
+        self.du = DataUnitType.HQ_FRAGMENT if hq else DataUnitType.LD_FRAGMENT
+        params = writer._transform_params(preamble, force_asym_flags=True,
+                                          hq=hq)
+        writer._parse_info(self.du, len(params) + 8)
         writer.f.write(picture_number.to_bytes(4, "big")
                        + len(params).to_bytes(2, "big")
                        + (0).to_bytes(2, "big") + params)
@@ -187,7 +200,7 @@ class FragmentWriter:
         body = (self.pic.to_bytes(4, "big") + self._bytes.to_bytes(2, "big")
                 + self._count.to_bytes(2, "big") + sx.to_bytes(2, "big")
                 + sy.to_bytes(2, "big") + b"".join(self._chunks))
-        self.w._parse_info(DataUnitType.HQ_FRAGMENT, self._bytes + 12)
+        self.w._parse_info(self.du, self._bytes + 12)
         self.w.f.write(body)
         self._first = self._next
         self._count = 0

@@ -24,6 +24,12 @@ encoder raises with the reference's message (``check_flags``). The flags
 word lies in the launch's scratch (``pack_scratch``); HQ CBR's rate
 control (``rdo/cbr.py``) sets ``FLAG_QMAX`` in it before the pack, so one
 synchronisation reads both.
+
+LD (``quant_pack_ld``, the port of ``pack_ld_core``): each slice at its
+fixed byte offset, its body lanes quantised in the load of one launch of
+``csrc/ld_pack.cu`` after the rate control's LL lanes; ``pack_ld_plain``
+assembles the same buffer ``[flags uint32 | payload]`` from quantised
+lanes.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 from vc2tpu_torch.core import build
 from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32,
                                          adjust_quant_index, quant)
-from vc2tpu_torch.vlc.golomb import signed_codes
+from vc2tpu_torch.vlc.golomb import interleave, signed_codes, truncated_bits
 
 FLAG_SCALAR = 2          # a component length byte > 255 ("scalar too small")
 FLAG_CBR_FIT = 4         # CBR: y+u data leave v too few bytes
@@ -379,3 +385,221 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
 
 
 pack_hq.launches = 0
+
+
+# --- LD -------------------------------------------------------------------
+
+FLAG_LD_FIT = 128        # LD: the U/V codes exceed the slice's remaining bits
+LD_THREADS = 128         # csrc/ld_pack.cu: threads a CTA, one a slice
+
+
+def _place_bits(bits, code, keep, pos, lo, hi):
+    """Set the bits of each kept code (its low ``keep`` bits, MSB first) at
+    bit ``pos`` of ``bits``, those outside [lo, hi) of its row dropped."""
+    for j in range(64):
+        live = j < keep
+        if not bool(live.any()):
+            break
+        at = pos + j
+        one = (live & (((code >> (keep - 1 - j).clamp(min=0)) & 1) == 1)
+               & (at >= lo) & (at < hi))
+        bits[at[one]] = 1
+
+
+def _check_ld(qy, qu, qv, q_idx, sizes):
+    n = qy.shape[0]
+    for name, t in (("qy", qy), ("qu", qu), ("qv", qv)):
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != n:
+            raise ValueError(f"LD pack: {name} must be int32 [N, L], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if qu.shape != qv.shape:
+        raise ValueError("LD pack: qu and qv differ in shape")
+    for name, t in (("q_idx", q_idx), ("sizes", sizes)):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError(f"LD pack: {name} must be int32 [{n}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (qu, qv, q_idx, sizes):
+        if t.device != qy.device:
+            raise ValueError(f"LD pack: inputs on {t.device} and "
+                             f"{qy.device}")
+
+
+def pack_ld_plain(qy, qu, qv, q_idx, sizes):
+    """Assemble the LD slice payload of a picture from quantised lanes, in
+    plain PyTorch on any device: each region's codes placed bit by bit (one
+    pass per bit index of the longest code).
+
+    qy: int32 [N, Ly], qu/qv: int32 [N, Lc] quantised lanes in lane order;
+    q_idx: int32 [N]; sizes: int32 [N] the slice bytes. Returns the uint8
+    buffer [flags uint32 | payload] (``ld_result`` splits it);
+    ``FLAG_LD_FIT`` where a slice's U/V codes do not fit."""
+    from vc2tpu_torch.slices.ld import len_bits_of
+
+    _check_ld(qy, qu, qv, q_idx, sizes)
+    dev = qy.device
+    size = sizes.to(torch.int64)
+    len_bits = torch.as_tensor(len_bits_of(size.cpu().numpy()), device=dev)
+    y_used = truncated_bits(qy)
+    uv = interleave(qu, qv)
+    uv_used = truncated_bits(uv)
+    uv_bits = 8 * size - 7 - len_bits - y_used
+    flags = FLAG_LD_FIT if bool((uv_used > uv_bits).any()) else 0
+    starts = 8 * (torch.cumsum(size, 0) - size)
+    ends = starts + 8 * size
+    bits = torch.zeros(int(8 * size.sum()), dtype=torch.int64, device=dev)
+    lo, hi = starts[:, None], ends[:, None]
+    head = torch.stack([q_idx.to(torch.int64) & 0x7F,
+                        y_used & ((1 << len_bits) - 1)], 1)
+    head_keep = torch.stack([torch.full_like(len_bits, 7), len_bits], 1)
+    _place_bits(bits, head, head_keep, starts[:, None] + torch.tensor(
+        [0, 7], device=dev), lo, hi)
+    at = starts + 7 + len_bits
+    for lanes, bound in ((qy, y_used), (uv, uv_bits)):
+        code, nb = signed_codes(lanes)
+        cum = torch.cumsum(nb, 1) - nb
+        keep = torch.minimum((bound[:, None] - cum).clamp(min=0), nb)
+        kept = torch.where(keep > 0, code >> (nb - keep), 0)
+        _place_bits(bits, kept, keep, at[:, None] + cum, lo, hi)
+        at = at + bound
+    weights = 1 << torch.arange(7, -1, -1, device=dev)
+    payload = (bits.view(-1, 8) * weights).sum(1).to(torch.uint8)
+    head = torch.tensor([flags], dtype=torch.int32).view(torch.uint8)
+    return torch.cat([head.to(dev), payload])
+
+
+def ld_result(buf):
+    """(flags, payload) of an LD pack buffer: a tensor on any device
+    (read with one synchronisation) or a NumPy array."""
+    if isinstance(buf, torch.Tensor):
+        buf = buf.cpu().numpy()
+    return int(buf[:4].view("<u4")[0]), buf[4:]
+
+
+def _ld_starts(sizes: torch.Tensor) -> torch.Tensor:
+    size = sizes.to(torch.int64)
+    return torch.cumsum(size, 0) - size
+
+
+def ld_kernel_source() -> build.Source:
+    factors = ", ".join(str(int(f)) for f in QUANT_FACTORS_I32)
+    recips = ", ".join(f"0x{r:x}ull" for r in quant_reciprocals())
+    header = ("// Generated by vc2tpu_torch.vlc.device_pack."
+              "ld_kernel_source().\n"
+              "#pragma once\n"
+              f"#define VC2_LD_PACK_THREADS {LD_THREADS}\n"
+              f"#define VC2_FLAG_LD_FIT {FLAG_LD_FIT}\n"
+              f"#define VC2_QUANT_FACTORS {factors}\n"
+              f"#define VC2_QUANT_RECIPROCALS {recips}\n")
+    return build.Source("ld_pack", (("ld_pack_params.h", header),))
+
+
+@functools.lru_cache(maxsize=None)
+def _ld_lib():
+    lib = build.load(ld_kernel_source())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ld_pack_launch.argtypes = [p, p, p, i, i, p, p, p, i, i, p, p, p, p,
+                                   p, p, p, p, i, p, p]
+    lib.ld_pack_launch.restype = i
+    return lib
+
+
+def launch_ld_pack(lanes, ll, q_idx, qm, sizes, starts, total: int,
+                   keep=None, out=None):
+    """The one launch of csrc/ld_pack.cu on CUDA tensors (checked by the
+    caller), not synchronised. ``lanes`` (y, u, v) are transform lanes whose
+    first lanes ``ll`` (the rate control's LL lanes) replace, the others
+    quantised at max(q_idx - qm, 0), ``qm`` = (qm_y, qm_c); ``keep`` (y, u,
+    v) receive the quantised lanes. ``starts`` (int64 [N]) is each slice's
+    first byte, ``total`` the payload's bytes. ``out`` (uint8, contiguous)
+    defaults to a new buffer of 4 + total bytes; the kernel stores nothing
+    past them. Returns the uint8 buffer [flags uint32 | payload]."""
+    y, u, v = lanes
+    n, ly, lc = y.shape[0], y.shape[1], u.shape[1]
+    if out is None:
+        out = torch.empty(4 + total, dtype=torch.uint8, device=y.device)
+    elif (out.dtype != torch.uint8 or not out.is_contiguous()
+          or out.numel() < 4 + total or out.device != y.device):
+        raise ValueError(f"quant_pack_ld: out must be a contiguous uint8 "
+                         f"buffer of at least {4 + total} bytes on "
+                         f"{y.device}")
+    out[:4].zero_()
+    ky, ku, kv = keep if keep is not None else (None, None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = _ld_lib().ld_pack_launch(
+        y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, ll[0].data_ptr(),
+        ll[1].data_ptr(), ll[2].data_ptr(), ll[0].shape[1], ll[1].shape[1],
+        qm[0].data_ptr(), qm[1].data_ptr(), ptr(ky), ptr(ku), ptr(kv),
+        q_idx.data_ptr(), sizes.data_ptr(), starts.data_ptr(), n,
+        out.data_ptr(), _stream(y))
+    if rc:
+        raise RuntimeError(f"ld_pack kernel launch failed: CUDA error {rc}")
+    quant_pack_ld.launches += 1
+    return out
+
+
+def _check_ll(lanes, ll, qm_y, qm_c):
+    _check_qm(lanes[0], lanes[1], qm_y, qm_c)
+    for name, x, l in zip("yuv", lanes, ll):
+        if (l.dtype != torch.int32 or l.dim() != 2
+                or l.shape[0] != x.shape[0] or l.shape[1] > x.shape[1]
+                or l.device != x.device):
+            raise ValueError(f"quant_pack_ld: ll_{name} must be int32 [N, "
+                             f"nLL] on {x.device}, got {l.dtype} "
+                             f"{tuple(l.shape)}")
+
+
+def quant_pack_ld_plain(y, u, v, ll, q_idx, qm_y, qm_c, sizes,
+                        keep_lanes: bool = False):
+    """Plain PyTorch version of ``quant_pack_ld``: the body lanes quantised
+    at max(qIndex - qm[lane], 0) after the rate control's LL lanes, then
+    ``pack_ld_plain``."""
+    _check_ll((y, u, v), ll, qm_y, qm_c)
+    q = q_idx.to(torch.int64)[:, None]
+    lanes = []
+    for x, l, qm in ((y, ll[0], qm_y), (u, ll[1], qm_c), (v, ll[2], qm_c)):
+        k = l.shape[1]
+        aq = adjust_quant_index(q, qm[k:].to(torch.int64)[None, :])
+        lanes.append(torch.cat([l, quant(x[:, k:], aq)], 1))
+    buf = pack_ld_plain(*lanes, q_idx, sizes)
+    return buf, tuple(lanes) if keep_lanes else None
+
+
+def quant_pack_ld(y, u, v, ll, q_idx, qm_y, qm_c, sizes, starts=None,
+                  total=None, keep_lanes: bool = False):
+    """Quantise and assemble the LD slice payload of a picture.
+
+    y: int32 [N, Ly], u/v: int32 [N, Lc] transform lanes in lane order;
+    ll: the rate control's LL lanes (y [N, nLLy], u and v [N, nLLc]),
+    which replace the first lanes; qm_y: int32 [Ly], qm_c: int32 [Lc] the
+    quant matrix entry of each lane; the other lanes are quantised at
+    max(q_idx - qm, 0). sizes: int32 [N] the slice bytes; ``starts`` (int64
+    [N], each slice's first byte) and ``total`` (the payload's bytes) may
+    be given to save their sums. Returns (buffer, lanes): the uint8
+    [flags uint32 | payload] buffer on the lanes' device and, when
+    ``keep_lanes``, the quantised lanes (y, u, v), else None. CUDA lanes
+    go through one launch of csrc/ld_pack.cu (quantised in its load), not
+    synchronised; CPU lanes through ``quant_pack_ld_plain``."""
+    if y.device.type == "cpu":
+        return quant_pack_ld_plain(y, u, v, ll, q_idx, qm_y, qm_c, sizes,
+                                   keep_lanes)
+    if y.device.type != "cuda":
+        raise ValueError(f"quant_pack_ld: unsupported device {y.device}")
+    _check_ld(y, u, v, q_idx, sizes)
+    _check_ll((y, u, v), ll, qm_y, qm_c)
+    _cuda_inputs("quant_pack_ld", (y, u, v, *ll, q_idx, sizes, qm_y, qm_c))
+    if starts is None:
+        starts = _ld_starts(sizes)
+    if total is None:
+        total = int(sizes.to(torch.int64).sum())
+    keep = tuple(torch.empty_like(x) for x in (y, u, v)) if keep_lanes \
+        else None
+    if y.shape[0] == 0:
+        return torch.zeros(4, dtype=torch.uint8, device=y.device), keep
+    return launch_ld_pack((y, u, v), ll, q_idx, (qm_y, qm_c), sizes, starts,
+                          total, keep), keep
+
+
+quant_pack_ld.launches = 0

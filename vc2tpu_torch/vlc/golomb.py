@@ -10,7 +10,8 @@ ops, int64 with masks: torch has no unsigned shifts, clz or popcount on
 the CPU). Every int32 value codes in at most 64 bits (|v|+1 <= 2^31+1,
 2 * 32 bits) and the first bit of a code longer than one bit is a 0
 follow bit, so a code always fits a non-negative int64. The scalar
-encoders serve the stream headers.
+encoders serve the stream headers; ``truncated_bits`` and ``interleave``
+count the bounded regions of LD slices.
 """
 
 from __future__ import annotations
@@ -59,3 +60,25 @@ def signed_codes(values: torch.Tensor):
         spread |= ((m >> j) & 1) << (2 * j)
     code = (((spread << 1) | 1) << 1) | (v < 0).to(torch.int64)
     return torch.where(v == 0, 1, code), torch.where(v == 0, 1, 2 * k)
+
+
+def _code_bits(v: torch.Tensor) -> torch.Tensor:
+    """Bits of the signed exp-Golomb code of each value (int64)."""
+    mag = v.to(torch.int64).abs()
+    _, e = torch.frexp((mag + 1).to(torch.float64))
+    return torch.where(mag == 0, 1, 2 * e.to(torch.int64))
+
+
+def truncated_bits(codes: torch.Tensor) -> torch.Tensor:
+    """Each row's code bits up to its last non-zero code (0 for none),
+    int64 [K], for the quantised values ``codes`` [K, L] in wire order."""
+    nb = _code_bits(codes)
+    length = codes.shape[1]
+    idx = torch.arange(length, device=codes.device)
+    last = torch.where(codes != 0, idx, -1).amax(1)
+    return torch.where(last >= 0, nb.sum(1) - (length - 1 - last), 0)
+
+
+def interleave(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u0 v0 u1 v1 ... of two [K, L] tensors: [K, 2L]."""
+    return torch.stack([u, v], 2).reshape(u.shape[0], -1)
