@@ -43,16 +43,23 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    at x0.25 and x4, at scalar 1 and at prefix 3 / scalar 2 (with the
    fused pack at the searched indices), seeded lanes up to +-(2^29 - 1),
    all-zero slices, budgets no q meets, slices whose climb runs past 3
-   steps, a ragged slice count and slices too large for the kernel's
-   shared-memory stage; hold the LD rate control kernel against its plain
-   version (integer == on q and the three LL lane sets; the plain version
-   on the card for the fixture's budgets, on the host CPU for the rest):
-   the 1080p LD transform lanes at the fixture's budgets, at x0.25 and x4,
-   and with all-zero bodies, seeded grids (Haar1, LeGall and DD97 at
-   depths 1-3, coefficients up to +-(2^29 - 1)) of a single slice, a
-   single row, a single column and 7 x 11 slices, budgets no q meets,
-   more rows than the card runs at once (the row ticket), and slices too
-   large to stage in shared memory; its q on the 1080p picture against
+   steps, a ragged slice count, slices too large for the registers (a
+   warp reading them from device memory) and slices taken by groups of
+   4, 8, 16 and 32 threads (ragged runs, 2-lane slices, 4:4:4); and the
+   groups' redux.sync on their own masks against shuffles; hold the LD
+   rate control's body table kernel against its plain version on every
+   case below (every slice and trial), and the LD rate control against
+   its plain version (integer == on q and the three LL lane sets; the
+   plain version on the card for the 1080p lanes, on the host CPU for the
+   rest): the 1080p LD transform lanes at the fixture's budgets,
+   at x0.25 and x4, and with all-zero bodies, seeded grids (Haar1, LeGall
+   and DD97 at depths 1-3, coefficients up to +-(2^29 - 1) and up to
+   +-(2^31 - 1)) of a single slice, a single row, a single column and 7 x
+   11 slices, budgets no q meets, more rows than the card runs at once
+   (the row ticket), 64 x 64 slices (LL 8 x 8, body entries past the int16
+   range), body lanes that are 0 by index 111 and not at the wrapped 119,
+   4:4:4, 4:2:0 and 4:2:2 at -u 1 (both fixed-shape kernels and the
+   generic one); its q on the 1080p picture against
    the q indices the LD scan reads from ``ld_1080p.vc2``; hold the LD pack
    kernel against its plain version (the buffer [flags | payload] byte
    for byte, and its quantised lanes): on the 1080p LD transform lanes,
@@ -89,7 +96,9 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    host "ld scan + LL recurrence"), the device's idle share, each kernel's
    time beside its bound and its plain version's time, and the LD rate
    control's dependent step (the kernel on one row and on one column of
-   the picture's slices).
+   the picture's slices), its bound by the dependent chain (the steps
+   times the deepest LL block's cells at LL_CELL_CHAIN dependent
+   instructions of INT_LATENCY cycles) and its body table kernel alone.
 
 Each phase prints its time.
 
@@ -133,6 +142,13 @@ RANDOM_ROWS = 64800       # slices of the random-bytes unpack check (1080p)
 TESTDATA = os.path.join(ROOT, "vc2tpu_torch", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 FRAGMENT = 16384          # -F of the fragmented 1080p CBR encode
+# the LD rate control's dependent chain, from csrc/ld_rate.cu: the
+# dependent integer instructions of one LL cell (the prediction's mean and
+# edge select 8, the difference and its magnitude 2, the exact quotient
+# and its correction 12, the sign 2, the rescale 11, the sum 1), and the
+# least latency between two dependent integer instructions on Hopper
+LL_CELL_CHAIN = 34
+INT_LATENCY = 4           # cycles
 
 
 def check(cond, msg: str):
@@ -145,6 +161,15 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_hz() -> float:
+    """The card's highest SM clock, Hz (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -697,7 +722,23 @@ def check_cbr(torch, np, rng, dev, enc, tlanes):
     wide = rand_lanes(64, 1 << 16, 0.5, (2048, 1024, 1024))
     qm_wide = (t(rng.integers(0, 8, 2048).astype(np.int32)),
                t(rng.integers(0, 8, 1024).astype(np.int32)))
-    check(not cbr.staged(2048, 1024), "the wide case is staged")
+    check(cbr.group_plan(2048, 1024) == 0, "the wide case is held")
+
+    def shaped(n_, shape, span=1 << 12):
+        lanes_ = rand_lanes(n_, span, 0.4, shape)
+        qm_ = (t(rng.integers(0, 8, shape[0]).astype(np.int32)),
+               t(rng.integers(0, 8, shape[1]).astype(np.int32)))
+        return lanes_, qm_
+
+    ragged_group, qm_ragged = shaped(3001, (65, 33, 33))
+    tiny, qm_tiny = shaped(n, (2, 1, 1))
+    group8, qm_8 = shaped(n, (32, 16, 16))
+    yuv444, qm_444 = shaped(n, (64, 64, 64))
+    streamed, qm_streamed = shaped(500, (129, 10, 10))
+    check((cbr.group_plan(65, 33), cbr.group_plan(2, 1),
+           cbr.group_plan(32, 16), cbr.group_plan(64, 64),
+           cbr.group_plan(129, 10), cbr.group_plan(ly, lc))
+          == (32, 4, 8, 32, 0, 16), "the CBR cases miss a group size")
     cases = [  # name, lanes, budgets, scalar, pack prefix (None: no pack),
         # the quant matrix entries of the lanes (None: the encoder's)
         ("1080p CBR lanes, the fixture's budgets", tlanes, enc.budgets,
@@ -718,8 +759,18 @@ def check_cbr(torch, np, rng, dev, enc, tlanes):
         ("climbs past 3 steps", climb, t(climb_budgets), 1, None),
         ("ragged: 333 slices", ragged,
          enc.budgets[:333].contiguous(), scalar, None),
-        ("slices too large to stage (lanes from device memory)", wide,
-         budgets(64 * 6000, 4, 1, 64), 4, None, qm_wide),
+        ("slices too large for the registers (lanes from device memory)",
+         wide, budgets(64 * 6000, 4, 1, 64), 4, None, qm_wide),
+        ("ragged runs: 65 and 33 lanes, groups of 32", ragged_group,
+         budgets(3001 * 50, 1, 1, 3001), 1, None, qm_ragged),
+        ("tiny slices: 2 and 1 lanes, groups of 4", tiny,
+         budgets(n * 8, 1, 1, n), 1, None, qm_tiny),
+        ("32 and 16 lanes, groups of 8", group8, budgets(n * 20, 3, 1, n),
+         3, None, qm_8),
+        ("4:4:4 slices, groups of 32", yuv444, budgets(n * 60, 1, 1, n), 1,
+         None, qm_444),
+        ("129 and 10 lanes, a warp from device memory", streamed,
+         budgets(500 * 100, 2, 1, 500), 2, None, qm_streamed),
     ]
     n_cases, longest, no_fit = 0, {}, None
     for name, lanes, sizes, scalar_, prefix, *qm in cases:
@@ -743,7 +794,8 @@ def check_cbr(torch, np, rng, dev, enc, tlanes):
         n_cases += 1
         line = (f"  cbr {name}: {got.numel()} q indices equal, q "
                 f"{int(want.min())}-{int(want.max())}, longest climb "
-                f"{longest[name]}")
+                f"{longest[name]}, group "
+                f"{cbr.group_plan(lanes[0].shape[1], lanes[1].shape[1])}")
         if prefix is not None:
             scratch = dp.pack_scratch(got.numel(), ly, lc, dev)
             buf, pflags, _ = dp.quant_pack_hq(*lanes, got, *enc.qm, prefix,
@@ -759,7 +811,25 @@ def check_cbr(torch, np, rng, dev, enc, tlanes):
                                        "fits")
     check(longest["climbs past 3 steps"] > 3,
           "the climb case climbs no more than 3 steps")
-    print(f"cbr search kernel == plain: {n_cases} cases, q indices equal")
+    # the groups' redux.sync on their own masks against shuffles
+    lib = cbr._lib()
+    x = rng.integers(-(1 << 20), 1 << 20, 4096).astype(np.int32)
+    src = t(x)
+    for g in (4, 8, 16, 32):
+        out = torch.empty((4096 // g, 4), dtype=torch.int32, device=dev)
+        check(lib.hq_cbr_reduce_check_launch(
+            src.data_ptr(), out.data_ptr(), 4096, g,
+            torch.cuda.current_stream().cuda_stream) == 0,
+            "the reduction check did not launch")
+        got = out.cpu().numpy()
+        groups = x.reshape(-1, g)
+        check(np.array_equal(got[:, 0], groups.sum(1))
+              and np.array_equal(got[:, 1], got[:, 0])
+              and np.array_equal(got[:, 2], groups.max(1))
+              and np.array_equal(got[:, 3], got[:, 2]),
+              f"redux.sync on groups of {g} differs from the shuffles")
+    print(f"cbr search kernel == plain: {n_cases} cases, q indices equal; "
+          "redux.sync on groups of 4-32 == shuffles")
     return 0, n_cases, longest[cases[0][0]]
 
 
@@ -783,23 +853,30 @@ def ld_rate_grid(torch, np, rng, dev, kernel, depth, luma, chroma, grid,
                  span, budgets):
     """The arguments of ``ld_rate_control`` for seeded lanes of slices
     ``luma`` / ``chroma`` (height, width) at ``depth`` in a ``grid`` of
-    (rows, columns), values up to +-span (a third zero), budgets drawn from
-    [lo, hi) bytes."""
+    (rows, columns), values up to +-span (a third zero; span None: every
+    |v| in [171e6, 2e8], 0 by index 111 and not at the wrapped index 119,
+    with a quant matrix of 0), budgets drawn from [lo, hi) bytes."""
     from vc2tpu_torch.rdo import ld as rdo_ld
     from vc2tpu_torch.slices import layout
     from vc2tpu_torch.wavelet import matrices
 
     ts, n = 1 << depth, grid[0] * grid[1]
+    qmatrix = matrices.quant_matrix(kernel, depth)
     lanes, bands = [], []
     for h, w in (luma, chroma, chroma):
         _, band = layout.lane_order(h, w, depth)
         bands.append(tuple(int(c) for c in np.bincount(
             band, minlength=3 * depth + 1)))
-        v = rng.integers(-span, span + 1, (n, h * w))
-        v[rng.random(v.shape) < 0.3] = 0
+        if span is None:
+            v = rng.integers(171_000_000, 200_000_001, (n, h * w)) \
+                * rng.choice([-1, 1], (n, h * w))
+            qmatrix = np.zeros_like(qmatrix)
+        else:
+            v = rng.integers(-span, span + 1, (n, h * w))
+            v[rng.random(v.shape) < 0.3] = 0
         lanes.append(torch.as_tensor(v.astype(np.int32), device=dev))
     avail = rdo_ld.avail_bits(rng.integers(*budgets, n))
-    return (*lanes, matrices.quant_matrix(kernel, depth), bands[0], bands[1],
+    return (*lanes, qmatrix, bands[0], bands[1],
             torch.as_tensor(avail, device=dev), grid,
             (luma[0] // ts, luma[1] // ts), (chroma[0] // ts, chroma[1] // ts))
 
@@ -808,9 +885,10 @@ def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
     """The LD rate control kernel against its plain version, integer == on
     q and the three LL lane sets, and its q on the fixture's picture
     against the q indices the LD scan reads from ``ld_1080p.vc2``. The
-    plain version runs on the card for the fixture's budgets (its time is
-    the kernel line's ``plain_ms``) and on the host CPU for the other
-    cases, where its small per-diagonal ops cost less. Returns (max |err|,
+    plain version runs on the card for the 1080p lanes (its time at the
+    fixture's budgets is the kernel line's ``plain_ms``) and on the host
+    CPU for the other cases, where its small per-diagonal ops cost less.
+    Returns (max |err|,
     number of cases, the plain version's ms, the kernel's result on the
     fixture's picture)."""
     from vc2tpu_torch.core.config import WaveletKernel as K
@@ -833,17 +911,17 @@ def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
     for x, k in zip(zero_bodies, (nll[0], nll[1], nll[1])):
         x[:, k:] = 0
     big = (1 << 29) - 1
-    # large slices, staged, so few CTAs fit an SM: more rows than the card
-    # runs at once
-    resident = rdo_ld.resident_rows(1024, 1024, (1, 1), (1, 1))
-    cases = [  # name, arguments; the plain version on the card
+    # more rows than the card runs at once (the generic kernel, LL 1 x 1)
+    resident = rdo_ld.resident_rows(64, 64, (1, 1), (1, 1))
+    cases = [  # name, arguments; the plain version on the card (the
+        # first case's time is the kernel line's plain_ms)
         ("1080p LD lanes, the fixture's budgets",
          at_budget(tlanes, enc.avail_device), True),
         ("1080p LD lanes, budgets x0.25", at_budget(tlanes, scaled(0.25)),
-         False),
-        ("1080p LD lanes, budgets x4", at_budget(tlanes, scaled(4)), False),
+         True),
+        ("1080p LD lanes, budgets x4", at_budget(tlanes, scaled(4)), True),
         ("1080p LD lanes, all-zero bodies",
-         at_budget(zero_bodies, enc.avail_device), False),
+         at_budget(zero_bodies, enc.avail_device), True),
         ("Haar1 depth 1, a single slice", ld_rate_grid(
             torch, np, rng, dev, K.Haar1, 1, (4, 4), (4, 2), (1, 1), big,
             (6, 50)), False),
@@ -860,13 +938,47 @@ def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
             torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4), (9, 13),
             (1 << 28) - 1, (2, 3)), False),
         (f"{resident + 64} rows of one slice, {resident} resident",
-         ld_rate_grid(torch, np, rng, dev, K.LeGall, 5, (32, 32), (32, 32),
-                      (resident + 64, 1), 3000, (300, 700)), False),
-        ("LeGall depth 3, 64 x 64 slices too large to stage", ld_rate_grid(
+         ld_rate_grid(torch, np, rng, dev, K.LeGall, 3, (8, 8), (8, 8),
+                      (resident + 64, 1), 3000, (8, 80)), False),
+        ("LeGall depth 3, 64 x 64 slices (LL 8 x 8)", ld_rate_grid(
             torch, np, rng, dev, K.LeGall, 3, (64, 64), (64, 32), (5, 6),
             3000, (300, 4000)), False),
+        ("LeGall depth 2, lanes up to +-(2^31 - 1)", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4), (6, 10),
+            (1 << 31) - 1, (30, 600)), False),
+        ("body lanes 0 by index 111, non-zero at the wrapped 119",
+         ld_rate_grid(torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 4),
+                      (5, 7), None, (6, 400)), False),
+        ("4:4:4, 6 x 9 slices", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (8, 8), (8, 8), (6, 9), 3000,
+            (8, 80)), False),
+        ("4:2:0, 6 x 9 slices", ld_rate_grid(
+            torch, np, rng, dev, K.DD97, 2, (8, 8), (4, 4), (6, 9), 3000,
+            (8, 80)), False),
+        ("4:2:2 at -u 1, 12 x 20 slices", ld_rate_grid(
+            torch, np, rng, dev, K.LeGall, 2, (4, 8), (4, 4), (12, 20), 3000,
+            (4, 40)), False),
     ]
-    plain_ms, fixture, paths, staging = None, None, set(), set()
+    int16_past = False
+    for name, args, on_card in cases:     # the body table on its own
+        before = rdo_ld.body_table.launches
+        got = rdo_ld.body_table(*args[:6])
+        torch.cuda.synchronize()
+        check(rdo_ld.body_table.launches == before + 1,
+              f"ld_rate body table {name}: the kernel was not launched once")
+        if on_card:
+            want = rdo_ld.body_table_plain(*args[:6])
+        else:
+            want = rdo_ld.body_table_plain(*[a.cpu() for a in args[:3]],
+                                           *args[3:6])
+        check(bool(torch.equal(got.cpu(), want.cpu())),
+              f"ld_rate body table {name}: "
+              f"{int((got.cpu() != want.cpu()).sum())} entries differ")
+        int16_past = int16_past or int(want.max()) > (1 << 15) - 1
+    check(int16_past, "no body table case has entries past the int16 range")
+    print(f"ld_rate body table kernel == plain: {len(cases)} cases, every "
+          "slice and trial 0-127 equal")
+    plain_ms, fixture, paths = None, None, set()
     for name, args, on_card in cases:
         before = rdo_ld.ld_rate_control.launches
         got = rdo_ld.ld_rate_control(*args)
@@ -877,11 +989,12 @@ def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
         if on_card:
             want = rdo_ld.ld_rate_control_plain(*args)
             torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
         else:
             want = rdo_ld.ld_rate_control_plain(*[
                 a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
         secs = time.perf_counter() - t0
+        if fixture is None:     # the first case: the fixture's budgets
+            plain_ms, fixture = 1e3 * secs, got
         for g, w, part in zip(got, want, ("q", "LL y", "LL u", "LL v")):
             check(bool(torch.equal(g.cpu(), w.cpu())),
                   f"ld_rate {name}: {part} differs in "
@@ -889,25 +1002,17 @@ def check_ld_rate(torch, np, rng, dev, enc, tlanes, fixture_q):
         q = want[0].cpu()
         fixed = rdo_ld.fixed_shape(args[0].shape[1], args[1].shape[1],
                                    args[8], args[9])
-        staged = rdo_ld.staged(args[0].shape[1], args[1].shape[1], args[8],
-                               args[9])
-        paths.add(fixed)
-        staging.add(staged)
+        paths.add((tuple(args[8]), tuple(args[9])) if fixed else None)
         print(f"  ld_rate {name}: {q.numel()} slices in a {args[7]} grid "
               f"equal, q {int(q.min())}-{int(q.max())} ({int((q == 127).sum())}"
-              f" at 127), {'fixed-shape' if fixed else 'generic'} kernel"
-              f"{'' if staged else ', lanes unstaged'}; "
+              f" at 127), {'fixed-shape' if fixed else 'generic'} kernel; "
               f"plain {'on the card' if on_card else 'on the CPU'} "
               f"{secs:.1f} s")
         if name.startswith("budgets no q meets"):
             check(int((q == 127).sum()) > q.numel() // 2,
                   "the no-fit case has too few slices at q 127")
-        if on_card:
-            fixture = got
-    check(paths == {True, False}, "the ld_rate cases miss the fixed-shape "
-                                  "or the generic kernel")
-    check(staging == {True, False}, "the ld_rate cases miss the staged or "
-                                    "the unstaged lanes")
+    check(paths == {((2, 2), (2, 1)), ((1, 2), (1, 1)), None},
+          "the ld_rate cases miss a fixed-shape or the generic kernel")
     check(np.array_equal(fixture[0].cpu().numpy(), fixture_q),
           "the rate control's q on the 1080p picture differs from the q "
           "indices of ld_1080p.vc2")
@@ -1851,6 +1956,13 @@ def main(argv) -> int:
                      + 4 * sum(t.numel() for t in ld_encoder.qm)
                      + 4 * n_ld + 4 * n_ld * n_ll)
     ld_rate_bound, ld_rate_by = bound_ms(ld_rate_bytes, 7 * 15 * n_ld_lanes)
+    # its dependent chain: R + C - 1 slice steps, each at least the deepest
+    # LL block's cells (lh + lw - 1 of them) of LL_CELL_CHAIN dependent
+    # instructions at INT_LATENCY cycles, at the card's highest clock
+    ld_steps = lgeo.y_slices + lgeo.x_slices - 1
+    ll_depth = max(h + w - 1 for h, w in (ld_encoder.ll_y, ld_encoder.ll_c))
+    ld_rate_chain = (1e3 * ld_steps * ll_depth * LL_CELL_CHAIN * INT_LATENCY
+                     / max_sm_hz())
     # the LD pack: the transform lanes, the LL lanes, the q indices, the
     # sizes, the offsets and the quant matrix tables read once, the flags
     # and the payload written once; operations as the HQ pack's
@@ -1911,6 +2023,8 @@ def main(argv) -> int:
          "ms": times["cbr_ms"], "device_ms": times["cbr_device_ms"],
          "plain_ms": times["cbr_plain_ms"],
          "bound_ms": cbr_bound, "bound_by": cbr_by,
+         "group": cbr.group_plan(cbr_tlanes[0].shape[1],
+                                 cbr_tlanes[1].shape[1]),
          "library_ms": None},
         {"name": "ld_unpack", "route": "cuda",
          "source": "vc2tpu_torch/csrc/ld_unpack.cu",
@@ -1931,6 +2045,8 @@ def main(argv) -> int:
          "ms": times["ld_rate_ms"], "device_ms": times["ld_rate_device_ms"],
          "plain_ms": ld_rate_plain_ms,
          "bound_ms": ld_rate_bound, "bound_by": ld_rate_by,
+         "chain_bound_ms": ld_rate_chain,
+         "body_table_device_ms": times["ld_body_table_device_ms"],
          "step_us": times["ld_rate_step_us"], "library_ms": None},
         {"name": "ld_pack", "route": "cuda",
          "source": "vc2tpu_torch/csrc/ld_pack.cu",
@@ -1945,7 +2061,12 @@ def main(argv) -> int:
     ]
     print(f"cbr search at 1080p: {times['cbr_luma_passes']} luma error "
           f"passes over {cbr_slices} slices, longest climb {cbr_climb}")
-    steps = lgeo.y_slices + lgeo.x_slices - 1
+    steps = ld_steps
+    print(f"ld_rate body table kernel alone (the generic shapes' first "
+          f"launch): {times['ld_body_table_device_ms']:.4f} ms; chain bound "
+          f"{ld_rate_chain:.4f} ms ({steps} steps x "
+          f"{ll_depth} cells x {LL_CELL_CHAIN} instructions x {INT_LATENCY} "
+          f"cycles at {max_sm_hz() / 1e6:.0f} MHz) ({card})")
     print(f"ld_rate dependent step: {times['ld_rate_row_us']:.3f} us a slice "
           f"on the picture's first row ({lgeo.x_slices} slices, no waits), "
           f"{times['ld_rate_col_us']:.3f} us on its first column "
@@ -2067,10 +2188,13 @@ def ld_encode_times(torch, enc, tlanes, rate) -> dict:
     ``*_ms`` as the host issues one launch (the pack's with the read of its
     flags word), ``*_device_ms`` queued (the device's time alone),
     ``ld_pack_plain_ms`` of the plain pack on the card; and the rate
-    control's dependent step: the kernel on the picture's first row of
-    slices (one CTA, no waits) and on its first column (each slice waits
-    on the one above), device time per slice in microseconds
-    (``ld_rate_step_us`` the column's)."""
+    control's body table kernel alone (``ld_body_table_device_ms``: the
+    generic kernel's first launch; at 1080p the fixed-shape kernel's
+    producer warps do this work inside its one launch) and
+    its dependent step: the kernel on the picture's first row of slices
+    (one CTA, no waits) and on its first column (each slice waits on the
+    one above), device time per slice in microseconds (``ld_rate_step_us``
+    the column's)."""
     from vc2tpu_torch.rdo import ld as rdo_ld
     from vc2tpu_torch.vlc import device_pack as dp
 
@@ -2094,6 +2218,10 @@ def ld_encode_times(torch, enc, tlanes, rate) -> dict:
             *lanes, enc.qmatrix, enc.band_sizes_y, enc.band_sizes_c, avail,
             grid, enc.ll_y, enc.ll_c)
 
+    def table_fn():
+        return rdo_ld.launch_table(*tlanes, enc.qmatrix, enc.band_sizes_y,
+                                   enc.band_sizes_c)
+
     row_ms = time_device(torch, grid_fn(slice(0, cols), (1, cols)), 5,
                          queued=True)
     col_ms = time_device(torch, grid_fn(slice(0, None, cols), (rows, 1)), 5,
@@ -2101,6 +2229,8 @@ def ld_encode_times(torch, enc, tlanes, rate) -> dict:
     return {
         "ld_rate_ms": time_device(torch, rate_fn),
         "ld_rate_device_ms": time_device(torch, rate_fn, 5, queued=True),
+        "ld_body_table_device_ms": time_device(torch, table_fn, 5,
+                                               queued=True),
         "ld_rate_row_us": 1e3 * row_ms / cols,
         "ld_rate_col_us": 1e3 * col_ms / rows,
         "ld_rate_step_us": 1e3 * col_ms / rows,

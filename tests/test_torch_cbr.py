@@ -192,7 +192,91 @@ def test_params_header_matches_vc2tpu_tables():
     assert _header_values(text, "VC2_CBR_MAX_Q") == [
         len(jq.QUANT_FACTORS_I32) - 1]
     assert _header_values(text, "VC2_FLAG_QMAX") == [device_pack.FLAG_QMAX]
-    assert _header_values(text, "VC2_CBR_WARPS") == [cbr.WARPS]
+    assert _header_values(text, "VC2_CBR_THREADS") == [cbr.THREADS]
+    assert _header_values(text, "VC2_CBR_HOLD_Y") == [cbr.HOLD_Y]
+    assert _header_values(text, "VC2_CBR_HOLD_C") == [cbr.HOLD_C]
+    assert _header_values(text, "VC2_CBR_MIN_BLOCKS") == [cbr.MIN_BLOCKS]
+
+
+# (luma lanes, chroma lanes): the group csrc/hq_cbr.cu takes them with
+_GROUPS = {
+    (64, 32): 16,       # 1080p 4:2:2 at -u 2 -a 2
+    (32, 16): 8,        # the goldens' 4:2:2 slices
+    (2, 1): 4,          # tiny: threads past the last lane hold none
+    (8, 4): 4,
+    (65, 33): 32,       # ragged: 5 luma lanes a thread at 16 is too many
+    (64, 64): 32,       # 4:4:4
+    (64, 16): 16,       # 4:2:0
+    (100, 3): 32,
+    (128, 64): 32,
+    (129, 10): 0,       # too many for the registers: a warp, streamed
+    (2048, 1024): 0,
+}
+
+
+@pytest.mark.parametrize("shape", list(_GROUPS), ids=str)
+def test_group_plan_on_ragged_and_tiny_shapes(shape):
+    """The group of each slice shape, and the kernel's split of it: thread r
+    holds lanes [r k, min((r + 1) k, L)) of a component, k = ceil(L / g),
+    so the runs cover every lane once and fit the registers."""
+    ly, lc = shape
+    g = cbr.group_plan(ly, lc)
+    assert g == _GROUPS[shape]
+    if not g:
+        assert -(-ly // 32) > cbr.HOLD_Y or -(-lc // 32) > cbr.HOLD_C
+        return
+    for length, hold in ((ly, cbr.HOLD_Y), (lc, cbr.HOLD_C)):
+        k = -(-length // g)
+        runs = [range(r * k, min((r + 1) * k, length)) for r in range(g)]
+        assert k <= hold and [j for run in runs for j in run] == list(
+            range(length))
+    if g > 4:      # the next smaller group would not fit
+        h = g // 2
+        assert -(-ly // h) > cbr.HOLD_Y or -(-lc // h) > cbr.HOLD_C
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (32, 16), (2, 1), (65, 33),
+                                   (100, 3)], ids=str)
+def test_group_split_sizes_like_the_plain_version(shape):
+    """The kernel's sizing of a slice, modelled: each thread's code bits and
+    last non-zero lane over its run, summed and maxed over the group (the
+    two redux.sync a component), then the bytes; against
+    ``slice_bytes_plain`` at every q of a seeded set, lanes up to
+    +-(2^29 - 1) with a third zero."""
+    ly, lc = shape
+    g = cbr.group_plan(ly, lc)
+    rng = np.random.default_rng(ly * 100 + lc)
+    n, scalar = 50, 3
+    lanes = []
+    for length in (ly, lc, lc):
+        v = rng.integers(-(1 << 29) + 1, 1 << 29, (n, length))
+        v[rng.random(v.shape) < 0.3] = 0
+        v[::7] = 0
+        lanes.append(torch.from_numpy(v.astype(np.int32)))
+    qm = [torch.from_numpy(rng.integers(0, 8, k).astype(np.int32))
+          for k in (ly, lc)]
+    for q in (0, 17, 40, 63, 95, 126):
+        want = cbr.slice_bytes_plain(*lanes, *qm, torch.full((n,), q),
+                                     scalar)
+        total = 0
+        for x, qmc in zip(lanes, (qm[0], qm[1], qm[1])):
+            length = x.shape[1]
+            k = -(-length // g)
+            aq = tq.adjust_quant_index(torch.tensor(q), qmc.long()).clamp(
+                max=119)
+            r = tq.quant(x, aq[None, :]).long().abs()
+            nb = torch.where(r == 0, 1, 2 * torch.frexp(
+                (r + 1).double())[1].long())
+            bits = sum(nb[:, i * k:(i + 1) * k].sum(1) for i in range(g))
+            idx = torch.arange(length)
+            last = torch.stack([
+                torch.where(r[:, i * k:(i + 1) * k] != 0,
+                            idx[i * k:(i + 1) * k], -1).amax(1)
+                if i * k < length else torch.full((n,), -1)
+                for i in range(g)]).amax(0)
+            used = bits - (length - 1 - last)
+            total = total + ((used + 7) // 8 + scalar - 1) // scalar * scalar
+        assert torch.equal(total, want), q
 
 
 _U32, _U64 = (1 << 32) - 1, (1 << 64) - 1

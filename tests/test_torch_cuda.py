@@ -442,7 +442,8 @@ def test_golden_encodes_through_the_kernels(case, cuda, tmp_path):
 
 
 CBR_CASES = ["1080p_slices", "scalar2", "lanes_to_2^29", "zeros", "no_fit",
-             "climb_past_3", "ragged", "unstaged"]
+             "climb_past_3", "ragged", "unstaged", "ragged_group", "tiny",
+             "group8", "444", "streamed_129"]
 
 
 @pytest.mark.parametrize("case", CBR_CASES)
@@ -464,6 +465,16 @@ def test_cbr_kernel_matches_plain(case, cuda):
     elif case == "unstaged":
         n, lengths, span, scalar, per = 64, (2048, 1024, 1024), 1 << 16, 4, \
             6000
+    elif case == "ragged_group":    # runs of 3 and 2 lanes, the last shorter
+        n, lengths = 3001, (65, 33, 33)
+    elif case == "tiny":            # groups of 4 threads for 2 and 1 lanes
+        lengths, per = (2, 1, 1), 8
+    elif case == "group8":          # the goldens' slices
+        lengths, per = (32, 16, 16), 20
+    elif case == "444":
+        lengths, per = (64, 64, 64), 60
+    elif case == "streamed_129":    # one lane past the registers
+        n, lengths, per = 500, (129, 10, 10), 100
     lanes = []
     for length in lengths:
         v = rng.integers(-span, span + 1, (n, length))
@@ -487,7 +498,9 @@ def test_cbr_kernel_matches_plain(case, cuda):
               for h, w in ((8, 8), (8, 4))]
     t = [torch.from_numpy(x).to(cuda) for x in lanes]
     sizes = torch.from_numpy(budgets).to(cuda)
-    assert cbr.staged(*lengths[:2]) == (case != "unstaged")
+    assert cbr.group_plan(*lengths[:2]) == {
+        "unstaged": 0, "streamed_129": 0, "ragged_group": 32, "tiny": 4,
+        "group8": 8, "444": 32}.get(case, 16)
     flags = torch.zeros(1, dtype=torch.int64, device=cuda)
     launches = cbr.cbr_quant_indices.launches
     got = cbr.cbr_quant_indices(*t, *qm, sizes, scalar, flags=flags)
@@ -501,6 +514,28 @@ def test_cbr_kernel_matches_plain(case, cuda):
     if case == "climb_past_3":
         best = cbr.bisect_plain(*t, *qm, sizes, scalar)
         assert int((want.to(torch.int64) - best).max()) > 3
+
+
+@pytest.mark.parametrize("group", [4, 8, 16, 32])
+def test_cbr_group_reductions(group, cuda):
+    """redux.sync on a group's own mask, several groups a warp reaching it
+    apart, against log2(g) shuffles and against numpy (csrc/hq_cbr.cu's
+    reduction check)."""
+    rng = np.random.default_rng(group)
+    n = 4096
+    x = rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32)
+    src = torch.from_numpy(x).to(cuda)
+    out = torch.empty((n // group, 4), dtype=torch.int32, device=cuda)
+    assert cbr._lib().hq_cbr_reduce_check_launch(
+        src.data_ptr(), out.data_ptr(), n, group,
+        torch.cuda.current_stream().cuda_stream) == 0
+    got = out.cpu().numpy()
+    groups = x.reshape(-1, group)
+    # a group's values gain nothing from the syncs before its reductions
+    assert np.array_equal(got[:, 0], groups.sum(1)) and np.array_equal(
+        got[:, 1], got[:, 0])
+    assert np.array_equal(got[:, 2], groups.max(1)) and np.array_equal(
+        got[:, 3], got[:, 2])
 
 
 # name: (wavelet, depth, luma slice, chroma slice, grid, span, budget bytes)
@@ -519,15 +554,28 @@ LD_RATE_CASES = {
                (1 << 28) - 1, (2, 3)),
     "zero_bodies": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (9, 13), 3000,
                     (8, 40)),
-    # slices too large to stage: the lanes are read from device memory at
-    # every probe
+    # large slices (the generic kernel, LL blocks 8 x 8 and 8 x 4): body
+    # entries past the int16 range, 126 luma warps a slice in the table
     "unstaged": (WaveletKernel.LeGall, 3, (64, 64), (64, 32), (5, 6), 3000,
                  (300, 4000)),
-    # large slices, staged in shared memory, so few CTAs fit an SM; more
-    # rows than the card runs at once (the grid is set at run time): the
-    # later rows wait for a CTA and take the next ticket
-    "rows_past_residency": (WaveletKernel.LeGall, 5, (32, 32), (32, 32),
-                            None, 3000, (300, 700)),
+    # coefficients over the whole int32 range, INT_MIN among them
+    "lanes_to_2^31": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (6, 10),
+                      (1 << 31) - 1, (30, 600)),
+    # body lanes 0 by index 115 and non-zero at the wrapped factor 119:
+    # the table's warps skip the all-zero trials and stop at the wrap
+    "zero_then_wrapped": (WaveletKernel.LeGall, 2, (8, 8), (8, 4), (5, 7),
+                          None, (6, 400)),
+    # 4:4:4 and 4:2:0 slices: the generic kernel
+    "444": (WaveletKernel.LeGall, 2, (8, 8), (8, 8), (6, 9), 3000, (8, 80)),
+    "420": (WaveletKernel.DD97, 2, (8, 8), (4, 4), (6, 9), 3000, (8, 80)),
+    # 4:2:2 at -u 1: the other fixed-shape kernel
+    "fixed_1x2": (WaveletKernel.LeGall, 2, (4, 8), (4, 4), (12, 20), 3000,
+                  (4, 40)),
+    # more rows than the card runs at once (the generic kernel; the grid is
+    # set at run time): the later rows wait for a CTA and take the next
+    # ticket
+    "rows_past_residency": (WaveletKernel.LeGall, 3, (8, 8), (8, 8),
+                            None, 3000, (8, 80)),
 }
 
 
@@ -547,8 +595,15 @@ def _ld_rate_inputs(case, cuda):
         _, band = layout.lane_order(h, w, depth)
         bs.append(tuple(int(c) for c in np.bincount(band,
                                                     minlength=3 * depth + 1)))
-        v = rng.integers(-span, span + 1, (n, h * w))
-        v[rng.random(v.shape) < 0.3] = 0
+        if span is None:    # 4|v| in [683344693, 8e8] and quant matrix 0
+            v = rng.integers(171_000_000, 200_000_001, (n, h * w)) \
+                * rng.choice([-1, 1], (n, h * w))
+            qmatrix = np.zeros_like(qmatrix)
+        else:
+            v = rng.integers(-span, span + 1, (n, h * w))
+            v[rng.random(v.shape) < 0.3] = 0
+        if case == "lanes_to_2^31":
+            v[::5, -1] = -(1 << 31)
         if case == "zero_bodies":
             v[:, bs[-1][0]:] = 0
         lanes.append(torch.from_numpy(v.astype(np.int32)).to(cuda))
@@ -564,8 +619,10 @@ def test_ld_rate_kernel_matches_plain(case, cuda):
     the CPU, where its small per-diagonal ops cost less): integer == on q
     and the three LL lane sets."""
     args = _ld_rate_inputs(case, cuda)
-    assert rdo_ld.staged(args[0].shape[1], args[1].shape[1], args[8],
-                         args[9]) == (case != "unstaged")
+    assert rdo_ld.fixed_shape(args[0].shape[1], args[1].shape[1], args[8],
+                              args[9]) == (case not in (
+                                  "single_column", "unstaged",
+                                  "rows_past_residency", "444", "420"))
     launches = rdo_ld.ld_rate_control.launches
     got = rdo_ld.ld_rate_control(*args)
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
@@ -576,6 +633,25 @@ def test_ld_rate_kernel_matches_plain(case, cuda):
         assert torch.equal(g.cpu(), w)
     if case == "no_fit":
         assert int((want[0] == 127).sum()) > want[0].numel() // 2
+
+
+@pytest.mark.parametrize("case", list(LD_RATE_CASES))
+def test_ld_body_table_kernel_matches_plain(case, cuda):
+    """The LD rate control's body table on the card against its plain
+    version (on the CPU): integer ==, every slice and trial."""
+    args = _ld_rate_inputs(case, cuda)
+    launches = rdo_ld.body_table.launches
+    got = rdo_ld.body_table(*args[:6])
+    cpu = [a.cpu() for a in args[:3]]
+    want = rdo_ld.body_table_plain(*cpu, *args[3:6])
+    torch.cuda.synchronize()
+    assert rdo_ld.body_table.launches == launches + 1
+    assert torch.equal(got.cpu(), want)
+    if case == "unstaged":            # entries past the int16 range
+        assert int(want.max()) > (1 << 15) - 1
+    if case == "zero_then_wrapped":
+        assert not want[:, :, 111:119].any() and bool(
+            want[:, :, 119:127].all())
 
 
 LD_PACK_CASES = ["random", "codes_over_32_bits", "zeros", "uv_fit_flag",

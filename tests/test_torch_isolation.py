@@ -274,11 +274,11 @@ def test_libraries_are_keyed_by_their_shared_header(monkeypatch, tmp_path):
 
 def test_encode_libraries_are_keyed_by_their_shared_header():
     """The code writer and quotient of csrc/golomb_encode.cuh are included
-    by the three kernels that write or size codes, so they are hashed into
+    by the four kernels that write or size codes, so they are hashed into
     each library's name."""
     header = os.path.join(build.CSRC, "golomb_encode.cuh")
     for src in (device_pack.kernel_source(), device_pack.ld_kernel_source(),
-                rdo_ld.kernel_source()):
+                rdo_ld.kernel_source(), cbr.kernel_source()):
         assert header in build.included_headers(src.path), src.name
 
 

@@ -214,6 +214,24 @@ def _unpack_case(case):
     return payload.tobytes(), fields, 16, 8
 
 
+def test_decode_ld_slices_runs_on_the_card_unless_asked(monkeypatch):
+    """``decode_ld_slices`` runs on the card by default, as the entry points
+    do: without one it raises, unless given ``device="cpu"``, where it
+    decodes as ``vc2tpu.slices.ld.decode_ld_slices`` does."""
+    payload, sizes, start, geo = _payload_case("ld_legall_d2")
+    counts = (geo.luma_slice[0] * geo.luma_slice[1],
+              geo.chroma_slice[0] * geo.chroma_slice[1])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tld.decode_ld_slices(payload, sizes, counts, start)
+    got = tld.decode_ld_slices(payload, sizes, counts, start, device="cpu")
+    want = jld.decode_ld_slices(np.frombuffer(payload, np.uint8), sizes,
+                                counts, start)
+    assert np.array_equal(got[0], want[0]) and got[4] == want[4]
+    for g, w in zip(got[1:4], want[1:4]):
+        assert g.device.type == "cpu" and np.array_equal(g.numpy(), w)
+
+
 UNPACK_CASES = ["ld_legall_d2", "ld_midsize", "random_leads",
                 "oversized_luma", "cut_short"]
 

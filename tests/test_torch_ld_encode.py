@@ -30,6 +30,7 @@ from vc2tpu.core import config as jcfg
 from vc2tpu.core.intmath import intlog2
 from vc2tpu.pipeline import ld as jld
 from vc2tpu.quant import quantiser as jq
+from vc2tpu.rdo import cbr as jcbr
 from vc2tpu.rdo import ld as jrdo
 from vc2tpu.slices import layout as jlayout
 from vc2tpu.slices import ld as jslices
@@ -204,6 +205,150 @@ def test_ld_rate_control_all_zero_bodies():
     a["lanes"] = lanes
     for g, w in zip(_port_rc(a), want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _jax_body_entries(a, trial):
+    """The JAX package's body sizing at one trial for every slice: its
+    ``_body_nb`` and ``_trunc_count_1`` / ``_trunc_count_2`` (truncated
+    count where a body code is non-zero, else 0), luma and chroma."""
+    n = a["lanes"][0].shape[0]
+    absqf, blq, qfn, *_ = jrdo._tables_at(jnp.full((n,), trial, jnp.int32),
+                                          jnp.asarray(a["qm"]))
+    out = []
+    for parts, bs in (((a["lanes"][0],), a["bs_y"]),
+                      ((a["lanes"][1], a["lanes"][2]), a["bs_c"])):
+        tabs = tuple(jq.expand_bands(x[:, 1:], tuple(bs[1:]))
+                     for x in (absqf, blq, qfn))
+        nbs = [jrdo._body_nb(jcbr._magnitude_forms(jnp.asarray(
+            x[:, bs[0]:])), *tabs) for x in parts]
+        count, any_nz = (jrdo._trunc_count_1(*nbs[0]) if len(nbs) == 1
+                         else jrdo._trunc_count_2(*nbs[0], *nbs[1]))
+        out.append(np.where(np.asarray(any_nz), np.asarray(count), 0))
+    return out
+
+
+@pytest.mark.parametrize("case", list(_RC) + list(_RC_NATIVE))
+def test_body_table_plain_matches_vc2tpu(case):
+    """The body table at every trial 0-126 against the JAX package's body
+    sizing (``_body_nb``, ``_trunc_count_1/2``), integer ==; column 127 is
+    0."""
+    spec = _RC[case] if case in _RC else _RC_NATIVE[case]
+    _ref, a, _ = _rc_inputs(*spec)
+    got = rdo_ld.body_table_plain(*(_t(x) for x in a["lanes"]), a["qm"],
+                                  a["bs_y"], a["bs_c"]).numpy()
+    assert got.shape == (a["lanes"][0].shape[0], 2, rdo_ld.TRIALS)
+    for trial in range(rdo_ld.TRIALS - 1):
+        want_y, want_c = _jax_body_entries(a, trial)
+        np.testing.assert_array_equal(got[:, 0, trial], want_y, str(trial))
+        np.testing.assert_array_equal(got[:, 1, trial], want_c, str(trial))
+    assert not got[:, :, rdo_ld.TRIALS - 1].any()
+
+
+def _body_table_brute(lanes, qm, bs_y, bs_c):
+    """Every body lane quantised with the port's ``quant`` at every trial,
+    its truncated count (chroma interleaved), 0 where no body code is
+    non-zero: the body table with no shortcut."""
+    from vc2tpu_torch.quant import quantiser as tq
+
+    n = lanes[0].shape[0]
+    out = np.zeros((n, 2, rdo_ld.TRIALS), np.int64)
+    for c, (parts, bs) in enumerate((((lanes[0],), bs_y),
+                                     ((lanes[1], lanes[2]), bs_c))):
+        qm_body = torch.from_numpy(rdo_ld.lane_qm(qm, bs)[bs[0]:]
+                                   .astype(np.int64))
+        for trial in range(rdo_ld.TRIALS - 1):
+            aq = (trial - qm_body).clamp(0, 119)[None, :]
+            codes = [tq.quant(_t(x[:, bs[0]:]), aq) for x in parts]
+            row = codes[0] if c == 0 else golomb.interleave(*codes)
+            out[:, c, trial] = golomb.truncated_bits(row).numpy()
+    return out
+
+
+@pytest.mark.parametrize("case", ["full_range", "zero_then_wrapped",
+                                  "mixed"])
+def test_body_table_plain_over_the_int32_range(case):
+    """Values up to +-(2^31 - 1) and INT_MIN, at trials that reach every
+    index 0-119 (quant matrix entries 0-7): the body table against every
+    lane quantised at every trial. ``zero_then_wrapped``: lanes that are 0
+    by index 115 and non-zero again at the wrapped factors (116-119), so
+    the shortcut that skips the all-zero trials (112-115 here) must stop
+    at them."""
+    rng = np.random.default_rng(2042 + len(case))
+    n, ly, lc = 40, 20, 10
+    if case == "full_range":
+        lanes = [rng.integers(-(1 << 31), 1 << 31, (n, k)) for k in (ly, lc,
+                                                                    lc)]
+        lanes[0][0, 4] = -(1 << 31)
+    elif case == "zero_then_wrapped":      # 4|v| in [683344693, 8e8]
+        lanes = [rng.integers(171_000_000, 200_000_000, (n, k))
+                 * rng.choice([-1, 1], (n, k)) for k in (ly, lc, lc)]
+    else:
+        lanes = [np.where(rng.random((n, k)) < 0.1,
+                          rng.integers(-(1 << 31), 1 << 31, (n, k)),
+                          rng.integers(-300, 300, (n, k)))
+                 for k in (ly, lc, lc)]
+    lanes = [x.astype(np.int32) for x in lanes]
+    qm = rng.integers(0, 8, 4).astype(np.int32)
+    if case == "zero_then_wrapped":       # index = trial
+        qm[:] = 0
+    bs_y, bs_c = (4, 6, 6, 4), (2, 3, 3, 2)
+    got = rdo_ld.body_table_plain(*(_t(x) for x in lanes), qm, bs_y,
+                                  bs_c).numpy()
+    np.testing.assert_array_equal(got, _body_table_brute(lanes, qm, bs_y,
+                                                         bs_c))
+    if case == "zero_then_wrapped":       # 0 from 111, non-zero at 119
+        assert not got[:, :, 111:119].any() and got[:, :, 119:127].all()
+
+
+def _bisect_sequential(fits_at):
+    """The reference's loop (EncodeStream.cpp:203-223): delta 64, halved
+    before each probe; the probe at trialQ; bestQ the least trialQ that
+    fits; trialQ down by delta where it fits, else up; until delta is 0."""
+    trial, best, delta = 63, 127, 64
+    while True:
+        delta >>= 1
+        if fits_at(trial):
+            best = min(best, trial)
+            trial -= delta
+        else:
+            trial += delta
+        if delta == 0:
+            return best
+
+
+def _walk_masks():
+    """127-trial fits masks: seeded random ones at several densities; every
+    one of the 2^7 outcomes of the 7 probes, the probed trials set to that
+    outcome over a random rest; all, none, and every threshold either
+    way."""
+    rng = np.random.default_rng(7)
+    masks = [rng.random(127) < p for p in (0.1, 0.5, 0.9)
+             for _ in range(200)]
+    for outcome in range(128):
+        for _ in range(3):
+            m = rng.random(127) < 0.5
+            trial = 63
+            for k, delta in enumerate(rdo_ld.PROBES):
+                m[trial] = bool(outcome >> k & 1)
+                trial += -delta if m[trial] else delta
+            masks.append(m)
+    masks += [np.ones(127, bool), np.zeros(127, bool)]
+    for k in range(128):
+        masks += [np.arange(127) >= k, np.arange(127) < k]
+    return np.stack(masks)
+
+
+def test_walk_fits_matches_the_sequential_bisection():
+    """``walk_fits`` on a mask picks what the reference's sequential
+    bisection picks, for monotone and non-monotone masks alike; a 128th
+    column (trial 127, never probed) changes nothing."""
+    masks = _walk_masks()
+    want = [_bisect_sequential(lambda t, m=m: bool(m[t])) for m in masks]
+    got = rdo_ld.walk_fits(torch.from_numpy(masks))
+    assert got.tolist() == want
+    padded = np.concatenate([masks, np.ones((len(masks), 1), bool)], 1)
+    assert rdo_ld.walk_fits(torch.from_numpy(padded)).tolist() == want
+    assert set(want) >= {0, 126, 127}
 
 
 def test_avail_bits_match_vc2tpu():

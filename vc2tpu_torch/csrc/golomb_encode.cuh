@@ -32,15 +32,28 @@ __device__ __forceinline__ uint32_t magnitude(int32_t v) {
 // a 64-bit divide would end the straight-line code the compiler
 // interleaves; the packs quantise with it too.
 //
-// csrc/hq_cbr.cu keeps its own form: two 32 x 32 products below |v| =
-// 2^30, a 64-bit divide above. On the H100 this one made that search
-// 10-14 % slower, and forming these high bits from two products of m made
-// the LD rate control 5 % slower (chip_smoke.py's kernel times).
+// small_quotient below is shorter but holds for |v| < 2^30 only: the CBR
+// search and the LD body sizing take it where every lane a thread or warp
+// sizes is below that. On the H100 this 64-bit form made the CBR search
+// 10-14 % slower than small_quotient with a 64-bit divide above 2^30, and
+// forming its high bits from two products of m made the LD rate
+// control's recurrence 5 % slower (chip_smoke.py's kernel times).
 __device__ __forceinline__ uint32_t quotient(uint32_t m, uint32_t af,
                                              unsigned long long rc) {
   const unsigned long long n = static_cast<unsigned long long>(m) << 2;
   const unsigned long long q = __umul64hi(n, rc);
   return static_cast<uint32_t>(q - (q * af > n ? 1ull : 0ull));
+}
+
+// The same quotient for m < 2^30 only: n = m << 2 fits 32 bits, and the
+// high 64 bits of n * rc from two 32 x 32 products (the low product's
+// carry left out) are exact there.
+__device__ __forceinline__ uint32_t small_quotient(uint32_t m,
+                                                   unsigned long long rc) {
+  const uint32_t n = m << 2;
+  return static_cast<uint32_t>(
+      (static_cast<unsigned long long>(n) * static_cast<uint32_t>(rc >> 32) +
+       __umulhi(n, static_cast<uint32_t>(rc))) >> 32);
 }
 
 // quant(v, q) of vc2tpu_torch/quant/quantiser.py: sign(v) * ((|v| << 2) /

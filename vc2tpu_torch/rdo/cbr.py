@@ -20,9 +20,10 @@ d * d, d = lane - scale(quant(lane)) formed in int32, wrapping, before it
 is widened. The budgets (``layout.slice_bytes_map``) exclude the slice
 prefix, so only the qIndex and three length bytes come off them.
 
-CUDA lanes go through one launch of ``csrc/hq_cbr.cu`` (a warp a slice,
-every probe and climb step on the chip, no host round trip); CPU lanes
-through ``cbr_quant_indices_plain``. A result above 119 (no q fits, or a
+CUDA lanes go through one launch of ``csrc/hq_cbr.cu`` (a group of 4-32
+threads a slice holding its lanes in registers, ``group_plan``; every
+probe and climb step on the chip, no host round trip); CPU lanes through
+``cbr_quant_indices_plain``. A result above 119 (no q fits, or a
 climb past it) is an error of the encoder's; the search reports it in a
 flags word (``device_pack.FLAG_QMAX``) that the pack's one
 synchronisation reads.
@@ -44,8 +45,14 @@ from vc2tpu_torch.vlc import device_pack
 from vc2tpu_torch.vlc.golomb import signed_codes
 
 PROBES = (32, 16, 8, 4, 2, 1, 0)   # the deltas after each of the 7 probes
-WARPS = 8                # slices a CTA of csrc/hq_cbr.cu, a warp each
-STAGE_BYTES = 40960      # shared memory a CTA may stage its slices' lanes in
+# csrc/hq_cbr.cu's work split (generated into its header), from the 1080p
+# CBR picture on the H100 (PERF.md): 256 threads a CTA, six CTAs an
+# SM (40 registers a thread), a thread holding at most 4 luma and 2 + 2
+# chroma lanes, so a 1080p slice takes a group of 16
+THREADS = 256
+HOLD_Y = 4               # luma lanes a thread of a group holds in registers
+HOLD_C = 2               # lanes of each chroma component it holds
+MIN_BLOCKS = 6           # CTAs an SM holds at once (caps the registers)
 
 
 def _check(y, u, v, qm_y, qm_c, budgets):
@@ -123,15 +130,22 @@ def cbr_quant_indices_plain(y, u, v, qm_y, qm_c, budgets, scalar: int):
     return q.to(torch.int32)
 
 
-def staged(ly: int, lc: int) -> bool:
-    """Whether csrc/hq_cbr.cu keeps each slice's lanes in shared memory
-    (else every probe reads them from device memory again)."""
-    return 4 * WARPS * (ly + 2 * lc) <= STAGE_BYTES
+def group_plan(ly: int, lc: int) -> int:
+    """Threads a slice in csrc/hq_cbr.cu for slices of ``ly`` luma and
+    ``lc`` chroma lanes: the fewest (a power of two, 4 to 32) whose
+    contiguous runs, one of each component a thread, fit its registers
+    (``HOLD_Y`` luma, ``HOLD_C`` of each chroma component); 0 where none
+    does, and a warp a slice then reads the lanes from device memory at
+    every probe."""
+    for g in (4, 8, 16, 32):
+        if -(-ly // g) <= HOLD_Y and -(-lc // g) <= HOLD_C:
+            return g
+    return 0
 
 
 def params_header() -> str:
-    """``hq_cbr_params.h`` for csrc/hq_cbr.cu: its work split, the flag it
-    sets, the int32-wrapped quant factors and offsets
+    """``hq_cbr_params.h`` for csrc/hq_cbr.cu: its CTA size and register
+    runs, the flag it sets, the int32-wrapped quant factors and offsets
     (``quantiser.QUANT_FACTORS_I32``, ``QUANT_OFFSETS``) and the
     reciprocals of the factors' magnitudes
     (``device_pack.quant_reciprocals``)."""
@@ -141,8 +155,10 @@ def params_header() -> str:
                        for r in device_pack.quant_reciprocals())
     return ("// Generated by vc2tpu_torch.rdo.cbr.params_header().\n"
             "#pragma once\n"
-            f"#define VC2_CBR_WARPS {WARPS}\n"
-            f"#define VC2_CBR_STAGE_BYTES {STAGE_BYTES}\n"
+            f"#define VC2_CBR_THREADS {THREADS}\n"
+            f"#define VC2_CBR_HOLD_Y {HOLD_Y}\n"
+            f"#define VC2_CBR_HOLD_C {HOLD_C}\n"
+            f"#define VC2_CBR_MIN_BLOCKS {MIN_BLOCKS}\n"
             f"#define VC2_CBR_MAX_Q {MAX_QINDEX}\n"
             f"#define VC2_FLAG_QMAX {device_pack.FLAG_QMAX}\n"
             f"#define VC2_QUANT_FACTORS {factors}\n"
@@ -160,6 +176,9 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hq_cbr_launch.argtypes = [p, p, p, i, i, p, p, p, i, i, i, p, p, p]
     lib.hq_cbr_launch.restype = i
+    # the card check of the groups' reductions (chip_smoke.py, the tests)
+    lib.hq_cbr_reduce_check_launch.argtypes = [p, p, i, i, p]
+    lib.hq_cbr_reduce_check_launch.restype = i
     return lib
 
 
@@ -170,7 +189,7 @@ def launch_search(y, u, v, qm_y, qm_c, budgets, scalar: int, flags=None):
     out = torch.empty(n, dtype=torch.int32, device=y.device)
     rc = _lib().hq_cbr_launch(
         y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, qm_y.data_ptr(),
-        qm_c.data_ptr(), budgets.data_ptr(), n, scalar, int(staged(ly, lc)),
+        qm_c.data_ptr(), budgets.data_ptr(), n, scalar, group_plan(ly, lc),
         out.data_ptr(), None if flags is None else flags.data_ptr(),
         torch.cuda.current_stream(y.device).cuda_stream)
     if rc:

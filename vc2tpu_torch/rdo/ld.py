@@ -21,12 +21,23 @@ its last non-zero code, in lane order), chroma interleaved u0 v0 u1 v1.
 After the search, the requantise at best gives the LL lanes and the
 reconstructions the later slices read.
 
+The search is split in two. The body lanes (every lane after the LL
+block) are quantised on their own, so their share of a probe's bits at
+each of the 127 trials 0-126 is a table computed before the search
+(``body_table_plain``): nothing in it depends on a neighbour. The LL
+recurrence is then run at every trial at once, the fits of the 127 trials
+form a mask, and the bisection's 7 probes read it (``walk_fits``): the
+probes visit a binary search tree over 0-126, so the walk needs no
+monotonicity and picks what the sequential bisection picks.
+
 ``ld_rate_control_plain`` walks the anti-diagonals of the slice grid, every
 slice of a diagonal in lockstep (R + C - 1 steps, 374 at 1080p).
-``ld_rate_control`` launches ``csrc/ld_rate.cu`` for CUDA lanes (a warp a
-slice row; rows wait on the row above through device memory) and runs the
-plain version for CPU lanes. Quantisation divides exactly (the port's
-``quant``); the JAX package's float32 reciprocal was a TPU form.
+``ld_rate_control`` launches ``csrc/ld_rate.cu`` for CUDA lanes (at 1080p
+one launch: a CTA a slice row, a thread a trial, and warps that size the
+row's body lanes ahead of it; rows wait on the row above through device
+memory) and runs the plain version for CPU lanes. Quantisation divides
+exactly (the port's ``quant``); the JAX package's float32 reciprocal was a
+TPU form.
 """
 
 from __future__ import annotations
@@ -42,10 +53,16 @@ from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import (MAX_QINDEX, QUANT_FACTORS_I32,
                                          QUANT_OFFSETS, _scale_core)
 from vc2tpu_torch.vlc import device_pack
-from vc2tpu_torch.vlc.golomb import interleave, truncated_bits
+from vc2tpu_torch.vlc.golomb import _code_bits, interleave, truncated_bits
 
 PROBES = (32, 16, 8, 4, 2, 1, 0)   # the deltas after each of the 7 probes
-STAGE_BYTES = 40960      # shared memory a row's CTA may stage a slice in
+TRIALS = 128             # a body table row: trials 0-126, and 127 (unused)
+MONOTONE_MAX = 115       # the factors rise with the index up to here
+# the least |factor| of the wrapped indices 116-119: a lane of |v| << 2
+# below it quantises to 0 there
+WRAP_MIN = int(np.abs(QUANT_FACTORS_I32[MONOTONE_MAX + 1:].astype(
+    np.int64)).min())
+STAGE_BYTES = 40960      # shared memory of the generic kernel's row CTA
 
 
 def avail_bits(budgets) -> np.ndarray:
@@ -179,51 +196,124 @@ class _LLBand:
             rec[rows, cols] = pad[c, :, 1:lh + 1, 1:lw + 1]
 
 
+def body_table_plain(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
+    """The body lanes' share of a probe's bits at every trial, int32 [N, 2,
+    TRIALS] on the lanes' device: [:, 0, t] luma, [:, 1, t] chroma (u and v
+    interleaved), at trial t in 0-126 (column 127 is 0). An entry is the
+    component's body code bits up to its last non-zero body code (what
+    ``by - (body_y - 1 - last_y)`` is in csrc/ld_rate.cu), 0 where every
+    body code is 0. Each body lane is quantised at clamp(t - qm[lane], 0,
+    119).
+
+    Up to index 115 a lane's magnitude does not rise with the index, so
+    once every lane is 0 the trials up to the wrapped factors (116-119,
+    ``WRAP_MIN``) are 0 too and are skipped; those the wrapped factors
+    reach are computed."""
+    dev = lanes_y.device
+    n = lanes_y.shape[0]
+    table = torch.zeros((n, 2, TRIALS), dtype=torch.int32, device=dev)
+    absqf = torch.as_tensor(np.abs(QUANT_FACTORS_I32.astype(np.int64)),
+                            device=dev)
+    qm_np = np.asarray(qm, np.int64)
+    for c, (parts, bs) in enumerate((((lanes_y,), bs_y),
+                                     ((lanes_u, lanes_v), bs_c))):
+        nll = bs[0]
+        nums = [x[:, nll:].to(torch.int64).abs() << 2 for x in parts]
+        body = nums[0].shape[1]
+        if not body:
+            continue
+        qm_body = torch.as_tensor(lane_qm(qm_np, bs)[nll:].astype(np.int64),
+                                  device=dev)
+        pos = torch.arange(body, device=dev)
+        # each lane's position in code order (chroma: u0 v0 u1 v1 ...)
+        where = [pos] if c == 0 else [2 * pos, 2 * pos + 1]
+        big = sum((x >= WRAP_MIN).any(0).to(torch.int64) for x in nums) > 0
+        wrap_at = int((qm_body[big] + MONOTONE_MAX + 1).min()) \
+            if bool(big.any()) else TRIALS - 1
+        last_monotone = MONOTONE_MAX + int(qm_body.min())
+        t = 0
+        while t < TRIALS - 1:
+            aq = (t - qm_body).clamp(0, MAX_QINDEX)
+            excess, last, any_nz = 0, -1, False
+            for num, p in zip(nums, where):
+                mag = num // absqf[aq]
+                nz = mag != 0
+                excess = excess + torch.where(nz, _code_bits(mag) - 1,
+                                              0).sum(1)
+                last = torch.maximum(torch.as_tensor(last, device=dev),
+                                     torch.where(nz, p, -1).amax(1))
+                any_nz = any_nz or bool(nz.any())
+            table[:, c, t] = torch.where(last >= 0, excess + last + 1,
+                                         0).to(torch.int32)
+            t += 1
+            if not any_nz and t - 1 <= last_monotone:
+                t = max(t, wrap_at)
+    return table
+
+
+def walk_fits(fits):
+    """The reference's bisection over a fits mask: ``fits`` bool [K, T >=
+    127] says whether each slice fits at each trial; returns the best index
+    of each slice, int64 [K]. Trial 63, best 127; after each probe best =
+    trial where it fits and trial < best, then trial -= delta where it
+    fits, else += delta, for delta 32, 16, 8, 4, 2, 1, 0."""
+    trial = torch.full((fits.shape[0],), 63, dtype=torch.int64,
+                       device=fits.device)
+    best = torch.full_like(trial, 127)
+    for delta in PROBES:
+        f = fits.gather(1, trial[:, None])[:, 0]
+        best = torch.where(f & (trial < best), trial, best)
+        trial = torch.where(f, trial - delta, trial + delta)
+    return best
+
+
+def _ll_counts(codes):
+    """(gross bits, bits up to the last non-zero code) of each row of LL
+    codes in code order, int64 [K] each."""
+    return _code_bits(codes).sum(1), truncated_bits(codes)
+
+
 def ld_rate_control_plain(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
                           grid_shape, ll_y_shape, ll_c_shape):
-    """Plain PyTorch version of ``ld_rate_control``, on any device: one step
-    a diagonal of the slice grid, its slices in lockstep."""
+    """Plain PyTorch version of ``ld_rate_control``, on any device: the
+    body table, then one step a diagonal of the slice grid, its slices in
+    lockstep, each running its LL recurrence at every trial at once and
+    walking the fits mask."""
     lanes = (lanes_y, lanes_u, lanes_v)
     band_sizes = (tuple(bs_y), tuple(bs_c), tuple(bs_c))
     ll_shapes = (tuple(ll_y_shape), tuple(ll_c_shape), tuple(ll_c_shape))
     _check(lanes, qm, band_sizes, avail, grid_shape, ll_shapes)
     rows, cols = grid_shape
     dev = lanes_y.device
-    qm_np = np.asarray(qm, np.int64)
-    body_qm = [torch.as_tensor(lane_qm(qm_np, bs)[bs[0]:].astype(np.int64),
-                               device=dev) for bs in band_sizes[:2]]
-    band = _LLBand(lanes, ll_shapes, int(qm_np[0]), rows, cols)
+    table = body_table_plain(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c).to(
+        torch.int64)
+    band = _LLBand(lanes, ll_shapes, int(np.asarray(qm)[0]), rows, cols)
     n = rows * cols
     q_out = torch.empty(n, dtype=torch.int32, device=dev)
     ll_out = [torch.empty((n, lh * lw), dtype=torch.int32, device=dev)
               for lh, lw in ll_shapes]
     avail64 = avail.to(torch.int64)
-    absqf_t = band.tables[1]
+    trials = torch.arange(TRIALS, device=dev)
     for d in range(rows + cols - 1):
         v = torch.arange(max(0, d - cols + 1), min(rows - 1, d) + 1,
                          device=dev)
         h = d - v
         s = v * cols + h
-        # |lane| << 2, the quotient's numerator, of each body lane
-        num = [x[s, lh * lw:].to(torch.int64).abs() << 2
-               for x, (lh, lw) in zip(lanes, ll_shapes)]
+        k = s.numel()
         pad = band.borders(v, h)
-        trial = torch.full_like(v, 63)
-        best = torch.full_like(v, 127)
-        fit_at = avail64[s]
-        for delta in PROBES:
-            ll = band.trial(s, v, h, pad, trial)
-            # a code's bits depend on its magnitude alone
-            div = [absqf_t[(trial[:, None] - qm[None, :]).clamp(0,
-                                                                MAX_QINDEX)]
-                   for qm in body_qm]
-            y = torch.cat([ll[0].abs(), num[0] // div[0]], 1)
-            u = torch.cat([ll[1].abs(), num[1] // div[1]], 1)
-            w = torch.cat([ll[2].abs(), num[2] // div[1]], 1)
-            fits = truncated_bits(y) + truncated_bits(interleave(u, w)) \
-                <= fit_at
-            best = torch.where(fits & (trial < best), trial, best)
-            trial = torch.where(fits, trial - delta, trial + delta)
+        # every trial of every slice: row i * TRIALS + t is slice i at t
+        ll = band.trial(s.repeat_interleave(TRIALS),
+                        v.repeat_interleave(TRIALS),
+                        h.repeat_interleave(TRIALS),
+                        pad.repeat_interleave(TRIALS, 1), trials.repeat(k))
+        gy, cy = (x.view(k, TRIALS) for x in _ll_counts(ll[0]))
+        gc, cc = (x.view(k, TRIALS) for x in _ll_counts(interleave(ll[1],
+                                                                     ll[2])))
+        ey, ec = table[s, 0], table[s, 1]
+        bits = torch.where(ey > 0, gy + ey, cy) + torch.where(ec > 0,
+                                                              gc + ec, cc)
+        fits = (bits <= avail64[s, None]) & (trials < TRIALS - 1)
+        best = walk_fits(fits)
         codes = band.trial(s, v, h, pad, best)
         band.keep(v, h, pad)
         for out, c in zip(ll_out, codes):
@@ -233,9 +323,11 @@ def ld_rate_control_plain(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
 
 
 def params_header() -> str:
-    """``ld_rate_params.h`` for csrc/ld_rate.cu: the int32-wrapped quant
-    factors and offsets (``quantiser.QUANT_FACTORS_I32``, ``QUANT_OFFSETS``)
-    and the reciprocals of the factors' magnitudes
+    """``ld_rate_params.h`` for csrc/ld_rate.cu: its shared-memory limit
+    and table width, the index range where the factors rise and the least
+    wrapped factor, the int32-wrapped quant factors and offsets
+    (``quantiser.QUANT_FACTORS_I32``, ``QUANT_OFFSETS``) and the
+    reciprocals of the factors' magnitudes
     (``device_pack.quant_reciprocals``)."""
     factors = ", ".join(str(int(f)) for f in QUANT_FACTORS_I32)
     offsets = ", ".join(str(int(o)) for o in QUANT_OFFSETS)
@@ -244,6 +336,9 @@ def params_header() -> str:
     return ("// Generated by vc2tpu_torch.rdo.ld.params_header().\n"
             "#pragma once\n"
             f"#define VC2_LD_STAGE_BYTES {STAGE_BYTES}\n"
+            f"#define VC2_LD_TRIALS {TRIALS}\n"
+            f"#define VC2_MONOTONE_MAX {MONOTONE_MAX}\n"
+            f"#define VC2_WRAP_MIN {WRAP_MIN}ull\n"
             f"#define VC2_QUANT_FACTORS {factors}\n"
             f"#define VC2_QUANT_OFFSETS {offsets}\n"
             f"#define VC2_QUANT_RECIPROCALS {recips}\n")
@@ -257,10 +352,12 @@ def kernel_source() -> build.Source:
 def _lib():
     lib = build.load(kernel_source())
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ld_rate_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, p, i, i,
+    lib.ld_body_table_launch.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p]
+    lib.ld_body_table_launch.restype = i
+    lib.ld_rate_launch.argtypes = [p, p, p, i, i, p, p, i, i, i, i, p, p, i,
                                    i, p, p, p, p, p, p]
     lib.ld_rate_launch.restype = i
-    lib.ld_rate_resident.argtypes = [i] * 7
+    lib.ld_rate_resident.argtypes = [i] * 6
     lib.ld_rate_resident.restype = i
     lib.ld_rate_fixed_shape.argtypes = [i] * 6
     lib.ld_rate_fixed_shape.restype = i
@@ -269,21 +366,22 @@ def _lib():
 
 def fixed_shape(ly: int, lc: int, ll_y_shape, ll_c_shape) -> bool:
     """Whether csrc/ld_rate.cu runs these shapes on a kernel compiled for
-    their LL blocks (4:2:2 at -a 2 with -u 2, as at 1080p, or -u 1), whose
-    probes keep every value in registers, rather than its generic
-    kernel."""
+    their LL blocks (4:2:2 at -a 2 with -u 2, as at 1080p, or -u 1, and at
+    most 64 luma and 32 chroma body lanes): a thread a trial with every LL
+    value in registers, and producer warps that size the body lanes ahead
+    of it; else its generic kernel (a warp a row, the probes one after
+    another) after the body table's launch."""
     return bool(_lib().ld_rate_fixed_shape(ly, lc, *ll_y_shape,
                                            *ll_c_shape))
 
 
 def resident_rows(ly: int, lc: int, ll_y_shape, ll_c_shape,
                   device=None) -> int:
-    """The slice rows (CTAs of csrc/ld_rate.cu) the card runs at once for
-    these shapes: its SMs times the CTAs one SM holds. A grid of more rows
-    makes later rows wait for a CTA to finish and take the next ticket."""
-    n = _lib().ld_rate_resident(
-        ly, lc, *ll_y_shape, *ll_c_shape,
-        int(staged(ly, lc, ll_y_shape, ll_c_shape)))
+    """The slice rows (CTAs of csrc/ld_rate.cu's wavefront) the card runs
+    at once for these shapes: its SMs times the CTAs one SM holds. A grid
+    of more rows makes later rows wait for a CTA to finish and take the
+    next ticket."""
+    n = _lib().ld_rate_resident(ly, lc, *ll_y_shape, *ll_c_shape)
     if n < 0:
         raise RuntimeError(f"ld_rate occupancy query failed: CUDA error {-n}")
     props = torch.cuda.get_device_properties(device or 0)
@@ -297,33 +395,67 @@ def _lane_tables(qm_key: tuple, bs_y: tuple, bs_c: tuple,
                  for bs in (bs_y, bs_c))
 
 
-def scratch_ints(rows: int, cols: int, ll_shapes) -> int:
-    """int32 words of a launch's scratch: the row ticket, each row's
-    progress, and each component's bottom LL row of every slice."""
-    return 1 + rows + rows * cols * sum(lw for _lh, lw in ll_shapes)
+def scratch_words(rows: int, cols: int, ll_shapes) -> int:
+    """int64 words of the wavefront's scratch: the row ticket, then each
+    component's bottom LL row of every slice, a value and its ready tag a
+    word."""
+    return 1 + rows * cols * sum(lw for _lh, lw in ll_shapes)
 
 
 def ll_bytes(ll_y_shape, ll_c_shape) -> int:
-    """Shared memory a CTA of csrc/ld_rate.cu needs for its LL recurrences:
-    each component's code bits and reconstructions of a trial, and the
-    borders of its slice."""
-    return 4 * sum(2 * lh * lw + lh + lw for lh, lw in
-                   (ll_y_shape, ll_c_shape, ll_c_shape))
+    """Shared memory a CTA of the generic kernel needs: each component's
+    code bits and reconstructions of a trial and the borders of its slice,
+    and the slice's body table row."""
+    return 4 * (sum(2 * lh * lw + lh + lw for lh, lw in
+                    (ll_y_shape, ll_c_shape, ll_c_shape)) + 2 * TRIALS)
 
 
-def staged(ly: int, lc: int, ll_y_shape, ll_c_shape) -> bool:
-    """Whether csrc/ld_rate.cu keeps the quant matrix entries and two
-    slices' lanes (the current one and the next, copied while the current
-    one is searched) in shared memory, else it reads them from device
-    memory at every probe."""
-    return (4 * (3 * ly + 5 * lc) + ll_bytes(ll_y_shape, ll_c_shape)
-            <= STAGE_BYTES)
+def launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
+    """One launch of csrc/ld_rate.cu's body table on CUDA tensors (checked
+    by the caller), not synchronised. Returns the table, int32 [N, 2,
+    TRIALS] (33.2 MB at 1080p)."""
+    n, ly, lc = lanes_y.shape[0], lanes_y.shape[1], lanes_u.shape[1]
+    dev = lanes_y.device
+    table = torch.empty((n, 2, TRIALS), dtype=torch.int32, device=dev)
+    qm_y, qm_c = _lane_tables(tuple(int(x) for x in qm), tuple(bs_y),
+                              tuple(bs_c), dev)
+    rc = _lib().ld_body_table_launch(
+        lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly, lc,
+        bs_y[0], bs_c[0], qm_y.data_ptr(), qm_c.data_ptr(), n,
+        table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"ld_rate body table launch failed: CUDA error "
+                           f"{rc}")
+    return table
+
+
+def body_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
+    """The body table of ``ld_rate_control``'s arguments (see
+    ``body_table_plain``): CUDA lanes through one launch of csrc/ld_rate.cu's
+    table kernel, not synchronised, counted in ``body_table.launches``; CPU
+    lanes through ``body_table_plain``."""
+    if lanes_y.device.type == "cpu":
+        return body_table_plain(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c)
+    if lanes_y.device.type != "cuda":
+        raise ValueError(f"body_table: unsupported device {lanes_y.device}")
+    for t in (lanes_y, lanes_u, lanes_v):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError("body_table: lanes must be contiguous int32 "
+                             "[N, L]")
+    table = launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c)
+    body_table.launches += 1
+    return table
+
+
+body_table.launches = 0
 
 
 def launch_rate(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
                 grid_shape, ll_y_shape, ll_c_shape):
-    """The one launch of csrc/ld_rate.cu on CUDA tensors (checked by the
-    caller), not synchronised. Returns (q, ll_qy, ll_qu, ll_qv)."""
+    """The launch of csrc/ld_rate.cu's wavefront on CUDA tensors (checked
+    by the caller), not synchronised; for shapes without a fixed-shape
+    kernel, the body table's launch before it. Returns (q, ll_qy, ll_qu,
+    ll_qv)."""
     rows, cols = grid_shape
     n, ly, lc = lanes_y.shape[0], lanes_y.shape[1], lanes_u.shape[1]
     dev = lanes_y.device
@@ -333,21 +465,22 @@ def launch_rate(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
                          "kernel's shared memory")
     qm_y, qm_c = _lane_tables(tuple(int(x) for x in qm), tuple(bs_y),
                               tuple(bs_c), dev)
+    table = None if fixed_shape(ly, lc, ll_y_shape, ll_c_shape) else \
+        launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c)
     ll_shapes = (ll_y_shape, ll_c_shape, ll_c_shape)
     q = torch.empty(n, dtype=torch.int32, device=dev)
     ll = [torch.empty((n, lh * lw), dtype=torch.int32, device=dev)
           for lh, lw in ll_shapes]
-    scratch = torch.empty(scratch_ints(rows, cols, ll_shapes),
-                          dtype=torch.int32, device=dev)
-    scratch[:1 + rows].zero_()
+    scratch = torch.zeros(scratch_words(rows, cols, ll_shapes),
+                          dtype=torch.int64, device=dev)
     (lyh, lyw), (lch, lcw) = ll_y_shape, ll_c_shape
     rc = _lib().ld_rate_launch(
         lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly, lc,
         qm_y.data_ptr(), qm_c.data_ptr(), lyh, lyw, lch, lcw,
-        avail.data_ptr(), rows, cols,
-        int(staged(ly, lc, ll_y_shape, ll_c_shape)), q.data_ptr(),
-        ll[0].data_ptr(), ll[1].data_ptr(), ll[2].data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        None if table is None else table.data_ptr(), avail.data_ptr(), rows,
+        cols, q.data_ptr(), ll[0].data_ptr(), ll[1].data_ptr(),
+        ll[2].data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"ld_rate kernel launch failed: CUDA error {rc}")
     ld_rate_control.launches += 1
@@ -367,8 +500,10 @@ def ld_rate_control(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
     plane. Returns (q int32 [N], ll_qy [N, nLLy], ll_qu, ll_qv [N, nLLc])
     on the lanes' device: the indices, and the LL lanes quantised with DC
     prediction at them (the body lanes are quantised at q on their own).
-    CUDA lanes go through one launch of csrc/ld_rate.cu, not synchronised;
-    CPU lanes through ``ld_rate_control_plain``."""
+    CUDA lanes go through csrc/ld_rate.cu (one launch for the shapes of
+    ``fixed_shape``, else the body table's and the wavefront's; one count
+    in ``ld_rate_control.launches``), not synchronised; CPU lanes through
+    ``ld_rate_control_plain``."""
     args = (lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail, grid_shape,
             ll_y_shape, ll_c_shape)
     if lanes_y.device.type == "cpu":

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import MAX_QINDEX, QUANT_FACTORS_I32, \
     QUANT_OFFSETS
@@ -85,12 +86,13 @@ def _fields(s_bits, len_bits, y_bits, uv_bits) -> np.ndarray:
 
 
 def decode_ld_slices(payload, slice_sizes, lane_counts: tuple[int, int],
-                     start: int = 0, device="cpu"):
+                     start: int = 0, device=None):
     """Decode LD slices: the header scan on the host, then both regions of
-    every slice through ``device_unpack.unpack_ld`` (the kernel for a CUDA
-    ``device``, its plain version on the CPU). Returns (q_indices int32 [N]
-    numpy, lanes_y, lanes_u, lanes_v int32 tensors on ``device``, end
-    offset)."""
+    every slice through ``device_unpack.unpack_ld`` (the kernel on the card,
+    the default, or its plain version for ``device="cpu"``). Returns
+    (q_indices int32 [N] numpy, lanes_y, lanes_u, lanes_v int32 tensors on
+    the device, end offset)."""
+    device = devices.resolve(device)
     ly, lc = lane_counts
     q, *bits, end = ld_header_fields(payload, slice_sizes, start)
     pay = torch.from_numpy(np.array(np.frombuffer(payload, np.uint8)))
