@@ -25,8 +25,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    hold the LD unpack kernel against its plain version (integer ==) on the
    1080p LD fixture, that payload cut short, seeded random slices with
    every lead bit offset 0-31, empty U/V regions, luma regions past their
-   slice and a ragged last CTA, slices too far apart to stage, and lanes
-   too many for the shared tile; the native LD scan (header fields and the
+   slice and a ragged last CTA, slices too far apart to stage, lanes too
+   many for the shared tile (slices near and far apart) and payloads of
+   0x00 and 0xFF runs (the 64-bit clamp, zero runs past the bound); every
+   branch of the kernel reached; the native LD scan (header fields and the
    LL DC-prediction recurrence) against its Python twin on the fixture;
 4. hold the pack kernel against its plain version (bytes, totals, flags
    and the quantised lanes equal): fused, on the 1080p ConstQ transform
@@ -65,8 +67,11 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    for byte, and its quantised lanes): on the 1080p LD transform lanes,
    and, with a quant matrix that quantises every body lane at index 0
    (the identity), on the 1080p quantised lanes, seeded lanes with codes
-   longer than 32 bits, all-zero slices, a FLAG_LD_FIT case and a ragged
-   last CTA, and with guard bytes after its payload that must stay
+   longer than 32 bits, all-zero slices, a FLAG_LD_FIT case, a ragged
+   last CTA, the U/V bound inside a code, slices the luma codes overrun,
+   63 / 21 lanes (chunks of unequal lengths), no LL lanes, 1024 / 512
+   lanes (chunks too long to hold) and slices over several windows (short
+   and long codes), and with guard bytes after its payload that must stay
    untouched;
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
@@ -539,14 +544,22 @@ def ld_picture_of(stream: bytes, device):
     raise RuntimeError("chip_smoke: the stream holds no LD picture")
 
 
-def ld_random_fields(np, rng, n: int, nbytes: int, far: bool = False):
+def ld_random_fields(np, rng, n: int, nbytes: int, far: bool = False,
+                     runs: bool = False):
     """(payload, fields int32 [4, N]) of seeded LD slices: the first 64
     slices (all, when fewer) start at every lead bit offset 0-31 in turn,
     a fifth of the U/V
     regions are empty, a third of the luma lengths run past the slice; with
     ``far`` the slices spread over the whole payload, so a CTA's window is
-    too large to stage."""
+    too large to stage; with ``runs`` the payload is runs of 0x00 bytes
+    (codes with no terminator in 64 bits, the clamp) and 0xFF bytes (runs
+    of zero codes, across the bound)."""
     payload = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    if runs:
+        payload = np.concatenate([
+            np.full(rng.integers(1, 40), rng.choice([0, 0xFF, 0x3C]),
+                    np.uint8) for _ in range(nbytes // 20)])[:nbytes]
+        nbytes = len(payload)
     s_bits = np.sort(rng.integers(0, 8 * (nbytes - 64), n))
     if not far:
         k = min(n, 64)
@@ -598,16 +611,20 @@ def check_ld(torch, np, rng, dev, stream: bytes):
     cases = [("1080p LD fixture", pay, fields, ly, lc),
              ("1080p LD fixture cut short", pay[:-2000].clone(), fields, ly,
               lc)]
-    for name, n, nbytes, far, lanes in (
+    for name, n, nbytes, far, runs, lanes in (
             ("random: leads 0-31, empty U/V, long luma, ragged", 4099,
-             1 << 17, False, (16, 8)),
+             1 << 17, False, False, (16, 8)),
             ("random: slices too far apart to stage", 256, 1 << 20, True,
-             (16, 8)),
+             False, (16, 8)),
             ("random: lanes too many for the tile", 40, 1 << 12, False,
-             (20000, 10000))):
-        payload, f = ld_random_fields(np, rng, n, nbytes, far)
+             False, (20000, 10000)),
+            ("random: lanes too many for the tile, slices far apart", 40,
+             1 << 20, True, False, (20000, 10000)),
+            ("runs of 0x00 and 0xFF: the clamp, zero runs past the bound",
+             2000, 1 << 16, False, True, (64, 32))):
+        payload, f = ld_random_fields(np, rng, n, nbytes, far, runs)
         cases.append((name, t(payload), t(f), *lanes))
-    err, n_staged, n_global, n_direct = 0, 0, 0, 0
+    err, n_staged, n_global, n_direct, n_direct_global = 0, 0, 0, 0, 0
     for name, pay_c, f_c, ly_c, lc_c in cases:
         s, lanes_staged = du.ld_unpack_plan(ly_c, lc_c)
         staged = torch.full((-(-f_c.shape[1] // s),), 2, dtype=torch.uint8,
@@ -624,11 +641,14 @@ def check_ld(torch, np, rng, dev, stream: bytes):
         n_staged += k
         n_global += staged.numel() - k
         n_direct += not lanes_staged
+        n_direct_global += (not lanes_staged) * (staged.numel() - k)
         print(f"  ld_unpack {name}: {f_c.shape[1]} slices, {staged.numel()} "
               f"CTAs, {staged.numel() - k} peek from device memory, lanes "
               f"staged in shared memory: {lanes_staged}")
-    check(n_staged > 0 and n_global > 0 and n_direct > 0,
-          "the LD unpack cases miss the staged or the device-memory branch")
+    check(n_staged > 0 and n_global > 0 and n_direct > 0
+          and n_direct_global > 0,
+          "the LD unpack cases miss a branch: the window staged or read "
+          "from device memory, the lanes in the tile or not")
     print(f"ld_unpack kernel == plain: {len(cases)} cases, max |err| {err}")
     return err
 
@@ -1047,9 +1067,9 @@ def check_ld_pack(torch, np, rng, dev, enc, tlanes, rate):
     print(f"  ld_pack 1080p LD transform lanes: {got.numel()} bytes and the "
           "quantised lanes equal")
 
-    def lanes_of(n, span, zero_frac):
+    def lanes_of(n, span, zero_frac, ly=64, lc=32):
         out = []
-        for length, s in ((64, span), (32, span >> 1), (32, span >> 1)):
+        for length, s in ((ly, span), (lc, span >> 1), (lc, span >> 1)):
             v = rng.integers(-s, s + 1, (n, length))
             v[rng.random((n, length)) < zero_frac] = 0
             out.append(torch.as_tensor(v.astype(np.int32), device=dev))
@@ -1061,12 +1081,31 @@ def check_ld_pack(torch, np, rng, dev, enc, tlanes, rate):
         return torch.as_tensor(((need + 31) // 8 + rng.integers(
             0, slack + 1, need.size)).astype(np.int32), device=dev)
 
-    def as_is(lanes, q_):
+    def as_is(lanes, q_, nll=(4, 2)):
         """quant_pack_ld's arguments that pack ``lanes`` unchanged."""
-        ll = [x[:, :k].contiguous() for x, k in zip(lanes, (4, 2, 2))]
+        ll = [x[:, :k].contiguous() for x, k in zip(lanes, (nll[0], nll[1],
+                                                           nll[1]))]
         qm = [torch.full((x.shape[1],), 127, dtype=torch.int32, device=dev)
               for x in lanes[:2]]
         return ll, q_, *qm
+
+    def cut_sizes(lanes, overrun):
+        """Slice bytes whose U/V bound falls 1-12 bits before the end of
+        the last non-zero U/V code (inside a code or between codes); with
+        ``overrun``, bytes that the luma codes alone overrun."""
+        y_used = golomb.truncated_bits(lanes[0]).cpu().numpy()
+        uv_used = golomb.truncated_bits(golomb.interleave(
+            lanes[1], lanes[2])).cpu().numpy()
+        sizes = np.maximum((7 + y_used) // 8, 1)
+        if overrun:
+            sizes = np.maximum(sizes - 1 - (y_used > 48), 1)
+        else:
+            need = 7 + y_used + uv_used - rng.integers(1, 13, y_used.size)
+            for _ in range(3):   # len_bits grows with the size: settle it
+                len_bits = np.array([max(8 * int(x) - 8, 0).bit_length()
+                                     for x in sizes])
+                sizes = np.maximum((need - len_bits) // 8, 1)
+        return torch.as_tensor(sizes.astype(np.int32), device=dev)
 
     n = enc.geo.n_slices
     q_rand = torch.as_tensor(rng.integers(0, 128, n).astype(np.int32),
@@ -1079,18 +1118,36 @@ def check_ld_pack(torch, np, rng, dev, enc, tlanes, rate):
     cut[::7] = np.maximum(cut[::7] - 4, 2)
     zeros = [torch.zeros_like(x) for x in rand]
     ragged = [x[:333].contiguous() for x in small]
-    cases = [  # name, lanes, q, sizes, expected flags
-        ("1080p LD quantised lanes", list(kept), q, enc.sizes, 0),
-        ("random, codes over 32 bits", rand, q_rand, fitting(rand), 0),
-        ("all-zero slices", zeros, q_rand, enc.sizes, 0),
+    chunky = lanes_of(1001, 40, 0.5, 63, 21)          # chunks of 15-16 lanes
+    wide = lanes_of(300, 40, 0.5, 1024, 512)          # not held: read again
+    part = [x[:3000].contiguous() for x in small]
+    long_ = lanes_of(3000, 1 << 16, 0.5)
+    cases = [  # name, lanes, q, sizes, expected flags, LL lanes
+        ("1080p LD quantised lanes", list(kept), q, enc.sizes, 0, (4, 2)),
+        ("random, codes over 32 bits", rand, q_rand, fitting(rand), 0,
+         (4, 2)),
+        ("all-zero slices", zeros, q_rand, enc.sizes, 0, (4, 2)),
         ("flag LD_FIT", small, q_rand, torch.as_tensor(cut, device=dev),
-         dp.FLAG_LD_FIT),
+         dp.FLAG_LD_FIT, (4, 2)),
         ("ragged: 333 slices", ragged, q_rand[:333].contiguous(),
-         fitting(ragged), 0),
+         fitting(ragged), 0, (4, 2)),
+        ("U/V bound inside a code", small, q_rand, cut_sizes(small, False),
+         dp.FLAG_LD_FIT, (4, 2)),
+        ("luma codes overrun their slice", small, q_rand,
+         cut_sizes(small, True), dp.FLAG_LD_FIT, (4, 2)),
+        ("63 / 21 lanes: chunks of unequal lengths", chunky,
+         q_rand[:1001].contiguous(), fitting(chunky), 0, (3, 1)),
+        ("no LL lanes", small, q_rand, fitting(small), 0, (0, 0)),
+        ("1024 / 512 lanes: chunks too long to hold", wide,
+         q_rand[:300].contiguous(), fitting(wide), 0, (4, 2)),
+        ("slices over several windows", part, q_rand[:3000].contiguous(),
+         fitting(part) + 300, 0, (4, 2)),
+        ("slices over several windows, long codes", long_,
+         q_rand[:3000].contiguous(), fitting(long_) + 300, 0, (4, 2)),
     ]
-    for name, lanes, q_, sizes, flags in cases:
-        got, got_kept = dp.quant_pack_ld(*lanes, *as_is(lanes, q_), sizes,
-                                         keep_lanes=True)
+    for name, lanes, q_, sizes, flags, nll in cases:
+        got, got_kept = dp.quant_pack_ld(*lanes, *as_is(lanes, q_, nll),
+                                         sizes, keep_lanes=True)
         want = dp.pack_ld_plain(*lanes, q_, sizes)
         torch.cuda.synchronize()
         check(bool(torch.equal(got, want)), f"ld_pack {name}: the buffers "
@@ -1099,7 +1156,9 @@ def check_ld_pack(torch, np, rng, dev, enc, tlanes, rate):
               f"ld_pack {name}: the lanes at index 0 changed")
         check(dp.ld_result(got)[0] == flags, f"ld_pack {name}: flags "
                                              f"{dp.ld_result(got)[0]}")
-        print(f"  ld_pack {name}: {got.numel()} bytes equal, flags {flags}")
+        print(f"  ld_pack {name}: {got.numel()} bytes equal, flags {flags}, "
+              f"{dp.ld_group_size(lanes[0].shape[1], lanes[1].shape[1])} "
+              "threads a slice")
     guard = 4096
     sizes = fitting(small)
     total = int(sizes.sum())
@@ -2057,6 +2116,8 @@ def main(argv) -> int:
          "ms": times["ld_pack_ms"], "device_ms": times["ld_pack_device_ms"],
          "plain_ms": times["ld_pack_plain_ms"],
          "bound_ms": ld_pack_bound, "bound_by": ld_pack_by,
+         "group": dp.ld_group_size(ld_tlanes[0].shape[1],
+                                   ld_tlanes[1].shape[1]),
          "library_ms": None},
     ]
     print(f"cbr search at 1080p: {times['cbr_luma_passes']} luma error "

@@ -222,10 +222,16 @@ def test_golden_decodes_through_the_kernels(case, cuda):
 def _ld_fields(rng, n, nbytes, case):
     """(payload, fields int32 [4, N]) of seeded LD slices: every lead bit
     offset 0-31, empty U/V regions, luma regions past their slice, slices
-    spread too far apart to stage, a payload cut short."""
+    spread too far apart to stage, a payload cut short, runs of 0x00 bytes
+    (codes with no terminator in 64 bits) and 0xFF bytes (zero codes)."""
     payload = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    if case == "runs":
+        payload = np.concatenate([
+            np.full(rng.integers(1, 40), rng.choice([0, 0xFF, 0x3C]),
+                    np.uint8) for _ in range(nbytes // 20)])[:nbytes]
+        nbytes = len(payload)
     s_bits = np.sort(rng.integers(0, 8 * (nbytes - 64), n))
-    if case != "far_apart":
+    if case not in ("far_apart", "wide_far"):
         k = min(n, 64)
         s_bits[:k] = 8 * 64 + np.arange(k)
     len_bits = rng.integers(0, 10, n)
@@ -244,7 +250,9 @@ LD_UNPACK_CASES = {"leads": (4099, 1 << 17, 16, 8),      # ragged last CTA
                    "oversized_luma": (2000, 1 << 17, 16, 8),
                    "far_apart": (256, 1 << 20, 16, 8),   # device memory
                    "cut_short": (2000, 1 << 16, 16, 8),
-                   "wide_lanes": (40, 1 << 12, 20000, 10000)}
+                   "wide_lanes": (40, 1 << 12, 20000, 10000),
+                   "runs": (2000, 1 << 16, 64, 32),
+                   "wide_far": (40, 1 << 20, 20000, 10000)}
 
 
 @pytest.mark.parametrize("case", list(LD_UNPACK_CASES))
@@ -261,9 +269,11 @@ def test_ld_unpack_kernel_matches_plain(case, cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert lanes_staged == (case != "wide_lanes")
+    # the branches: lanes in the shared tile or straight to device memory
+    # ("wide_*"), each with the window staged or read from device memory
+    assert lanes_staged == (case not in ("wide_lanes", "wide_far"))
     assert int(staged.max()) <= 1           # every CTA set its flag
-    assert bool(staged.any()) == (case != "far_apart")
+    assert bool(staged.any()) == (case not in ("far_apart", "wide_far"))
 
 
 @pytest.mark.parametrize("case", LD)
@@ -655,7 +665,34 @@ def test_ld_body_table_kernel_matches_plain(case, cuda):
 
 
 LD_PACK_CASES = ["random", "codes_over_32_bits", "zeros", "uv_fit_flag",
-                 "ragged", "fused", "guard"]
+                 "ragged", "fused", "guard", "cut_in_a_code", "luma_overruns",
+                 "ragged_chunks", "no_ll", "wide_slices", "many_windows",
+                 "many_windows_long"]
+# case: (luma lanes, chroma lanes, LL lanes of each, slices), where not
+# (64, 32, (4, 2), 3000)
+LD_PACK_SHAPES = {"ragged": (64, 32, (4, 2), 333),
+                  "ragged_chunks": (63, 21, (3, 1), 1001),  # chunks of 15-16
+                  "no_ll": (64, 32, (0, 0), 3000),
+                  "wide_slices": (1024, 512, (4, 2), 300)}  # not held
+
+
+def _ld_cut_sizes(rng, lanes, cut):
+    """Slice bytes that hold the header and the luma codes but whose U/V
+    bound falls 1 to 12 bits before the end of the last non-zero U/V code
+    (inside a code or between codes, inside some chunk); with ``cut`` None,
+    bytes that the luma codes alone overrun (uv_bits < 0)."""
+    y_used = golomb.truncated_bits(lanes[0]).cpu().numpy()
+    uv_used = golomb.truncated_bits(golomb.interleave(
+        lanes[1], lanes[2])).cpu().numpy()
+    sizes = np.maximum((7 + y_used) // 8, 1)
+    if cut is None:
+        return np.maximum(sizes - 1 - (y_used > 48), 1).astype(np.int32)
+    need = 7 + y_used + uv_used - rng.integers(1, 13, y_used.size)
+    for _ in range(3):     # len_bits grows with the size: settle it
+        sizes = np.maximum(
+            (need - np.array([max(8 * int(x) - 8, 1).bit_length()
+                              if x > 1 else 0 for x in sizes])) // 8, 1)
+    return sizes.astype(np.int32)
 
 
 @pytest.mark.parametrize("case", LD_PACK_CASES)
@@ -664,12 +701,19 @@ def test_ld_pack_kernel_matches_plain(case, cuda):
     [flags | payload] byte for byte, the quantised lanes, and nothing
     stored past the buffer. But for "fused", every quant matrix entry is
     127, so each body lane is quantised at index 0, where quant is the
-    identity: the kernel packs the seeded lanes as they are."""
+    identity: the kernel packs the seeded lanes as they are. The cases
+    reach the kernel's branches: a thread's chunk codes in one 64-bit
+    string or through the code writer (codes over 32 bits,
+    "many_windows_long"), lanes held or read again ("wide_slices"), a
+    slice range of one window or several ("many_windows*"), the U/V bound
+    inside a code, slices the luma codes overrun, chunks of unequal
+    lengths, and no LL lanes."""
     rng = np.random.default_rng(400 + LD_PACK_CASES.index(case))
-    n = 333 if case == "ragged" else 3000
-    span = {"codes_over_32_bits": 1 << 20, "zeros": 0}.get(case, 40)
+    ly, lc, nll, n = LD_PACK_SHAPES.get(case, (64, 32, (4, 2), 3000))
+    span = {"codes_over_32_bits": 1 << 20, "zeros": 0,
+            "many_windows_long": 1 << 16}.get(case, 40)
     lanes = []
-    for length, s in ((64, span), (32, span // 2), (32, span // 2)):
+    for length, s in ((ly, span), (lc, span // 2), (lc, span // 2)):
         v = rng.integers(-s, s + 1, (n, length))
         v[rng.random(v.shape) < 0.5] = 0
         lanes.append(torch.from_numpy(v.astype(np.int32)).to(cuda))
@@ -682,11 +726,18 @@ def test_ld_pack_kernel_matches_plain(case, cuda):
     sizes = ((need + 31) // 8 + rng.integers(0, 3, n)).astype(np.int32)
     if case == "uv_fit_flag":
         sizes[::7] = np.maximum(sizes[::7] - 4, 2)
+    if case == "cut_in_a_code":
+        sizes = _ld_cut_sizes(rng, lanes, True)
+    if case == "luma_overruns":
+        sizes = _ld_cut_sizes(rng, lanes, None)
+    if case.startswith("many_windows"):     # a CTA's slices span 4 KB+
+        sizes = sizes + 300
     sizes = torch.from_numpy(sizes).to(cuda)
     qm = [torch.from_numpy((rng.integers(0, 8, k) if case == "fused"
                             else np.full(k, 127)).astype(np.int32)).to(cuda)
-          for k in (64, 32)]
-    ll = [x[:, :k].contiguous() for x, k in zip(lanes, (4, 2, 2))]
+          for k in (ly, lc)]
+    ll = [x[:, :k].contiguous() for x, k in zip(lanes, (nll[0], nll[1],
+                                                           nll[1]))]
     want, want_kept = dp.quant_pack_ld_plain(*lanes, ll, q, *qm, sizes,
                                              keep_lanes=True)
     if case == "guard":
@@ -709,7 +760,10 @@ def test_ld_pack_kernel_matches_plain(case, cuda):
         assert torch.equal(want, dp.pack_ld_plain(*lanes, q, sizes))
     assert torch.equal(got, want)
     flags, _ = dp.ld_result(got)
-    assert flags == (dp.FLAG_LD_FIT if case == "uv_fit_flag" else 0)
+    assert flags == (dp.FLAG_LD_FIT if case in (
+        "uv_fit_flag", "cut_in_a_code", "luma_overruns") else 0)
+    if case == "wide_slices":
+        assert dp.ld_group_size(ly, lc) == 32
 
 
 @pytest.mark.parametrize("case,tap", [(c, None) for c in LD] + [

@@ -4,11 +4,15 @@ vectorised header scan ``ld_header_fields``; the plain bit-granular reader
 unpack ``unpack_ld_plain`` against ``vc2tpu.vlc.device_unpack
 .unpack_ld_lanes`` (JAX on the CPU) on the goldens' payloads and on seeded
 random payloads with every lead bit offset 0-31, over-long luma lengths,
-empty U/V regions and payloads cut short; the native LD scan
-(``csrc/ld_scan.cpp``, built with the host C++ compiler) and its Python
-twin against ``vc2tpu.pipeline.decoder.ld_ll_grids``; the device-route
-synthesis against the JAX function of the same name; the decoder's three
-taps on LD streams; and the LD 1080p fixture against its recorded SHA-256.
+empty U/V regions and payloads cut short; the parse without a walk
+(``ld_code_starts_plain``: the code lengths at every bit position, the
+chain by pointer doubling) against both readers, on regions that cover
+the 1-fill past the bound, the payload's end and the 64-bit clamp; the
+native LD scan (``csrc/ld_scan.cpp``, built with the host C++ compiler)
+and its Python twin against ``vc2tpu.pipeline.decoder.ld_ll_grids``; the
+device-route synthesis against the JAX function of the same name; the
+decoder's three taps on LD streams; and the LD 1080p fixture against its
+recorded SHA-256.
 The LD unpack kernel itself is held against its plain version by
 tests/test_torch_cuda.py and ``chip_smoke.py`` (on the card)."""
 
@@ -22,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from vc2tpu.cli import decode_stream as j_cli
 from vc2tpu.core import config as jcfg
@@ -169,6 +175,65 @@ def test_plain_reader_matches_vc2tpu(case):
     assert np.array_equal(got.numpy(), want)
 
 
+def _runs_rows():
+    """(payload, start bits, length bits, lanes) of regions over runs of
+    0x00 bytes (codes with no terminator in 64 bits: the clamp) and 0xFF
+    bytes (zero codes, long runs of them past the bound), read from every
+    offset of a word, some past the payload's end."""
+    rng = np.random.default_rng(17)
+    chunks = [np.full(rng.integers(1, 24), rng.choice([0, 0xFF, 0x5A]),
+                      np.uint8) for _ in range(60)]
+    payload = np.concatenate(chunks)
+    n = 128
+    starts = rng.integers(0, 8 * len(payload) - 8, n)
+    starts[:32] = np.arange(32) + 8 * 16
+    lens = rng.integers(1, 400, n)
+    lens[32:40] = 8 * len(payload) + 100 - starts[32:40]   # past the end
+    return payload, starts.astype(np.int64), lens.astype(np.int64), 48
+
+
+@pytest.mark.parametrize("case", ["random", "past_end", "long_codes",
+                                  "runs"])
+def test_parse_without_walk_matches_the_serial_readers(case):
+    """``ld_code_starts_plain``'s starts decode, code by code, to what the
+    serial reader reads (and vc2tpu's, which agrees with it where no code
+    lacks a terminator in 64 bits); the starts rise and each is the one
+    before it plus that code's length."""
+    payload, starts, lens, lanes = (_runs_rows() if case == "runs"
+                                    else _stream_rows(case))
+    args = (torch.from_numpy(payload), torch.from_numpy(starts),
+            torch.from_numpy(lens), lanes)
+    got = tdu.unpack_parsed_plain(*args)
+    assert torch.equal(got, tdu.unpack_signed_streams(*args))
+    if case != "runs":
+        want = jbits.unpack_signed_streams(payload, starts, lens, lanes)
+        assert np.array_equal(got.numpy(), want)
+    at = tdu.ld_code_starts_plain(*args)
+    bits, nbits = tdu._stream_bits(args[0])
+    first = args[1][:, None]
+    _, length = tdu._codes_at(bits, nbits, first + at.clamp(min=0),
+                              (first + args[2][:, None]).expand_as(at))
+    live = at >= 0
+    assert bool((at[:, 0] == torch.where(args[2] > 0, 0, -1)).all())
+    nxt = torch.where(live[:, 1:], at[:, 1:], -1)
+    assert torch.equal(nxt, torch.where(live[:, 1:],
+                                        at[:, :-1] + length[:, :-1], -1))
+
+
+@settings(max_examples=40, deadline=None)
+@given(data=st.binary(min_size=1, max_size=48),
+       start=st.integers(0, 400), length=st.integers(0, 600),
+       lanes=st.integers(1, 40))
+def test_parse_without_walk_matches_the_serial_reader(data, start, length,
+                                                      lanes):
+    """The parse without a walk against the serial reader on any bytes,
+    region start, bound (past the payload's end too) and lane count."""
+    args = (torch.frombuffer(bytearray(data), dtype=torch.uint8),
+            torch.tensor([start]), torch.tensor([length]), lanes)
+    assert torch.equal(tdu.unpack_parsed_plain(*args),
+                       tdu.unpack_signed_streams(*args))
+
+
 def _jax_unpack_ld(payload, fields, ly, lc):
     """vc2tpu's device LD unpack, as its decoder calls it: the payload
     0xFF-padded to whole words, windows from the largest regions."""
@@ -244,6 +309,21 @@ def test_unpack_ld_plain_matches_vc2tpu(case):
                                          .copy()),
                         torch.from_numpy(fields), ly, lc)
     for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("case", UNPACK_CASES)
+def test_parsed_ld_regions_match_vc2tpu(case):
+    """Both regions of every slice by the parse without a walk, U and V
+    split by parity, against vc2tpu's device LD unpack."""
+    payload, fields, ly, lc = _unpack_case(case)
+    pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
+    f = torch.from_numpy(fields)
+    luma, chroma = tdu.ld_regions(f)
+    qy = tdu.unpack_parsed_plain(pay, luma, f[2], ly)
+    quv = tdu.unpack_parsed_plain(pay, chroma, f[3], 2 * lc)
+    want = _jax_unpack_ld(payload, fields, ly, lc)
+    for g, w in zip((qy, quv[:, 0::2], quv[:, 1::2]), want):
         assert np.array_equal(g.numpy(), w)
 
 

@@ -4,7 +4,10 @@ the plain rate control ``ld_rate_control_plain`` against
 native scan, over slice grids, wavelets, depths, budgets no q meets and
 codes over 32 bits; the plain pack ``pack_ld_plain`` against
 ``vc2tpu.vlc.device_pack.pack_ld_payload`` (or, where its flags ask for
-the host, ``vc2tpu.slices.ld.encode_ld_slices``); the encoder's constants
+the host, ``vc2tpu.slices.ld.encode_ld_slices``); the pack kernel's work
+split (``ld_group_size``, ``ld_chunks``) on ragged and tiny shapes and its
+chunked sizing (``ld_chunk_sizes_plain``) against the whole-row sizing of
+``pack_ld_plain``; the encoder's constants
 both ways; ``LDEncoder(device="cpu")`` against ``vc2tpu.pipeline.ld
 .LDEncoder``; and ``encode_stream.main`` with ``--device cpu`` on the four
 LD goldens, the ``ld_legall_d2`` Quantised tap, the Decoded and PSNR
@@ -508,6 +511,62 @@ def test_encode_ld_slices_matches_vc2tpu(case):
     want, want_sizes = jslices.encode_ld_slices(q, *lanes, sizes)
     assert got == want
     np.testing.assert_array_equal(got_sizes, want_sizes)
+
+
+@pytest.mark.parametrize("ly,lc", [(64, 32), (16, 8), (4, 2), (3, 1),
+                                   (1, 0), (0, 0), (20, 10), (63, 31),
+                                   (96, 48), (1000, 500)])
+def test_ld_group_size_on_ragged_and_tiny_shapes(ly, lc):
+    """The fewest threads a slice (4-32, a power of two) whose chunks hold
+    at most LD_HOLD lanes, else 32; the chunks tile each component's lanes
+    in order, none longer than ceil(L / g)."""
+    g = device_pack.ld_group_size(ly, lc)
+
+    def fits(k):
+        return -(-ly // k) + 2 * -(-lc // k) <= device_pack.LD_HOLD
+
+    assert g in (4, 8, 16, 32)
+    assert fits(g) or g == 32
+    assert g == 4 or not fits(g // 2)
+    for length in (ly, lc):
+        chunks = device_pack.ld_chunks(length, g)
+        assert len(chunks) == g
+        assert chunks[0][0] == 0 and chunks[-1][1] == length
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all(0 <= hi - lo <= -(-length // g) for lo, hi in chunks)
+
+
+@pytest.mark.parametrize("g", [4, 8, 32])
+@pytest.mark.parametrize("case", list(_PACK))
+def test_ld_chunk_sizes_plain_match_pack_ld_plain(case, g):
+    """The pack kernel's sizing by chunks (each chunk's bits, the exclusive
+    scan over the group, the max of the bits up to the last non-zero code)
+    against the whole-row sizing that ``pack_ld_plain`` derives: y_used,
+    uv_used, each chunk's first bit in its region, and the U/V fit flag."""
+    seed, n, ly, lc, span, zeros, slack, cut = _PACK[case]
+    lanes, q, rng = _pack_lanes(seed, n, ly, lc, span, zeros)
+    sizes = _fitting_sizes(lanes, rng, slack)
+    if cut:
+        sizes[::9] = np.maximum(sizes[::9] - 3, 2)
+    qy, qu, qv = (_t(x) for x in lanes)
+    uv = golomb.interleave(qu, qv)
+    y_before, uv_before, y_used, uv_used = device_pack.ld_chunk_sizes_plain(
+        qy, qu, qv, g)
+    assert torch.equal(y_used, golomb.truncated_bits(qy))
+    assert torch.equal(uv_used, golomb.truncated_bits(uv))
+    for rows, before, length, step in ((qy, y_before, ly, 1),
+                                       (uv, uv_before, lc, 2)):
+        nb = golomb._code_bits(rows)
+        first = torch.cat([torch.zeros((n, 1), dtype=torch.int64),
+                           torch.cumsum(nb, 1)], 1)
+        for t, (lo, _hi) in enumerate(device_pack.ld_chunks(length, g)):
+            assert torch.equal(before[:, t], first[:, step * lo])
+    len_bits = tslices.len_bits_of(sizes.astype(np.int64))
+    uv_bits = 8 * sizes.astype(np.int64) - 7 - len_bits - y_used.numpy()
+    flags, _ = device_pack.ld_result(
+        device_pack.pack_ld_plain(qy, qu, qv, _t(q), _t(sizes)))
+    assert bool((uv_used.numpy() > uv_bits).any()) == bool(
+        flags & device_pack.FLAG_LD_FIT) == cut
 
 
 def test_quant_pack_ld_plain_quantises_the_body():

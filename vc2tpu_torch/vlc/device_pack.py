@@ -27,7 +27,8 @@ synchronisation reads both.
 
 LD (``quant_pack_ld``, the port of ``pack_ld_core``): each slice at its
 fixed byte offset, its body lanes quantised in the load of one launch of
-``csrc/ld_pack.cu`` after the rate control's LL lanes; ``pack_ld_plain``
+``csrc/ld_pack.cu`` after the rate control's LL lanes (a group of threads
+a slice, sized as ``ld_chunk_sizes_plain`` sizes it); ``pack_ld_plain``
 assembles the same buffer ``[flags uint32 | payload]`` from quantised
 lanes.
 """
@@ -42,7 +43,8 @@ import torch
 from vc2tpu_torch.core import build
 from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32,
                                          adjust_quant_index, quant)
-from vc2tpu_torch.vlc.golomb import interleave, signed_codes, truncated_bits
+from vc2tpu_torch.vlc.golomb import (_code_bits, interleave, signed_codes,
+                                     truncated_bits)
 
 FLAG_SCALAR = 2          # a component length byte > 255 ("scalar too small")
 FLAG_CBR_FIT = 4         # CBR: y+u data leave v too few bytes
@@ -390,7 +392,65 @@ pack_hq.launches = 0
 # --- LD -------------------------------------------------------------------
 
 FLAG_LD_FIT = 128        # LD: the U/V codes exceed the slice's remaining bits
-LD_THREADS = 128         # csrc/ld_pack.cu: threads a CTA, one a slice
+# csrc/ld_pack.cu's work split (generated into its header): LD_THREADS
+# threads a CTA, a group of 4-32 threads a slice (ld_group_size), each
+# holding up to LD_HOLD quantised lanes in shared memory, and at least
+# LD_MIN_BLOCKS CTAs an SM (__launch_bounds__: 64 registers a thread). At
+# 1080p a group of 4 and one wave of 1013 CTAs were fastest of 4-16
+# threads a slice and 4-12 CTAs an SM (PERF.md §6).
+LD_THREADS = 128
+LD_HOLD = 32
+LD_MIN_BLOCKS = 8
+
+
+def ld_group_size(ly: int, lc: int) -> int:
+    """Threads a slice in csrc/ld_pack.cu: the fewest (a power of two, 4 to
+    32) whose chunks, one of the luma lanes and the same index range of U
+    and V, hold at most ``LD_HOLD`` lanes, so the kernel keeps every
+    quantised lane on the chip; 32 for larger slices, whose lanes are then
+    read again to be written."""
+    g = 4
+    while g < 32 and -(-ly // g) + 2 * -(-lc // g) > LD_HOLD:
+        g *= 2
+    return g
+
+
+def ld_chunks(length: int, g: int) -> list:
+    """The lane range [lo, hi) of each of the g threads of a group over
+    ``length`` lanes, as csrc/ld_pack.cu splits them."""
+    lg = g.bit_length() - 1
+    return [((t * length) >> lg, ((t + 1) * length) >> lg) for t in range(g)]
+
+
+def ld_chunk_sizes_plain(qy, qu, qv, g: int):
+    """The sizing of csrc/ld_pack.cu, in plain PyTorch: thread t of a
+    slice's group of g sums its chunk's code bits and the bits up to the
+    end of its last non-zero code, in the luma region and in its part of
+    the interleaved U/V region; an exclusive scan over the group gives the
+    bits before each chunk, a max over it the region's bits up to its last
+    non-zero code. Returns (y_before [N, g], uv_before [N, g], y_used [N],
+    uv_used [N]), int64."""
+
+    def region(parts):
+        bits, ends = [], []
+        for lanes in parts:
+            cum = torch.cumsum(_code_bits(lanes), 1)
+            last = (cum[:, -1] if lanes.shape[1] else
+                    torch.zeros(lanes.shape[0], dtype=torch.int64,
+                                device=lanes.device))
+            bits.append(last)
+            ends.append(torch.where(lanes != 0, cum, 0).amax(1)
+                        if lanes.shape[1] else last)
+        bits, ends = torch.stack(bits, 1), torch.stack(ends, 1)
+        before = torch.cumsum(bits, 1) - bits
+        used = torch.where(ends > 0, before + ends, 0).amax(1)
+        return before, used
+
+    y_before, y_used = region([qy[:, lo:hi] for lo, hi in
+                               ld_chunks(qy.shape[1], g)])
+    uv_before, uv_used = region([interleave(qu[:, lo:hi], qv[:, lo:hi])
+                                 for lo, hi in ld_chunks(qu.shape[1], g)])
+    return y_before, uv_before, y_used, uv_used
 
 
 def _place_bits(bits, code, keep, pos, lo, hi):
@@ -487,6 +547,8 @@ def ld_kernel_source() -> build.Source:
               "ld_kernel_source().\n"
               "#pragma once\n"
               f"#define VC2_LD_PACK_THREADS {LD_THREADS}\n"
+              f"#define VC2_LD_PACK_HOLD {LD_HOLD}\n"
+              f"#define VC2_LD_PACK_MIN_BLOCKS {LD_MIN_BLOCKS}\n"
               f"#define VC2_FLAG_LD_FIT {FLAG_LD_FIT}\n"
               f"#define VC2_QUANT_FACTORS {factors}\n"
               f"#define VC2_QUANT_RECIPROCALS {recips}\n")
@@ -498,7 +560,7 @@ def _ld_lib():
     lib = build.load(ld_kernel_source())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ld_pack_launch.argtypes = [p, p, p, i, i, p, p, p, i, i, p, p, p, p,
-                                   p, p, p, p, i, p, p]
+                                   p, p, p, p, i, i, p, p]
     lib.ld_pack_launch.restype = i
     return lib
 
@@ -510,18 +572,20 @@ def launch_ld_pack(lanes, ll, q_idx, qm, sizes, starts, total: int,
     first lanes ``ll`` (the rate control's LL lanes) replace, the others
     quantised at max(q_idx - qm, 0), ``qm`` = (qm_y, qm_c); ``keep`` (y, u,
     v) receive the quantised lanes. ``starts`` (int64 [N]) is each slice's
-    first byte, ``total`` the payload's bytes. ``out`` (uint8, contiguous)
-    defaults to a new buffer of 4 + total bytes; the kernel stores nothing
-    past them. Returns the uint8 buffer [flags uint32 | payload]."""
+    first byte, ``total`` the payload's bytes. ``out`` (uint8, contiguous,
+    16-byte aligned) defaults to a new buffer of 4 + total bytes; the
+    kernel stores nothing past them. Returns the uint8 buffer [flags uint32
+    | payload]."""
     y, u, v = lanes
     n, ly, lc = y.shape[0], y.shape[1], u.shape[1]
     if out is None:
         out = torch.empty(4 + total, dtype=torch.uint8, device=y.device)
     elif (out.dtype != torch.uint8 or not out.is_contiguous()
-          or out.numel() < 4 + total or out.device != y.device):
-        raise ValueError(f"quant_pack_ld: out must be a contiguous uint8 "
-                         f"buffer of at least {4 + total} bytes on "
-                         f"{y.device}")
+          or out.numel() < 4 + total or out.device != y.device
+          or out.data_ptr() % 16):
+        raise ValueError(f"quant_pack_ld: out must be a contiguous, 16-byte "
+                         f"aligned uint8 buffer of at least {4 + total} "
+                         f"bytes on {y.device}")
     out[:4].zero_()
     ky, ku, kv = keep if keep is not None else (None, None, None)
 
@@ -533,7 +597,7 @@ def launch_ld_pack(lanes, ll, q_idx, qm, sizes, starts, total: int,
         ll[1].data_ptr(), ll[2].data_ptr(), ll[0].shape[1], ll[1].shape[1],
         qm[0].data_ptr(), qm[1].data_ptr(), ptr(ky), ptr(ku), ptr(kv),
         q_idx.data_ptr(), sizes.data_ptr(), starts.data_ptr(), n,
-        out.data_ptr(), _stream(y))
+        ld_group_size(ly, lc), out.data_ptr(), _stream(y))
     if rc:
         raise RuntimeError(f"ld_pack kernel launch failed: CUDA error {rc}")
     quant_pack_ld.launches += 1

@@ -10,7 +10,12 @@ decode all of a picture's regions: CUDA kernels (``csrc/hq_unpack.cu``,
 ``csrc/ld_unpack.cu``, one decode core in ``csrc/golomb_decode.cuh``) for
 CUDA tensors, the plain PyTorch versions ``unpack_hq_plain`` and
 ``unpack_ld_plain`` for CPU tensors. Both plain versions are the one
-bit-granular reader ``unpack_signed_streams``.
+bit-granular reader ``unpack_signed_streams``. A code's length and value
+depend only on the 64 bits at its start (``_codes_at``): the LD kernel
+takes a step a code from a fresh peek, and ``ld_code_starts_plain`` finds
+every code's start from the lengths at all bit positions at once, with
+no walk (pointer doubling), an independent parse that the tests hold to
+the reader.
 
 Semantics, as in the JAX package:
 
@@ -85,37 +90,115 @@ def unpack_signed_streams(payload: torch.Tensor, start_bits: torch.Tensor,
     lim = (torch.full((s,), n_lanes, dtype=torch.int64, device=dev)
            if lane_limits is None
            else lane_limits.to(device=dev, dtype=torch.int64))
-    shifts = torch.arange(7, -1, -1, device=dev)
-    bits = ((payload.to(torch.int64)[:, None] >> shifts) & 1).reshape(-1)
-    nbits = bits.numel()
-    bits = torch.cat([bits, torch.ones(1, dtype=torch.int64, device=dev)])
+    bits, nbits = _stream_bits(payload)
     pos = start_bits.to(device=dev, dtype=torch.int64).reshape(-1)
     bound = pos + bound_bits.to(device=dev, dtype=torch.int64).reshape(-1)
     out = torch.zeros((s, n_lanes), dtype=torch.int32, device=dev)
     nd = torch.zeros(s, dtype=torch.int64, device=dev)
-    k64 = torch.arange(64, device=dev)
-    j32 = torch.arange(32, device=dev)
     rows = torch.arange(s, device=dev)
     for _ in range(n_lanes):
         active = (pos < bound) & (nd < lim)
         if not bool(active.any()):
             break
-        idx = pos[:, None] + k64
-        w = torch.where(idx < bound[:, None], bits[idx.clamp(max=nbits)], 1)
-        follow = w[:, 0::2]
-        first = torch.where(follow.any(1), follow.argmax(1), 32)
-        z = (2 * first).clamp(max=62)
-        ndata = z >> 1
-        weight = torch.where(j32 < ndata[:, None],
-                             1 << (ndata[:, None] - 1 - j32).clamp(min=0), 0)
-        data = (w[:, 1::2] * weight).sum(1)
-        mag = ((1 << ndata) | data) - 1
-        sign = w.gather(1, (z + 1)[:, None])[:, 0]
-        val = torch.where(z == 0, 0, torch.where(sign == 1, -mag, mag))
+        val, length = _codes_at(bits, nbits, pos, bound)
         out[rows[active], nd[active]] = wrap32(val[active]).to(torch.int32)
-        pos = torch.where(active, pos + torch.where(z == 0, 1, z + 2), pos)
+        pos = torch.where(active, pos + length, pos)
         nd = nd + active.to(torch.int64)
     return out
+
+
+def _stream_bits(payload: torch.Tensor):
+    """(bits, nbits): the payload one int64 element a bit, MSB first, with
+    one 1 bit appended, which every read past the end lands on."""
+    shifts = torch.arange(7, -1, -1, device=payload.device)
+    bits = ((payload.to(torch.int64)[:, None] >> shifts) & 1).reshape(-1)
+    ones = torch.ones(1, dtype=torch.int64, device=payload.device)
+    return torch.cat([bits, ones]), bits.numel()
+
+
+def _codes_at(bits, nbits: int, pos, bound):
+    """(value, length), int64, of the code that starts at each bit ``pos``
+    (int64 [...]) of a region bounded at ``bound`` (the same shape), read
+    from ``_stream_bits``: the bits at or past the bound or the payload's
+    end read as 1; the follow-bit position is clamped to 62."""
+    dev = bits.device
+    idx = pos[..., None] + torch.arange(64, device=dev)
+    w = torch.where(idx < bound[..., None], bits[idx.clamp(max=nbits)], 1)
+    follow = w[..., 0::2]
+    first = torch.where(follow.any(-1), follow.argmax(-1), 32)
+    z = (2 * first).clamp(max=62)
+    ndata = z >> 1
+    j32 = torch.arange(32, device=dev)
+    weight = torch.where(j32 < ndata[..., None],
+                         1 << (ndata[..., None] - 1 - j32).clamp(min=0), 0)
+    data = (w[..., 1::2] * weight).sum(-1)
+    mag = ((1 << ndata) | data) - 1
+    sign = w.gather(-1, (z + 1)[..., None])[..., 0]
+    val = torch.where(z == 0, 0, torch.where(sign == 1, -mag, mag))
+    return val, torch.where(z == 0, 1, z + 2)
+
+
+def ld_code_starts_plain(payload: torch.Tensor, start_bits: torch.Tensor,
+                         bound_bits: torch.Tensor, n_lanes: int
+                         ) -> torch.Tensor:
+    """The code starts of each bounded region, found without a walk: the
+    parse of csrc/ld_unpack.cu in plain PyTorch.
+
+    A code's length at a bit position depends only on the bits there
+    (``_codes_at``), so the lengths of every position before the region's
+    bound, and before 64 x ``n_lanes`` (past which no code is taken), are
+    computed at once; the chain p0, p0 + len(p0), ... is then marked by
+    pointer doubling: round k adds the 2^k-th successor of every marked
+    position, so ceil(log2(n_lanes)) rounds mark the first ``n_lanes``
+    codes. payload: uint8 [P]; start_bits, bound_bits: int64 [S] as for
+    ``unpack_signed_streams``. Returns int64 [S, n_lanes]: the bit offset
+    (from the region's start) of each code, -1 past the chain."""
+    dev = payload.device
+    bits, nbits = _stream_bits(payload)
+    start = start_bits.to(device=dev, dtype=torch.int64).reshape(-1)
+    length = bound_bits.to(device=dev, dtype=torch.int64).reshape(-1)
+    rows = start.numel()
+    span = length.clamp(0, 64 * n_lanes)
+    top = int(span.max()) if rows else 0
+    r = torch.arange(top + 1, device=dev)
+    nxt = span[:, None].expand(rows, top + 1).clone()
+    for c0 in range(0, top, 64):          # 64 positions at a time
+        at = r[c0:min(c0 + 64, top)]
+        _, ln = _codes_at(bits, nbits, start[:, None] + at,
+                          (start + length)[:, None].expand(-1, at.numel()))
+        live = at < span[:, None]
+        nxt[:, at] = torch.where(live, torch.minimum(at + ln, span[:, None]),
+                                 span[:, None])
+    mark = torch.zeros((rows, top + 1), dtype=torch.bool, device=dev)
+    mark[:, 0] = True
+    jump = nxt
+    for _ in range(max(n_lanes - 1, 0).bit_length()):
+        mark.scatter_(1, torch.where(mark, jump, span[:, None]), True)
+        jump = jump.gather(1, jump)
+    mark &= r < span[:, None]
+    rank = torch.cumsum(mark.to(torch.int64), 1) - 1
+    take = mark & (rank < n_lanes)
+    out = torch.full((rows, n_lanes), -1, dtype=torch.int64, device=dev)
+    row_of = torch.arange(rows, device=dev)[:, None].expand_as(take)
+    out[row_of[take], rank[take]] = r.expand_as(take)[take]
+    return out
+
+
+def unpack_parsed_plain(payload: torch.Tensor, start_bits: torch.Tensor,
+                        bound_bits: torch.Tensor, n_lanes: int
+                        ) -> torch.Tensor:
+    """``unpack_signed_streams`` (without lane limits) by the parse of
+    ``ld_code_starts_plain``: each code decoded at its start. Returns int32
+    [S, n_lanes]."""
+    dev = payload.device
+    starts = ld_code_starts_plain(payload, start_bits, bound_bits, n_lanes)
+    bits, nbits = _stream_bits(payload)
+    start = start_bits.to(device=dev, dtype=torch.int64).reshape(-1, 1)
+    bound = start + bound_bits.to(device=dev, dtype=torch.int64).reshape(
+        -1, 1)
+    val, _ = _codes_at(bits, nbits, start + starts.clamp(min=0),
+                       bound.expand_as(starts))
+    return wrap32(torch.where(starts >= 0, val, 0)).to(torch.int32)
 
 
 def unpack_hq_plain(payload: torch.Tensor, dstart: torch.Tensor,
@@ -146,10 +229,17 @@ WINDOW_BYTES = 8192
 LANE_TILE_BYTES = 98304
 
 
-def _plan(rows: tuple) -> tuple:
+# The LD kernel's plan: CTAs of LD_SLICES_PER_CTA slices (two threads a
+# slice) and a LD_WINDOW_BYTES window of staged payload (a 1080p CTA's
+# regions span ~850 bytes).
+LD_SLICES_PER_CTA = 32
+LD_WINDOW_BYTES = 2048
+
+
+def _plan(rows: tuple, slices: int = SLICES_PER_CTA) -> tuple:
     row = 4 * sum(length | 1 for length in rows)
-    s = min(SLICES_PER_CTA, LANE_TILE_BYTES // row)
-    return (s, True) if s >= 1 else (SLICES_PER_CTA, False)
+    s = min(slices, LANE_TILE_BYTES // row)
+    return (s, True) if s >= 1 else (slices, False)
 
 
 def unpack_plan(ly: int, lc: int) -> tuple:
@@ -161,7 +251,7 @@ def unpack_plan(ly: int, lc: int) -> tuple:
 def ld_unpack_plan(ly: int, lc: int) -> tuple:
     """The same for the LD kernel (two regions a slice: luma, and U/V
     interleaved)."""
-    return _plan((ly, 2 * lc))
+    return _plan((ly, 2 * lc), LD_SLICES_PER_CTA)
 
 
 def kernel_source() -> build.Source:
@@ -321,7 +411,7 @@ def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
         return out
     rc = _ld_lib().ld_unpack_launch(
         payload.data_ptr(), payload.numel(), fields.data_ptr(), n, ly, lc,
-        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), s, WINDOW_BYTES,
+        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), s, LD_WINDOW_BYTES,
         int(stage), staged.data_ptr() if staged is not None else None,
         torch.cuda.current_stream(payload.device).cuda_stream)
     if rc:
