@@ -94,16 +94,37 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    ``ld_fragmented`` equal the port's on the CPU, ``decode_frame`` decodes
    the HQ Packaged golden, and every golden and encoder tap (ConstQ, CBR
    and LD) encodes, byte-identically;
-6. times on the card: end-to-end HQ and LD decode, ConstQ, CBR and LD
-   encode (in turns) and fragmented decode frames/s, the per-stage
-   breakdown of one 1080p picture each way (a "cbr search" stage in the
-   CBR encode, a "rate control" stage in the LD encode; the LD decode's
-   host "ld scan + LL recurrence"), the device's idle share, each kernel's
-   time beside its bound and its plain version's time, and the LD rate
-   control's dependent step (the kernel on one row and on one column of
-   the picture's slices), its bound by the dependent chain (the steps
-   times the deepest LL block's cells at LL_CELL_CHAIN dependent
-   instructions of INT_LATENCY cycles) and its body table kernel alone.
+6. times on the card: the host cost of the device guard a launch runs
+   in, end-to-end HQ and LD decode, ConstQ, CBR and LD encode (in turns)
+   and fragmented decode frames/s, the per-stage breakdown of one 1080p
+   picture each way (a "cbr search" stage in the CBR encode, a "rate
+   control" stage in the LD encode; the LD decode's host "ld scan + LL
+   recurrence"), the device's idle share, each kernel's time beside its
+   bound and its plain version's time, and the LD rate control's
+   dependent step (the kernel on one row and on one column of the
+   picture's slices), its bound by the dependent chain (the steps times
+   the deepest LL block's cells at LL_CELL_CHAIN dependent instructions
+   of INT_LATENCY cycles) and its body table kernel alone;
+7. the multi-device paths on the one card, every mesh ``[cuda:0] * n``:
+   the halo lift against the unsharded lift (7 wavelets at depth 2,
+   Fidelity also at 3, over 2 and 4 bands and over the thinnest bands the
+   JAX package takes, whose margins reach two bands away; ``depth``
+   launches each way) and one ``lift_levels`` call of 50 planes (2
+   launches); the 1080p ConstQ and CBR pictures through the encode CLI
+   over a 1x3 mesh (bytes equal to the fixtures; lift 2, hq_cbr 3,
+   hq_pack 3), the CBR one with ``-F 16384`` (equal to the single-device
+   fragments) and the LD one over ``1x2`` (equal to ``ld_1080p.vc2``;
+   lift 2, ld_rate 1, ld_pack 1), each decoded with ``Decoder(mesh=)`` to
+   the recorded SHA-256 (over 1x3: hq_unpack or ld_unpack 3, lift 2; LD
+   also over 1x2, whose 135 slice rows do not divide: ld_unpack 1 and the
+   halo inverse); 8K HQ CBR (BASELINE config #5, 1080 x 960 slices) over
+   1x4 and 2x4 meshes (two pictures) against the single-device
+   ``Encoder`` (q indices, payloads, streams) and, over 1x4, the decode
+   against ``Decoder()``; the per-band balance, the 8K times (one card,
+   the bands on one device: not a scaling figure); two processes sharing
+   the card (gloo on 127.0.0.1, a 2x1 mesh, 1080p CBR) against one
+   device; the dry run on a 2x2 mesh. It runs after the times, so that
+   what the 8K runs leave in the process does not weigh on them.
 
 Each phase prints its time.
 
@@ -372,11 +393,14 @@ def golden_encode_args(meta: dict, case: str, tap: str | None) -> tuple:
                                                                    ref)
 
 
-def run_encode_cli(argv, src: str, out: str) -> bytes:
+def run_encode_cli(argv, src: str, out: str, mesh=None) -> bytes:
+    """The encode CLI's run of ``argv``, over ``mesh`` (a ``Mesh``, as
+    ``--mesh`` builds one) where given."""
     from vc2tpu_torch.cli import encode_stream
 
-    check(encode_stream.main(argv + [src, out]) == 0,
-          f"encode {' '.join(argv)} failed")
+    args = encode_stream.build_parser().parse_args(argv + [src, out])
+    args.mesh = mesh
+    check(encode_stream.run(args) == 0, f"encode {' '.join(argv)} failed")
     with open(out, "rb") as f:
         return f.read()
 
@@ -1359,6 +1383,236 @@ def check_pack(torch, np, rng, dev, enc, tlanes, qlanes, q_1080p, transform):
     return 0, n_cases
 
 
+def check_halo_lift(torch, np, rng, dev) -> tuple:
+    """The halo lift (``shard.halo``) over row bands of one card against
+    the unsharded lift, both ways: every wavelet at depth 2 (Fidelity also
+    at 3) over 2 and 4 bands and over 4 of the thinnest bands the JAX
+    package takes (Fidelity's reach two bands away); ``depth`` launches
+    each way. Then one ``lift_levels`` call of more planes than a launch
+    takes (two launches) against the plain version. Returns (cases, max
+    abs error)."""
+    from vc2tpu_torch.core.config import WaveletKernel
+    from vc2tpu_torch.shard import halo
+    from vc2tpu_torch.shard.mesh import make_mesh
+    from vc2tpu_torch.wavelet import lifting
+
+    cases, err = 0, 0
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for depth in (2, 3) if kernel == WaveletKernel.Fidelity else (2,):
+            thin = (1 << depth) * max(1, halo.halo_width(kernel))
+            for rows, cols, space in ((1088, 1920, 2), (1088, 960, 4),
+                                      (4 * thin, 48, 4)):
+                x = torch.from_numpy(rng.integers(
+                    -(1 << 20), (1 << 20) + 1, (rows, cols)).astype(
+                    np.int32)).to(dev)
+                mesh = make_mesh(1, space, devices=[dev] * space)
+                fwd = lifting.forward_plane(x, kernel, depth)
+                for fn, src, ref in (
+                        (halo.sharded_forward_plane, x, fwd),
+                        (halo.sharded_inverse_plane, fwd,
+                         lifting.inverse_plane(fwd, kernel, depth))):
+                    n0 = lifting.lift_levels.launches
+                    got = fn(src, mesh, kernel, depth)
+                    check(dev.type != "cuda"
+                          or lifting.lift_levels.launches - n0 == depth,
+                          f"halo lift {kernel.name} d{depth}: "
+                          f"{lifting.lift_levels.launches - n0} launches")
+                    err = max(err, max_err(torch, got, ref))
+                    check(torch.equal(got, ref),
+                          f"halo lift {kernel.name} d{depth} {rows}x{cols} "
+                          f"over {space} bands differs from the unsharded")
+                    cases += 1
+    check(halo.margin(WaveletKernel.Fidelity, 2) > 16,
+          "the thin Fidelity case does not reach two bands away")
+    planes = [torch.from_numpy(rng.integers(-512, 512, (64, 64 + 8 * i))
+                               .astype(np.int32)).to(dev) for i in range(50)]
+    n0 = lifting.lift_levels.launches
+    got = lifting.lift_levels(planes, WaveletKernel.DD137)
+    check(dev.type != "cuda" or lifting.lift_levels.launches - n0 == 2,
+          "lift_levels of 50 planes is not two launches")
+    for g, w in zip(got, lifting.lift_levels_plain(planes,
+                                                   WaveletKernel.DD137)):
+        check(torch.equal(g, w), "lift_levels of 50 planes differs from "
+                                 "its plain version")
+    return cases, err
+
+
+def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
+                  work, zero_counts, counts, card) -> dict:
+    """The multi-device paths on the one card, every mesh ``[dev] * n``
+    (bands share the card and its stream): the 1080p fixtures through the
+    encode CLI over such a mesh and ``Decoder(mesh=)``, the 8K config #5
+    encode and decode against one device, the two-process harness and the
+    dry run. Returns the launch counts of each sharded path."""
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig,
+                                          FrameRate, Mode, WaveletKernel)
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.pipeline.sharded import ShardedEncoder
+    from vc2tpu_torch.shard import dryrun, multihost
+    from vc2tpu_torch.shard.mesh import make_mesh
+
+    paths = {}
+
+    def mesh(data, space):
+        return make_mesh(data, space, devices=[dev] * (data * space))
+
+    def decode(stream, key, path, want, **kw):
+        zero_counts()
+        sink = io.BytesIO()
+        check(Decoder(sink=sink, **kw).run(stream) == 0, f"{path} failed")
+        paths[path] = counts()
+        digest = hashlib.sha256(sink.getvalue()).hexdigest()
+        check(digest == fixtures[key]["decoded_sha256"],
+              f"{path}: SHA-256 {digest} differs from the recorded one")
+        check_counts(path, want)
+
+    def check_counts(path, want):
+        for k, n in want.items():
+            check(paths[path][k] == n, f"{path}: {k} launched "
+                                       f"{paths[path][k]} times, expected {n}")
+
+    # the 1080p fixtures: 135 slice rows over 3 bands
+    out = os.path.join(work, "mesh.vc2")
+    for key, want in (("constq_1080p", {"lift_level": 2, "hq_pack": 3,
+                                        "hq_cbr": 0}),
+                      ("cbr_1080p", {"lift_level": 2, "hq_pack": 3,
+                                     "hq_cbr": 3})):
+        zero_counts()
+        stream = run_encode_cli(fixture_encode_args(key), src_1080p, out,
+                                mesh(1, 3))
+        path = f"mesh_encode_{key}"
+        paths[path] = counts()
+        check(stream == streams[key], f"{path} differs from {key}.vc2")
+        check_counts(path, want)
+        decode(stream, key, f"mesh_decode_{key}",
+               {"hq_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
+    zero_counts()
+    fs = run_encode_cli(fixture_encode_args("cbr_1080p")
+                        + ["-F", str(FRAGMENT)], src_1080p, out, mesh(1, 3))
+    paths["mesh_encode_fragments"] = counts()
+    check(fs == frag_stream, "the -F mesh encode differs from one device's")
+    check_counts("mesh_encode_fragments",
+                 {"lift_level": 2, "hq_cbr": 3, "hq_pack": 3})
+    decode(fs, "cbr_1080p", "mesh_decode_fragments",
+           {"hq_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
+    # LD: the analysis over 2 bands (1080 rows); the decode over 3 bands,
+    # and over 2, where the 135 slice rows do not divide: the single-device
+    # unpack, then the halo inverse over the 2 bands
+    zero_counts()
+    ld = run_encode_cli(fixture_encode_args("ld_1080p"), src_1080p, out,
+                        mesh(1, 2))
+    paths["mesh_encode_ld"] = counts()
+    check(ld == streams["ld_1080p"], "the LD mesh encode differs from "
+                                     "ld_1080p.vc2")
+    check_counts("mesh_encode_ld", {"lift_level": 2, "ld_rate": 1,
+                                    "ld_pack": 1})
+    decode(ld, "ld_1080p", "mesh_decode_ld",
+           {"ld_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
+    decode(ld, "ld_1080p", "mesh_decode_ld_1x2",
+           {"ld_unpack": 1, "lift_level": 2}, mesh=mesh(1, 2))
+    print("mesh 1080p: ConstQ and CBR encoded over 1x3 (and -F "
+          f"{FRAGMENT}), LD over 1x2, bytes equal to the fixtures; decoded "
+          "over 1x3 (LD also 1x2) to the recorded SHA-256; launches "
+          + json.dumps({k: v for k, v in paths.items()}))
+
+    # BASELINE config #5: 8K HQ CBR, 1080 x 960 slices
+    cfg8 = EncoderConfig(height=4320, width=7680,
+                         chroma_format=ColourFormat.CF422,
+                         kernel=WaveletKernel.LeGall, wavelet_depth=2,
+                         y_size=1, x_size=2, mode=Mode.HQ_CBR, luma_depth=10,
+                         chroma_depth=10, frame_rate=FrameRate.FR50,
+                         compressed_bytes=16 * 829440, slice_scalar=2)
+    pics = multihost.harness_frames(cfg8, 2, seed=1)
+    enc8 = Encoder(cfg8, device=dev)
+    want8 = [enc8.encode_picture(p) for p in pics]
+    for data, space in ((1, 4), (2, 4)):
+        senc = ShardedEncoder(cfg8, mesh(data, space))
+        zero_counts()
+        got = senc.encode_batch(pics[:data])
+        path = f"mesh_encode_8k_{data}x{space}"
+        paths[path] = counts()
+        check_counts(path, {"lift_level": 2, "hq_cbr": data * space,
+                            "hq_pack": data * space})
+        for g, w in zip(got, want8):
+            check(np.array_equal(g.q_indices, w.q_indices)
+                  and np.array_equal(g.slice_totals, w.slice_totals)
+                  and g.payload == w.payload,
+                  f"{path} differs from the single-device encode")
+        check(multihost.harness_stream(cfg8, got)
+              == multihost.harness_stream(cfg8, want8[:data]),
+              f"{path}: the stream differs")
+        for line in dryrun.balance_lines(f"8K {data}x{space}", senc):
+            print(line)
+    stream8 = multihost.harness_stream(cfg8, want8[:1])
+    ref8 = io.BytesIO()
+    check(Decoder(sink=ref8, device=dev).run(stream8) == 0, "8K decode")
+    zero_counts()
+    got8 = io.BytesIO()
+    mesh8 = mesh(1, 4)
+    dec8 = Decoder(sink=got8, mesh=mesh8)
+    check(dec8.run(stream8) == 0, "8K mesh decode")
+    paths["mesh_decode_8k_1x4"] = counts()
+    check(got8.getvalue() == ref8.getvalue(),
+          "the 8K mesh decode differs from the single-device decode")
+    check_counts("mesh_decode_8k_1x4", {"hq_unpack": 4, "lift_level": 2})
+    senc8 = ShardedEncoder(cfg8, mesh8)
+    senc8.encode_batch(pics[:1])
+    for line in dryrun.balance_lines("8K 1x4", senc8,
+                                     dec8.sharded_decoders()[0]):
+        print(line)
+
+    def timed(label, fn):
+        ts = host_samples(fn, 3)
+        print(f"8K CBR {label}: median {statistics.median(ts):.3f} ms a "
+              f"picture, min {min(ts):.3f}, max {max(ts):.3f} (3 runs after "
+              f"a warm-up; pictures in host memory; {card})")
+
+    def sync(fn):
+        def run():
+            fn()
+            torch.cuda.synchronize()
+        return run
+
+    timed("encode, one card, 4 shards on one device (ShardedEncoder 1x4)",
+          sync(lambda: senc8.encode_batch(pics[:1])))
+    timed("encode, one card, one device (Encoder)",
+          sync(lambda: enc8.encode_picture(pics[0])))
+    timed("decode, one card, 4 shards on one device (Decoder(mesh=1x4))",
+          sync(lambda: Decoder(sink=io.BytesIO(), mesh=mesh8).run(stream8)))
+    timed("decode, one card, one device (Decoder)",
+          sync(lambda: Decoder(sink=io.BytesIO(), device=dev).run(stream8)))
+    print("8K: these are times on one card; no scaling is claimed")
+
+    # two processes sharing the card, gloo on 127.0.0.1, 2x1 globally
+    t0 = time.perf_counter()
+    mh = os.path.join(work, "mh.vc2")
+    multihost.launch(mh, world=2, device=str(dev), space=1, size="1080p",
+                     fragment_length=FRAGMENT, timeout=300)
+    cfg = multihost.harness_config("1080p")
+    enc = Encoder(cfg, device=dev)
+    encoded = [enc.encode_picture(p)
+               for p in multihost.harness_frames(cfg, 2)]
+    frag = multihost.harness_stream(cfg, encoded, FRAGMENT)
+    with open(mh, "rb") as f:
+        check(f.read() == multihost.harness_stream(cfg, encoded),
+              "the two-process stream differs from one device's")
+    with open(mh + ".frag", "rb") as f:
+        check(f.read() == frag, "the two-process fragments differ")
+    sink = io.BytesIO()
+    check(Decoder(sink=sink, device=dev).run(frag) == 0, "decode")
+    with open(mh + ".dec", "rb") as f:
+        check(f.read() == sink.getvalue(),
+              "the two-process decode differs from one device's")
+    print(f"two processes on one card (gloo, 2x1 mesh, 1080p CBR): stream, "
+          f"-F {FRAGMENT} stream and decode equal one device's "
+          f"({time.perf_counter() - t0:.1f} s)")
+    dryrun.dryrun_multichip([dev] * 4, fast=True)
+    return paths
+
+
 def main(argv) -> int:
     if argv:
         print(__doc__, file=sys.stderr)
@@ -1373,6 +1627,7 @@ def main(argv) -> int:
     from vc2tpu_torch.cli import decode_frame
     from vc2tpu_torch.cli.decode_stream import Decoder
     from vc2tpu_torch.core import build
+    from vc2tpu_torch.core import device as devices
     from vc2tpu_torch.core.config import ColourFormat, PictureGeometry
     from vc2tpu_torch.core.intmath import rationalise
     from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
@@ -1674,6 +1929,15 @@ def main(argv) -> int:
     phase_done("5 goldens and taps")
 
     # 6. times
+    # the device guard every launch runs in: its host cost a launch
+    guard_t = torch.zeros(1, device=dev)
+
+    def guards():
+        for _ in range(1000):
+            with devices.guard(guard_t):
+                pass
+    print(f"device guard: {1e3 * time_host(guards) / 1000:.3f} us a launch "
+          f"(host clock, median of {REPS} x 1000 entries; {card})")
     for key, data in streams.items():
         def decode_once():
             Decoder(sink=io.BytesIO()).run(data)
@@ -2033,9 +2297,25 @@ def main(argv) -> int:
     ld_pack_bound, ld_pack_by = bound_ms(ld_pack_bytes,
                                          20 * n_ld_lanes + 38 * ld_nonzero)
 
+    phase_done("6 times")
+
+    # 7. the multi-device paths on the one card, after the times, so that
+    # what the 8K runs leave in the process does not weigh on them
+    dev0 = torch.device("cuda", 0)
+    halo_cases, halo_err = check_halo_lift(torch, np, rng, dev0)
+    print(f"halo lift: {halo_cases} cases (7 wavelets, 2 and 4 bands of one "
+          "card, the thinnest bands) equal to the unsharded lift, depth "
+          "launches each way; 50 planes in 2 launches")
+    lift_err = max(lift_err, halo_err)
+    sharded_paths = sharded_phase(torch, np, dev0, streams, fixtures,
+                                  src_1080p, frag_stream, work.name,
+                                  zero_counts, counts, card)
+    phase_done("7 sharded")
+
     paths = {"decode": decode_launches, "encode": encode_launches,
              "encode_cbr": cbr_launches, "decode_fragments": frag_launches,
-             "decode_ld": ld_launches, "encode_ld": ld_enc_launches}
+             "decode_ld": ld_launches, "encode_ld": ld_enc_launches,
+             **sharded_paths}
 
     def launches(k):
         return sum(p[k] for p in paths.values())
@@ -2142,7 +2422,6 @@ def main(argv) -> int:
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
               f"{k['plain_ms']:.4f} ms, launches {k['launches']} "
               f"{k['launches_by_path']} ({card})")
-    phase_done("6 times")
     work.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -785,3 +785,115 @@ def test_ld_golden_encodes_through_the_kernels(case, tap, cuda, tmp_path):
     pictures = rdo_ld.ld_rate_control.launches - rates
     assert pictures > 0 and dp.quant_pack_ld.launches - packs == pictures
     assert dp.pack_hq.launches == hq
+
+
+# --- the multi-device paths (shard/, pipeline/sharded.py) -------------------
+
+def _shared_mesh(data, space):
+    from vc2tpu_torch.shard.mesh import make_mesh
+
+    return make_mesh(data, space, devices=["cuda:0"] * (data * space))
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_halo_lift_matches_unsharded_on_the_card(kernel, cuda):
+    """The halo lift over 2 and 4 bands of one card (one launch a level
+    for all of them) against the unsharded lift, both ways, at 1080p rows
+    and on bands thin enough to reach two bands away."""
+    from vc2tpu_torch.shard import halo
+
+    rng = np.random.default_rng(int(kernel))
+    for rows, cols, space in ((1080, 1920, 2), (1088, 960, 4),
+                              (4 * 16, 48, 4)):
+        x = _plane(rng, (rows, cols), cuda)
+        mesh = _shared_mesh(1, space)
+        want = lifting.forward_plane(x, kernel, 2)
+        assert torch.equal(halo.sharded_forward_plane(x, mesh, kernel, 2),
+                           want)
+        assert torch.equal(halo.sharded_inverse_plane(want, mesh, kernel, 2),
+                           lifting.inverse_plane(want, kernel, 2))
+
+
+def _random_1080p(cfg, seed=1):
+    from vc2tpu_torch.shard import multihost
+
+    return multihost.harness_frames(cfg, 2, seed)
+
+
+def test_sharded_1080p_encode_and_decode_on_one_card(cuda):
+    """1080p HQ CBR over a 1x3 mesh of one card, and a 2x3 one with two
+    pictures: the payloads equal the single-device Encoder's, and
+    Decoder(mesh=) decodes them as Decoder() does; the bands' launches."""
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.pipeline.sharded import ShardedEncoder
+    from vc2tpu_torch.shard import multihost
+
+    cfg = multihost.harness_config("1080p")
+    pics = _random_1080p(cfg)
+    enc = Encoder(cfg)
+    want = [enc.encode_picture(p) for p in pics]
+    for data in (1, 2):
+        mesh = _shared_mesh(data, 3)
+        packs = dp.pack_hq.launches
+        got = ShardedEncoder(cfg, mesh).encode_batch(pics[:data])
+        assert dp.pack_hq.launches - packs == 3 * data
+        for g, w in zip(got, want):
+            assert g.payload == w.payload
+            assert np.array_equal(g.q_indices, w.q_indices)
+    stream = multihost.harness_stream(cfg, want, 16384)
+    ref, out = io.BytesIO(), io.BytesIO()
+    assert Decoder(sink=ref).run(stream) == 0
+    unpacks = du.unpack_hq.launches
+    assert Decoder(sink=out, mesh=_shared_mesh(1, 3)).run(stream) == 0
+    assert du.unpack_hq.launches - unpacks == 6
+    assert out.getvalue() == ref.getvalue()
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+
+
+def test_launches_go_to_the_tensors_card(cuda):
+    """With the tensors on cuda:1 and cuda:0 current, an HQ decode and a
+    CBR encode give cuda:0's bytes (each launch runs in its tensors'
+    card's device guard)."""
+    _two_cards()
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.shard import multihost
+
+    cfg = multihost.harness_config("1080p")
+    pic = _random_1080p(cfg)[0]
+    with open(os.path.join(GOLDEN, "constq_legall_d2.vc2"), "rb") as f:
+        stream = f.read()
+    torch.cuda.set_device(0)
+    outs = []
+    for dev in ("cuda:0", "cuda:1"):
+        sink = io.BytesIO()
+        assert Decoder(sink=sink, device=dev).run(stream) == 0
+        outs.append((sink.getvalue(),
+                     Encoder(cfg, device=dev).encode_picture(pic).payload))
+        assert torch.cuda.current_device() == 0
+    assert outs[0] == outs[1]
+
+
+def test_mesh_over_two_cards(cuda):
+    """A 1x2 mesh over cuda:0 and cuda:1 (peer copies of the halo rows):
+    the encode and the mesh decode equal one card's."""
+    _two_cards()
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.pipeline.sharded import ShardedEncoder
+    from vc2tpu_torch.shard import multihost
+    from vc2tpu_torch.shard.mesh import make_mesh
+
+    cfg = multihost.harness_config("1080p")
+    pics = _random_1080p(cfg)[:1]
+    mesh = make_mesh(1, 2)
+    got = ShardedEncoder(cfg, mesh).encode_batch(pics)[0]
+    want = Encoder(cfg).encode_picture(pics[0])
+    assert got.payload == want.payload
+    stream = multihost.harness_stream(cfg, [want])
+    ref, out = io.BytesIO(), io.BytesIO()
+    assert Decoder(sink=ref).run(stream) == 0
+    assert Decoder(sink=out, mesh=mesh).run(stream) == 0
+    assert out.getvalue() == ref.getvalue()

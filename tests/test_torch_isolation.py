@@ -313,3 +313,122 @@ def test_libraries_are_keyed_by_source_hash(case):
     for p in paths:
         assert os.path.dirname(p) == build.BUILD_DIR
         assert os.path.basename(p).split("-")[1].split(".")[0].isalnum()
+
+
+def test_shard_imports_load_no_jax_or_vc2tpu():
+    _imports_clean("vc2tpu_torch.shard.mesh, vc2tpu_torch.shard.halo, "
+                   "vc2tpu_torch.shard.multihost, vc2tpu_torch.shard.dryrun, "
+                   "vc2tpu_torch.pipeline.sharded")
+
+
+def test_make_mesh_defaults_to_the_cards(monkeypatch):
+    """A mesh takes one distinct card a position unless told otherwise:
+    without a card it raises, with too few it raises the JAX package's
+    error; the CPU fills any number of positions, and an explicit list may
+    repeat a card."""
+    from vc2tpu_torch.shard.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1, 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="mesh 1x2 needs more than 1 "
+                                         "devices"):
+        make_mesh(1, 2)
+    assert make_mesh().devices == [[torch.device("cuda", 0)]]
+    cpu = make_mesh(2, 4, device="cpu")
+    assert cpu.shape == {"data": 2, "space": 4}
+    assert cpu.distinct() == [torch.device("cpu")]
+    shared = make_mesh(1, 4, devices=["cuda:0"] * 4)
+    assert shared.row(0) == [torch.device("cuda", 0)] * 4
+
+
+def test_multihost_harness_needs_a_card(monkeypatch, tmp_path):
+    """The two-process harness runs on the card unless told otherwise:
+    without one, ``launch`` and its command raise before any process
+    starts."""
+    from vc2tpu_torch.shard import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multihost.subprocess, "Popen", None)
+    out = str(tmp_path / "mh.vc2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.launch(out)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.main([out])
+    assert not os.path.exists(out)
+
+
+def test_mesh_spec_is_shape_or_mesh(monkeypatch):
+    """``--mesh`` takes ``DxS`` only; a program passes a ``Mesh``, which
+    may repeat a card, as itself."""
+    from vc2tpu_torch.shard.mesh import from_spec, make_mesh
+
+    assert from_spec("2x4", "cpu").shape == {"data": 2, "space": 4}
+    shared = make_mesh(1, 3, devices=["cuda:0"] * 3)
+    assert from_spec(shared, "cpu") is shared
+    with pytest.raises(ValueError):
+        from_spec("1x3=cuda:0")
+
+
+def _launch_calls(tree):
+    """(line, inside a ``with devices.guard(...)`` block) of every
+    ``_lib().<name>_launch(`` and ``_ld_lib().<name>_launch(`` call."""
+    out = []
+
+    def guarded(node):
+        return isinstance(node, ast.With) and any(
+            isinstance(i.context_expr, ast.Call)
+            and isinstance(i.context_expr.func, ast.Attribute)
+            and i.context_expr.func.attr == "guard"
+            and isinstance(i.context_expr.func.value, ast.Name)
+            and i.context_expr.func.value.id == "devices"
+            for i in node.items)
+
+    def visit(node, inside):
+        inside = inside or guarded(node)
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr.endswith("_launch")
+                and isinstance(node.func.value, ast.Call)
+                and isinstance(node.func.value.func, ast.Name)
+                and node.func.value.func.id in ("_lib", "_ld_lib")):
+            out.append((node.lineno, inside))
+        for child in ast.iter_child_nodes(node):
+            visit(child, inside)
+
+    visit(tree, False)
+    return out
+
+
+def test_every_kernel_launch_goes_to_its_tensors_card():
+    """Every kernel launch of the port sits in ``with devices.guard(t):``,
+    so the ``<<<>>>`` inside it goes to the card that holds its tensors,
+    not to the calling thread's current card."""
+    found, bad = 0, []
+    for path in _port_files():
+        if os.sep + "vc2tpu_torch" + os.sep not in path:
+            continue
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for line, inside in _launch_calls(tree):
+            found += 1
+            if not inside:
+                bad.append(f"{path}:{line}")
+    assert not bad, bad
+    assert found == 8        # lift, hq/ld unpack, hq/ld pack, cbr, ld x2
+
+
+def test_guard_is_the_tensors_card():
+    assert isinstance(devices.guard(torch.zeros(1)),
+                      type(devices.guard(torch.ones(2))))
+    with devices.guard(torch.zeros(1)):
+        pass
+
+    class _Card1(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 1)
+
+    g = devices.guard(torch.zeros(1).as_subclass(_Card1))
+    assert isinstance(g, torch.cuda.device) and g.idx == 1

@@ -12,6 +12,15 @@ layout (QUANTISED; for LD the LL residuals as coded) or the dequantised
 transform planes (TRANSFORM; for LD with the DC prediction), as int32
 words.
 
+With ``--mesh DxS`` (``Decoder(mesh=...)``) the DECODED output of each
+picture decodes over the ``space`` bands of the mesh's first row
+(``pipeline.sharded.ShardedDecoder``: one unpack launch a band, the halo
+inverse lift); the host scans stay whole-picture. Where a picture's slice
+rows do not divide over the bands it takes the single-device route on the
+mesh's first device, and says so once, as the JAX package does; an LD
+picture then still takes the halo inverse where its padded rows divide.
+The tap outputs always take the single-device route.
+
 An LD picture's bytes come from its preamble's slice_bytes fraction with
 no second halving when interlaced: the JAX package's deliberate deviation
 from the reference decoder (``vc2tpu/cli/decode_stream.py``,
@@ -40,15 +49,18 @@ from vc2tpu_torch.core.config import DecOutput, PictureGeometry, chroma_dims
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.core.planario import SampleFormat, write_picture
 from vc2tpu_torch.pipeline.decoder import (dequantise_ld_planes,
-                                           dequantise_planes,
+                                           dequantise_planes, format_planes,
                                            synthesise_ld_payload_to_words,
                                            synthesise_payload_to_words,
                                            unpack_ld_payload, unpack_payload)
+from vc2tpu_torch.pipeline.sharded import ShardedDecoder
+from vc2tpu_torch.shard import halo
+from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
 from vc2tpu_torch.slices.ld import LDScan, ld_scan
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
-from vc2tpu_torch.wavelet import matrices
+from vc2tpu_torch.wavelet import lifting, matrices
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[o.value for o in DecOutput])
     p.add_argument("--device", default="cuda",
                    help="torch device to decode on (default: cuda)")
+    p.add_argument("--mesh", metavar="DxS", default=None,
+                   help="decode on a DxS device mesh (row bands over the S "
+                        "axis): each band unpacks its own slices, then the "
+                        "halo inverse lift; bit-exact with one device")
     return p
 
 
@@ -82,6 +98,7 @@ class LocatedPicture:
     q_idx: np.ndarray
     cbytes: np.ndarray | None = None
     ld: LDScan | None = None
+    dstart: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -104,8 +121,16 @@ class Decoder:
     """Stateful stream decoder usable as a library (the CLI drives it)."""
 
     def __init__(self, output: DecOutput = DecOutput.DECODED, verbose=False,
-                 sink=None, device=None):
-        self.device = devices.resolve(device)
+                 sink=None, device=None, mesh=None):
+        # mesh: "DxS" or a Mesh (shard.mesh.from_spec), built here so a
+        # misconfigured mesh fails before any picture
+        if mesh is not None:
+            mesh = from_spec(mesh, device)
+        self.mesh = mesh
+        self._sdec_cache: dict = {}
+        self._mesh_inert_logged = False
+        self.device = (mesh.first if mesh is not None
+                       else devices.resolve(device))
         self.output = output
         self.verbose = verbose
         self.sink = sink
@@ -222,14 +247,16 @@ class Decoder:
         geo = SliceGeometry(ys, xs, (padded_h, padded_w), (pch, pcw),
                             (padded_h // ys, padded_w // xs),
                             (pch // ys, pcw // xs))
+        if self.mesh is not None and self.output == DecOutput.DECODED:
+            self._check_mesh(pre, geo, hq)
         if hq:
-            q_idx, _dstart, cbytes, end = scan_hq_slice_offsets(
+            q_idx, dstart, cbytes, end = scan_hq_slice_offsets(
                 data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
                 start)
             # the data up to the slice chain's end: all the device needs
             payload = np.frombuffer(data, dtype=np.uint8, count=end)
             return end, LocatedPicture(picnum, pre, geo, pic_h, payload,
-                                       start, q_idx, cbytes)
+                                       start, q_idx, cbytes, dstart=dstart)
         ts = 1 << depth
         if any(d % ts for d in (*geo.luma_slice, *geo.chroma_slice)):
             raise ValueError("LD slices do not hold whole LL blocks")
@@ -255,10 +282,17 @@ class Decoder:
         pre = job.pre
         qmatrix = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
         if self.output != DecOutput.DECODED:
+            if self.mesh is not None and self.output == DecOutput.TRANSFORM:
+                self._say_once("--mesh: no sharded path for output mode "
+                               f"{self.output.value}; decoding single-chip")
             self._write_tap(job, qmatrix)
             return
         out_geom = PictureGeometry.of(job.pic_h, hdr.width, hdr.chroma_format)
-        if job.ld is not None:
+        planes = None if self.mesh is None else self._mesh_planes(job,
+                                                                  qmatrix)
+        if planes is not None:
+            words = format_planes(planes, out_geom, hdr.bitdepth)
+        elif job.ld is not None:
             words = synthesise_ld_payload_to_words(
                 job.payload, job.ld, qmatrix, pre.wavelet_kernel, pre.depth,
                 job.geo, out_geom, hdr.bitdepth, device=self.device)
@@ -270,6 +304,86 @@ class Decoder:
                 device=self.device)
         self._cur_picnum = job.picnum
         self._emit_words(words)
+
+    # --- the mesh route (--mesh) ---
+
+    def _say_once(self, msg: str):
+        if not self._mesh_inert_logged:
+            self._mesh_inert_logged = True
+            print(msg, file=sys.stderr)
+
+    def _sharded_decoder(self, pre, geo):
+        """The ShardedDecoder of this picture geometry (cached), or None
+        when its slice rows do not divide over the mesh's ``space`` axis
+        (the single-device route, said once a geometry)."""
+        key = (pre.wavelet_kernel, pre.depth, geo)
+        if key not in self._sdec_cache:
+            space = self.mesh.shape["space"]
+            sdec = None
+            if geo.y_slices % space == 0:
+                sdec = ShardedDecoder(pre.wavelet_kernel, pre.depth, geo,
+                                      self.mesh)
+            else:
+                print(f"mesh decode: {geo.y_slices} slice rows do not divide "
+                      f"over {space} shards; using the single-chip route",
+                      file=sys.stderr)
+            self._sdec_cache[key] = sdec
+        return self._sdec_cache[key]
+
+    def sharded_decoders(self) -> list:
+        """The ShardedDecoders the mesh route has used, one a picture
+        geometry, in first use."""
+        return [s for s in self._sdec_cache.values() if s is not None]
+
+    def _indivisible(self, geo, depth: int) -> int:
+        """The rows of the first padded plane that does not cut into
+        bands of whole ``2**depth`` rows over the mesh, else 0."""
+        n, ts = self.mesh.shape["space"], 1 << depth
+        return next((rows for rows in (geo.padded_luma[0],
+                                       geo.padded_chroma[0])
+                     if rows % n or (rows // n) % ts), 0)
+
+    def _check_mesh(self, pre, geo, hq: bool):
+        """Raise, on the host and before any device work, the ValueError
+        the mesh route would meet (bands thinner than the JAX package's
+        halo), so the stream loop skips the picture as the JAX package's
+        decoder does."""
+        if self._sharded_decoder(pre, geo) is None and (
+                hq or self._indivisible(geo, pre.depth)):
+            return                  # the single-device route
+        for rows in (geo.padded_luma[0], geo.padded_chroma[0]):
+            halo.check_rows(rows, self.mesh.shape["space"],
+                            pre.wavelet_kernel, pre.depth)
+
+    def _mesh_planes(self, job: LocatedPicture, qmatrix):
+        """A located picture's synthesised padded planes over the mesh, on
+        its first device; None where the picture takes the single-device
+        route."""
+        pre, geo = job.pre, job.geo
+        sdec = self._sharded_decoder(pre, geo)
+        if sdec is not None and job.ld is None:
+            return sdec.decode_payload_device(job.payload, job.q_idx,
+                                              job.dstart, job.cbytes)
+        if sdec is not None:
+            return sdec.decode_ld_payload_device(job.payload, job.ld)[1]
+        if job.ld is None:
+            return None
+        # an LD picture whose slice rows do not divide: unpack on one
+        # device, then the halo inverse where the padded planes divide
+        lanes, q_idx, grids = unpack_ld_payload(job.payload, job.ld, geo,
+                                                device=self.device)
+        planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix,
+                                      pre.depth, geo)
+        rows = self._indivisible(geo, pre.depth)
+        if rows:
+            self._say_once(f"--mesh: LD plane of {rows} rows does not "
+                           f"divide over {self.mesh.shape['space']} shards "
+                           f"in units of {1 << pre.depth}; decoding "
+                           "single-chip")
+            return lifting.inverse_planes(planes, pre.wavelet_kernel,
+                                          pre.depth)
+        return halo.sharded_inverse_planes(planes, self.mesh,
+                                           pre.wavelet_kernel, pre.depth)
 
     def _write_tap(self, job: LocatedPicture, qmatrix):
         """One picture's INDICES, QUANTISED or TRANSFORM output
@@ -550,7 +664,7 @@ def main(argv=None) -> int:
     sink = sys.stdout.buffer if args.outFile == "-" else open(args.outFile, "wb")
     try:
         dec = Decoder(output=DecOutput(args.output), verbose=args.verbose,
-                      sink=sink, device=args.device)
+                      sink=sink, device=args.device, mesh=args.mesh)
         rc = dec.run_stream(fp)
     except Exception as exc:
         print(f"Error: {exc}", file=sys.stderr)

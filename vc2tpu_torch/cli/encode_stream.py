@@ -9,12 +9,26 @@ Each picture is encoded on the device by ``pipeline.encoder.Encoder``
 field as a picture of half the height (and, for LD, half the bytes). HQ
 CBR and LD with ``-F`` write each picture as a series of fragments.
 
+``--mesh DxS`` (Stream output only) encodes HQ over a D x S device mesh
+(``pipeline.sharded.ShardedEncoder``: pictures in batches of D over the
+``data`` axis, row bands over ``space``; with ``-F`` each band's span is
+framed as it lands), and LD with its analysis DWT over the bands
+(``LDEncoder(mesh=...)``); the bytes equal one device's. With ``--device
+cpu`` the mesh is the CPU mesh. A program may instead set ``args.mesh``
+to a ``shard.mesh.Mesh`` before ``run(args)``; ``make_mesh(1, 3,
+devices=["cuda:0"] * 3)`` runs the bands on one card. Unlike the JAX
+package's CLI, which fails on it, LD with ``--mesh`` and ``-F`` writes
+fragments.
+
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m HQ_ConstQ -q 20 in.16p2 out.vc2
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m HQ_CBR -S 1 -s 2048 -F 512 in.16p2 out.vc2
     python -m vc2tpu_torch.cli.encode_stream -x 64 -y 32 -f 4:2:2 -l 10 \\
         -k LeGall -d 2 -u 1 -a 2 -m LD -s 2048 in.16p2 out.vc2
+    python -m vc2tpu_torch.cli.encode_stream --device cpu --mesh 2x4 \
+        -x 64 -y 64 -f 4:2:2 -l 10 -k LeGall -d 2 -u 1 -a 2 -m HQ_CBR \
+        -s 2048 in.16p2 out.vc2
 """
 
 from __future__ import annotations
@@ -34,6 +48,8 @@ from vc2tpu_torch.core.planario import (PlanarReader, SampleFormat,
                                         write_picture)
 from vc2tpu_torch.pipeline.encoder import Encoder
 from vc2tpu_torch.pipeline.ld import LDEncoder
+from vc2tpu_torch.pipeline.sharded import ShardedEncoder
+from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.stream.dataunit import PicturePreamble, StreamWriter
 from vc2tpu_torch.stream.headers import SequenceHeader
 from vc2tpu_torch.wavelet import matrices
@@ -76,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-q", "--quantIndex", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to encode on (default: cuda)")
+    p.add_argument("--mesh", metavar="DxS", default=None,
+                   help="encode on a DxS device mesh (frames x row bands; "
+                        "Stream output only): the HQ modes' whole encode a "
+                        "band, LD's analysis DWT; bytes equal one device's")
     return p
 
 
@@ -195,6 +215,43 @@ def _narrate(args, cfg: EncoderConfig, output: EncOutput, geo,
     print("\n".join(lines), file=sys.stderr)
 
 
+class _MeshStream:
+    """The HQ stream behind ``--mesh``: pictures gather into batches of
+    the mesh's ``data`` extent (the last padded with copies of its last
+    picture, whose results are dropped), each batch encoded by one
+    ``ShardedEncoder.encode_batch`` and written in order, or with
+    fragments streamed a band's span at a time."""
+
+    def __init__(self, cfg: EncoderConfig, mesh, device):
+        self.impl = ShardedEncoder(cfg, from_spec(mesh, device))
+        self.geo = self.impl.geo
+        self.data = self.impl.data
+        self.batch = []             # [(picture number, Picture)]
+        self.q_log = []             # each written picture's q indices
+
+    def submit(self, writer, preamble, picture_number, picture):
+        self.batch.append((picture_number, picture))
+        if len(self.batch) == self.data:
+            self.flush(writer, preamble)
+
+    def flush(self, writer, preamble):
+        if not self.batch:
+            return
+        nums = [n for n, _p in self.batch]
+        pics = [p for _n, p in self.batch]
+        pics += [pics[-1]] * (self.data - len(pics))
+        self.batch = []
+        if writer.fragment_length:
+            self.q_log += [q.ravel() for q in
+                           self.impl.encode_batch_to_fragments(
+                               pics, writer, nums, preamble)]
+            return
+        for num, enc in zip(nums, self.impl.encode_batch(pics)):
+            writer.write_picture(num, preamble, enc.payload,
+                                 slice_sizes=enc.slice_totals)
+            self.q_log.append(enc.q_indices.ravel())
+
+
 def run(args) -> int:
     cfg = config_from_args(args)
     output = EncOutput(args.output)
@@ -206,7 +263,15 @@ def run(args) -> int:
                               bit_depth=cfg.chroma_depth)
     sig_fmt = SampleFormat(word_width=4, offset=False)
     ld = cfg.mode == Mode.LD
-    encoder = (LDEncoder if ld else Encoder)(cfg, device=args.device)
+    mesh = None
+    if args.mesh and output != EncOutput.STREAM:
+        raise ValueError("--mesh supports Stream output only")
+    if args.mesh and not ld:
+        encoder = mesh = _MeshStream(cfg, args.mesh, args.device)
+    elif ld:
+        encoder = LDEncoder(cfg, device=args.device, mesh=args.mesh)
+    else:
+        encoder = Encoder(cfg, device=args.device)
     geo = encoder.geo
 
     infile = sys.stdin.buffer if args.inFile == "-" else open(args.inFile, "rb")
@@ -270,6 +335,11 @@ def run(args) -> int:
                 picture = (in_frame.first_field(cfg.top_field_first)
                            if pic_i == 0
                            else in_frame.second_field(cfg.top_field_first))
+            if mesh is not None:
+                mesh.submit(writer, preamble,
+                            intmath.picture_number(pic_i, frame, frame_pics),
+                            picture)
+                continue
             enc = encoder.encode_picture(picture, keep_planes=keep_planes)
             if keep_q:
                 frame_q_indices.append(enc.q_indices.ravel())
@@ -317,6 +387,9 @@ def run(args) -> int:
                           file=sys.stderr)
         all_q_indices.extend(frame_q_indices)
         frame += 1
+    if mesh is not None:
+        mesh.flush(writer, preamble)
+        all_q_indices.extend(mesh.q_log)
     if verbose:
         print(f"\rEnd of input reached after {frame} frames", file=sys.stderr)
         if output != EncOutput.TRANSFORM:

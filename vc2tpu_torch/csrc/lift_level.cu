@@ -68,7 +68,8 @@ struct Ladder {};
 
 namespace {
 
-constexpr int MAX_PLANES = 3;
+constexpr int FEW_PLANES = 3;   // one picture's planes: a table selected unrolled
+constexpr int MAX_PLANES = 48;  // a launch's planes: the kernel parameter stays < 4 KB
 constexpr int LOG_NT = 8;
 constexpr int NT = 1 << LOG_NT;  // threads of a CTA
 constexpr int BATCH = 4;     // global loads a thread issues before it waits
@@ -88,10 +89,13 @@ struct LiftPlane {
   int tile0;               // first tile of this plane in the grid
 };
 
-// Mirror of lifting._LiftTable.
+// Mirror of lifting._LiftTable (N = MAX_PLANES). A launch of at most
+// FEW_PLANES planes passes the short table, so one picture's kernel
+// parameter stays as small as its select.
+template <int N>
 struct LiftTable {
   int n, n_tiles, th, tw, halo;
-  LiftPlane p[MAX_PLANES];
+  LiftPlane p[N];
 };
 
 namespace {
@@ -223,16 +227,34 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-template <int INV, int TSHIFT, class... S>
+// This CTA's plane: the last whose first tile is at or before the CTA,
+// unrolled over a short table, a binary search of a long one in parameter
+// space.
+template <int N>
+__device__ __forceinline__ LiftPlane cta_plane(const LiftTable<N>& t) {
+  if constexpr (N <= FEW_PLANES) {
+    LiftPlane P = t.p[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k)
+      if (k < t.n && (int)blockIdx.x >= t.p[k].tile0) P = t.p[k];
+    return P;
+  } else {
+    int lo = 0, hi = t.n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if ((int)blockIdx.x >= t.p[mid].tile0) lo = mid; else hi = mid - 1;
+    }
+    return t.p[lo];
+  }
+}
+
+template <int INV, int TSHIFT, class... S, int N>
 __device__ __forceinline__ void lift_tile(Ladder<INV, TSHIFT, S...>,
-                                          const LiftTable& t) {
+                                          const LiftTable<N>& t) {
   extern __shared__ __align__(16) uint32_t smem[];
 
   // this CTA's plane and tile
-  LiftPlane P = t.p[0];
-#pragma unroll
-  for (int k = 1; k < MAX_PLANES; ++k)
-    if (k < t.n && (int)blockIdx.x >= t.p[k].tile0) P = t.p[k];
+  const LiftPlane P = cta_plane(t);
   const int tile = (int)blockIdx.x - P.tile0;
   const int ty = tile / P.tiles_x;
   const int ty0 = ty * t.th;
@@ -373,34 +395,41 @@ __device__ __forceinline__ void lift_tile(Ladder<INV, TSHIFT, S...>,
   }
 }
 
-template <class L>
+template <class L, int N>
 __global__ void __launch_bounds__(NT, MIN_CTAS)
-lift_level_kernel(const LiftTable t) {
+lift_level_kernel(const __grid_constant__ LiftTable<N> t) {
   lift_tile(L{}, t);
 }
 
-template <class L>
-int launch(const LiftTable& t, cudaStream_t stream) {
+template <class L, int N>
+int launch(const LiftTable<N>& t, cudaStream_t stream) {
   const size_t smem = (size_t)(t.th + 2 * t.halo) *
                       (t.tw + 2 * col_halo(t.halo)) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lift_level_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lift_level_kernel<L, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  lift_level_kernel<L><<<t.n_tiles, NT, smem, stream>>>(t);
+  lift_level_kernel<L, N><<<t.n_tiles, NT, smem, stream>>>(t);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int lift_level_launch(const LiftTable* t, int kernel, int invert,
-                                 void* stream) {
+extern "C" int lift_level_launch(const LiftTable<MAX_PLANES>* t, int kernel,
+                                 int invert, void* stream) {
   const int rw = t->tw + 2 * col_halo(t->halo);
   if (t->n < 1 || t->n > MAX_PLANES || t->n_tiles < 1 || (t->th & 1) ||
       (t->tw & 7) || (t->halo & 1) || rw < 8 || rw > NT || (rw & (rw - 1)))
     return (int)cudaErrorInvalidValue;
+  if (t->n <= FEW_PLANES) {
+    LiftTable<FEW_PLANES> few{t->n, t->n_tiles, t->th, t->tw, t->halo, {}};
+    for (int k = 0; k < t->n; ++k) few.p[k] = t->p[k];
+    return with_ladder(kernel, invert, [&](auto ladder) {
+      return launch<decltype(ladder)>(few, (cudaStream_t)stream);
+    });
+  }
   return with_ladder(kernel, invert, [&](auto ladder) {
     return launch<decltype(ladder)>(*t, (cudaStream_t)stream);
   });

@@ -22,11 +22,20 @@ DC-prediction inverse on the host (``slices.ld.dequantise_ll``), then the
 decoder's ``dequantise_ld_planes`` and ``inverse_planes``, as the JAX
 package's ``ld_dequantise_picture`` does.
 
-The JAX package's host and auto routes, ``--mesh`` and its int16 fetch are
-not ported: they answered the TPU's link.
+With a ``mesh`` the analysis DWT runs over the mesh's row bands (the
+halo forward lift of ``shard.halo``, one launch a level a device), as the
+JAX package's ``--mesh`` route does; where the padded rows do not divide
+into bands of whole ``2**depth`` rows it analyses on one device and says
+so once. The rate control's wavefront couples every slice, so it and the
+pack run once a picture on the mesh's first device.
+
+The JAX package's host and auto routes and its int16 fetch are not
+ported: they answered the TPU's link.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -38,7 +47,10 @@ from vc2tpu_torch.pipeline.decoder import dequantise_ld_planes
 from vc2tpu_torch.pipeline.encoder import (EncodedPicture, analyse,
                                            planes_to_lanes, slice_geometry,
                                            upload_picture)
+from vc2tpu_torch.pipeline.sharded import upload_blocks
 from vc2tpu_torch.rdo import ld as rdo_ld
+from vc2tpu_torch.shard import halo
+from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices import ld as slices_ld
 from vc2tpu_torch.vlc import device_pack
@@ -46,14 +58,21 @@ from vc2tpu_torch.wavelet import lifting, matrices
 
 
 class LDEncoder:
-    """LD picture encoder on ``device`` (default: the card)."""
+    """LD picture encoder on ``device`` (default: the card), or with its
+    analysis over ``mesh`` (a ``shard.mesh.Mesh``, or a ``"DxS"`` spec for
+    ``shard.mesh.from_spec``), the rest on the mesh's first device."""
 
-    def __init__(self, cfg: EncoderConfig, device=None):
+    def __init__(self, cfg: EncoderConfig, device=None, mesh=None):
         cfg.validate()
         if cfg.mode != Mode.LD:
             raise ValueError(f"LDEncoder encodes Mode.LD, not {cfg.mode.value}"
                              "; use pipeline.encoder.Encoder")
-        self.device = dev = devices.resolve(device)
+        if mesh is not None:
+            mesh = from_spec(mesh, device)
+        self.mesh = mesh
+        self._mesh_inert_logged = False
+        self.device = dev = (mesh.first if mesh is not None
+                             else devices.resolve(device))
         self.cfg = cfg
         self.geo = geo = slice_geometry(cfg)
         d = cfg.wavelet_depth
@@ -86,6 +105,43 @@ class LDEncoder:
                                       device=dev)
         self.avail_device = torch.as_tensor(self.avail, device=dev)
 
+    def analyse(self, picture: Picture) -> list:
+        """The padded planes' forward DWT on the device: over the mesh's
+        row bands where they divide, else on the one device."""
+        cfg = self.cfg
+        if self.mesh is not None:
+            planes = self._analyse_mesh(picture)
+            if planes is not None:
+                return planes
+        planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
+        return analyse(planes, cfg.kernel, cfg.wavelet_depth)
+
+    def _analyse_mesh(self, picture: Picture):
+        """The halo forward lift over the ``space`` bands of the mesh's
+        first row, gathered on its first device; None (said once on stderr,
+        as the JAX package says it) when a padded plane's rows do not
+        divide into bands of whole ``2**depth`` rows."""
+        cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
+        n = self.mesh.shape["space"]
+        ts = 1 << d
+        pads = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
+        for rows, _w in pads:
+            if rows % n or (rows // n) % ts:
+                if not self._mesh_inert_logged:
+                    self._mesh_inert_logged = True
+                    print(f"--mesh: LD plane of {rows} rows does not divide "
+                          f"over {n} shards in units of {ts}; analysing "
+                          "single-chip", file=sys.stderr)
+                return None
+        for rows, _w in pads:
+            halo.check_rows(rows, n, cfg.kernel, d)
+        geos = [halo.band_rows(rows, n, halo.margin(cfg.kernel, d))
+                for rows, _w in pads]
+        blocks = upload_blocks(picture, cfg.bytes_per_sample,
+                               self.mesh.row(0), geos, pads)
+        bands = halo.forward_blocks(blocks, geos, cfg.kernel, d)
+        return [torch.cat([t.to(self.device) for t in b]) for b in bands]
+
     def rate_control(self, tlanes):
         """The q indices and LL lanes of a picture's transform lanes, on the
         device (one launch, not synchronised)."""
@@ -107,9 +163,8 @@ class LDEncoder:
         """Encode one picture (a frame, or a field when interlaced). With
         ``keep_planes`` the result also holds the transform, the quantised
         planes and lanes on the device, for the tap outputs."""
-        cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
-        planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
-        transform = analyse(planes, cfg.kernel, d)
+        geo, d = self.geo, self.cfg.wavelet_depth
+        transform = self.analyse(picture)
         tlanes = planes_to_lanes(transform, geo, d)
         q_idx, *ll = self.rate_control(tlanes)
         buf, lanes = self.pack(tlanes, q_idx, ll, keep_planes)

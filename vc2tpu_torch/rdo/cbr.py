@@ -37,6 +37,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import (MAX_QINDEX, QUANT_FACTORS_I32,
                                          QUANT_OFFSETS, adjust_quant_index,
@@ -187,11 +188,13 @@ def launch_search(y, u, v, qm_y, qm_c, budgets, scalar: int, flags=None):
     caller), not synchronised. Returns the int32 [N] q indices."""
     n, ly, lc = y.shape[0], y.shape[1], u.shape[1]
     out = torch.empty(n, dtype=torch.int32, device=y.device)
-    rc = _lib().hq_cbr_launch(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, qm_y.data_ptr(),
-        qm_c.data_ptr(), budgets.data_ptr(), n, scalar, group_plan(ly, lc),
-        out.data_ptr(), None if flags is None else flags.data_ptr(),
-        torch.cuda.current_stream(y.device).cuda_stream)
+    with devices.guard(y):
+        rc = _lib().hq_cbr_launch(
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc,
+            qm_y.data_ptr(), qm_c.data_ptr(), budgets.data_ptr(), n, scalar,
+            group_plan(ly, lc), out.data_ptr(),
+            None if flags is None else flags.data_ptr(),
+            torch.cuda.current_stream(y.device).cuda_stream)
     if rc:
         raise RuntimeError(f"hq_cbr kernel launch failed: CUDA error {rc}")
     cbr_quant_indices.launches += 1

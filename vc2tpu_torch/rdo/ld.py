@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import (MAX_QINDEX, QUANT_FACTORS_I32,
                                          QUANT_OFFSETS, _scale_core)
@@ -419,10 +420,11 @@ def launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
     table = torch.empty((n, 2, TRIALS), dtype=torch.int32, device=dev)
     qm_y, qm_c = _lane_tables(tuple(int(x) for x in qm), tuple(bs_y),
                               tuple(bs_c), dev)
-    rc = _lib().ld_body_table_launch(
-        lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly, lc,
-        bs_y[0], bs_c[0], qm_y.data_ptr(), qm_c.data_ptr(), n,
-        table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with devices.guard(lanes_y):
+        rc = _lib().ld_body_table_launch(
+            lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly,
+            lc, bs_y[0], bs_c[0], qm_y.data_ptr(), qm_c.data_ptr(), n,
+            table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"ld_rate body table launch failed: CUDA error "
                            f"{rc}")
@@ -474,13 +476,14 @@ def launch_rate(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
     scratch = torch.zeros(scratch_words(rows, cols, ll_shapes),
                           dtype=torch.int64, device=dev)
     (lyh, lyw), (lch, lcw) = ll_y_shape, ll_c_shape
-    rc = _lib().ld_rate_launch(
-        lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly, lc,
-        qm_y.data_ptr(), qm_c.data_ptr(), lyh, lyw, lch, lcw,
-        None if table is None else table.data_ptr(), avail.data_ptr(), rows,
-        cols, q.data_ptr(), ll[0].data_ptr(), ll[1].data_ptr(),
-        ll[2].data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with devices.guard(lanes_y):
+        rc = _lib().ld_rate_launch(
+            lanes_y.data_ptr(), lanes_u.data_ptr(), lanes_v.data_ptr(), ly,
+            lc, qm_y.data_ptr(), qm_c.data_ptr(), lyh, lyw, lch, lcw,
+            None if table is None else table.data_ptr(), avail.data_ptr(),
+            rows, cols, q.data_ptr(), ll[0].data_ptr(), ll[1].data_ptr(),
+            ll[2].data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"ld_rate kernel launch failed: CUDA error {rc}")
     ld_rate_control.launches += 1

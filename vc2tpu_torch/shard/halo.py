@@ -1,0 +1,290 @@
+"""Halo-exchange lifting DWT for row-band-sharded pictures.
+
+Port of ``vc2tpu.shard.halo``. A picture's rows are cut into ``n`` row
+bands (the ``space`` axis of a mesh), each a multiple of ``2**depth`` rows
+on its device; the transform, in the in-place layout, equals the
+unsharded ``lifting.forward_plane`` / ``inverse_plane`` exactly (ints,
+integer ``==``).
+
+The JAX package exchanges halo rows before every vertical lifting step
+(``ppermute``, a parity's ``halo_width`` rows). The port's lift kernel
+runs all the steps of a level in one launch (``lifting.lift_levels``), so
+rows are exchanged once a level instead:
+
+* a band's block holds its own rows and a margin of ``lifting.halo(kernel)
+  * s`` rows on each side at level stride ``s`` (the level's
+  contamination reach in its sub-lattice rows, ``lifting.true_reach`` of
+  both ladders, times ``s``), clipped to the picture; the edge bands take
+  nothing past the picture's edge, where the kernel's own clamp is the
+  picture's;
+* the margin rows are copied from whichever bands hold them, more than one
+  band away when bands are thinner than the margin (a device copy on one
+  card, a peer copy between cards);
+* one ``lift_levels`` call a level on each device lifts every block of
+  every plane that device holds (one kernel launch), and a band keeps its
+  block's interior: the rows past the margin are exact, since nothing from
+  beyond the block reaches them;
+* the forward writes each coarser level back into the band's sub-lattice
+  (as ``lifting.forward_planes`` does); the inverse passes each level's
+  compact result to the next finer one as its overlay, whose margins are
+  refreshed from the neighbours' results the same way.
+
+Blocks keep heights that are multiples of ``2 * s`` because the margins
+are (``halo`` is even and bands are multiples of ``2**depth``). The port
+raises the JAX package's errors where it raises them: a band that is not
+a multiple of ``2**depth`` rows, and a band whose deepest parity plane has
+fewer rows than the JAX ``halo_width``. Thinner bands than that are within
+the port's reach but are refused all the same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vc2tpu_torch.core.config import WaveletKernel
+from vc2tpu_torch.wavelet import lifting
+
+
+def halo_width(kernel: WaveletKernel) -> int:
+    """Max |tap offset| of the kernel's lifting steps, in sub-lattice rows:
+    LeGall/Daub97 1, DD97/DD137 2, Fidelity 4, Haar 0 (the JAX package's
+    per-step halo, whose rule for the thinnest band the port keeps)."""
+    return max((abs(off) for (_, _, taps, _, _) in lifting._STEPS[kernel]
+                for (off, _) in taps), default=0)
+
+
+def check_rows(rows: int, n: int, kernel: WaveletKernel, depth: int) -> None:
+    """Raise the JAX package's ValueError for a plane of ``rows`` rows that
+    cannot be cut into ``n`` bands for this transform."""
+    if rows % n or (rows // n) % (1 << depth):
+        raise ValueError("row shards must be multiples of 2**depth")
+    if (depth and lifting._STEPS[kernel]
+            and (rows // n) >> depth < halo_width(kernel)):
+        raise ValueError("row shard too small for this kernel's halo")
+
+
+def margin(kernel: WaveletKernel, depth: int) -> int:
+    """Rows a band's block holds beyond its own on each side: the coarsest
+    level's halo."""
+    return lifting.halo(kernel) << (depth - 1) if depth else 0
+
+
+def band_rows(rows: int, n: int, extra: int) -> list:
+    """(a, r0, r1, b) of each of ``n`` bands of ``rows`` rows: the band owns
+    rows [r0, r1) and its block holds [a, b), ``extra`` more on each side
+    clipped to the plane."""
+    h = rows // n
+    return [(max(0, i * h - extra), i * h, (i + 1) * h,
+             min(rows, (i + 1) * h + extra)) for i in range(n)]
+
+
+def _fill(bufs, geo, i: int, lo: int, hi: int) -> None:
+    """Copy rows [lo, hi) of the plane into band i's block from the bands
+    that own them."""
+    a = geo[i][0]
+    for j, (aj, r0, r1, _b) in enumerate(geo):
+        x0, x1 = max(lo, r0), min(hi, r1)
+        if j != i and x0 < x1:
+            bufs[i][x0 - a:x1 - a].copy_(bufs[j][x0 - aj:x1 - aj],
+                                         non_blocking=True)
+
+
+def _refresh(bufs, geo, i: int, reach: int, scale: int = 1,
+             blocks=None) -> None:
+    """Refresh the rows of band i's block within ``reach`` plane rows of
+    the band, from the bands that own them. For a compact level of stride
+    ``scale``, ``blocks`` gives each block's first row and the band's rows
+    in that level's rows."""
+    _a, r0, r1, _b = geo[i]
+    rows = geo[-1][2]
+    g = geo if blocks is None else blocks
+    _fill(bufs, g, i, max(0, r0 - reach) // scale, r0 // scale)
+    _fill(bufs, g, i, r1 // scale, min(rows, r1 + reach) // scale)
+
+
+def _lift_by_device(blocks, kernel, invert: bool, stride: int,
+                    overlays=None) -> list:
+    """``lifting.lift_levels`` of every block, one call (one launch) for
+    the blocks of each device; results in the blocks' order."""
+    overlays = overlays or [None] * len(blocks)
+    groups: dict = {}
+    for k, x in enumerate(blocks):
+        groups.setdefault(x.device, []).append(k)
+    out = [None] * len(blocks)
+    for idx in groups.values():
+        res = lifting.lift_levels([blocks[k] for k in idx], kernel, invert,
+                                  stride, [overlays[k] for k in idx])
+        for k, r in zip(idx, res):
+            out[k] = r
+    return out
+
+
+def _geometry(planes, kernel, depth: int) -> list:
+    return [band_rows(sum(t.shape[0] for t in bands), len(bands),
+                      margin(kernel, depth)) for bands in planes]
+
+
+def extend(bands, geo) -> list:
+    """The blocks of one plane's bands: each band's rows with its margins
+    copied from the bands that own them (int32, contiguous, on the band's
+    device)."""
+    blocks = []
+    for x, (a, r0, r1, b) in zip(bands, geo):
+        blk = torch.empty((b - a, x.shape[1]), dtype=torch.int32,
+                          device=x.device)
+        blk[r0 - a:r1 - a].copy_(x)
+        blocks.append(blk)
+    for i, (a, r0, r1, b) in enumerate(geo):
+        _fill(blocks, geo, i, a, r0)
+        _fill(blocks, geo, i, r1, b)
+    return blocks
+
+
+def forward_blocks(blocks, geos, kernel: WaveletKernel, depth: int) -> list:
+    """Forward DWT of row-band-sharded planes given as blocks:
+    ``blocks[p][i]`` holds rows [a, b) of plane p's band i (``geos[p][i]``
+    = (a, r0, r1, b) from ``band_rows(rows, n, margin(kernel, depth))``),
+    int32 and contiguous on the band's device. Returns ``out[p][i]``, the
+    band's rows [r0, r1) of the transform (views of new blocks). One
+    ``lift_levels`` call a level a device."""
+    hr = lifting.halo(kernel)
+    bufs = [list(p) for p in blocks]
+    jobs = [(p, i) for p in range(len(bufs)) for i in range(len(bufs[p]))]
+    for level in range(depth):
+        s = 1 << level
+        views = []
+        for p, i in jobs:
+            a, r0, r1, b = geos[p][i]
+            if level:
+                _refresh(bufs[p], geos[p], i, hr * s)
+                lo, hi = max(a, r0 - hr * s), min(b, r1 + hr * s)
+                views.append(bufs[p][i][lo - a:hi - a])
+            else:
+                views.append(bufs[p][i])
+        outs = _lift_by_device(views, kernel, False, s)
+        for (p, i), out in zip(jobs, outs):
+            a, r0, r1, b = geos[p][i]
+            if not level:
+                bufs[p][i] = out          # the whole block, margins stale
+                continue
+            lo = max(a, r0 - hr * s)
+            bufs[p][i][r0 - a:r1 - a][::s, ::s] = \
+                out[(r0 - lo) // s:(r1 - lo) // s]
+    return [[bufs[p][i][g[1] - g[0]:g[2] - g[0]]
+             for i, g in enumerate(geos[p])] for p in range(len(bufs))]
+
+
+def forward_bands(planes, kernel: WaveletKernel, depth: int) -> list:
+    """Forward DWT of row-band-sharded planes: ``planes[p][i]`` is band i
+    of plane p, its own rows on its device (every band of a plane the same
+    height, a multiple of ``2**depth``). Returns the bands of the
+    transform, in the same shape."""
+    planes = [[t.to(torch.int32) for t in bands] for bands in planes]
+    if not depth:
+        return [[t.contiguous() for t in bands] for bands in planes]
+    geos = _geometry(planes, kernel, depth)
+    return forward_blocks([extend(b, g) for b, g in zip(planes, geos)],
+                          geos, kernel, depth)
+
+
+def inverse_bands(planes, kernel: WaveletKernel, depth: int) -> list:
+    """Inverse DWT of row-band-sharded transform planes (as
+    ``forward_bands``'s result): one ``lift_levels`` call a level a device,
+    coarsest first, each level's compact result the overlay of the next
+    after its margins are refreshed from the neighbours'."""
+    planes = [[t.to(torch.int32) for t in bands] for bands in planes]
+    if not depth:
+        return [[t.contiguous() for t in bands] for bands in planes]
+    hr = lifting.halo(kernel)
+    geos = _geometry(planes, kernel, depth)
+    tbufs = [extend(b, g) for b, g in zip(planes, geos)]
+    jobs = [(p, i) for p in range(len(planes)) for i in range(len(planes[p]))]
+    coarse = None       # coarse[p][i]: (compact result, its first row)
+    for level in range(depth - 1, -1, -1):
+        s = 1 << level
+        views, overlays, firsts = [], [], []
+        for p, i in jobs:
+            a, r0, r1, b = geos[p][i]
+            lo, hi = max(a, r0 - hr * s), min(b, r1 + hr * s)
+            views.append(tbufs[p][i][lo - a:hi - a])
+            firsts.append(lo // s)
+            if coarse is not None:
+                sc = 2 * s            # the coarser level's stride
+                c = [t for t, _ in coarse[p]]
+                blocks = [(c0, g[1] // sc, g[2] // sc, c0 + t.shape[0])
+                          for (t, c0), g in zip(coarse[p], geos[p])]
+                _refresh(c, geos[p], i, hr * s, sc, blocks)
+                c0 = coarse[p][i][1]
+                overlays.append(c[i][lo // (2 * s) - c0:hi // (2 * s) - c0])
+        outs = _lift_by_device(views, kernel, True, s, overlays or None)
+        it = iter(zip(outs, firsts))
+        coarse = [[next(it) for _ in planes[p]] for p in range(len(planes))]
+    return [[t[g[1] - c0:g[2] - c0] for (t, c0), g in zip(coarse[p], geos[p])]
+            for p in range(len(planes))]
+
+
+def _axis_devices(mesh, axis_name: str) -> list:
+    if axis_name == "space":
+        return mesh.row(0)
+    if axis_name == "data":
+        return [row[0] for row in mesh.devices]
+    raise ValueError(f"no mesh axis {axis_name!r}")
+
+
+def _sharded(planes, mesh, kernel, depth: int, axis_name: str,
+             inverse: bool) -> list:
+    """The forward or inverse of whole planes, each (..., H, W), cut into
+    row bands over the mesh's ``axis_name`` axis: one ``lift_levels`` call
+    a level a device for all of them. Returned whole on the axis's first
+    device."""
+    devs = _axis_devices(mesh, axis_name)
+    n = len(devs)
+    shapes, bands = [], []
+    for plane in planes:
+        x = plane if isinstance(plane, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(plane))
+        x = x.to(torch.int32)
+        rows, width = x.shape[-2], x.shape[-1]
+        check_rows(rows, n, kernel, depth)
+        h = rows // n
+        frames = x.reshape(-1, rows, width)
+        shapes.append((x.shape, len(frames)))
+        bands += [[f[i * h:(i + 1) * h].to(devs[i]) for i in range(n)]
+                  for f in frames]
+    out = iter((inverse_bands if inverse else forward_bands)(bands, kernel,
+                                                           depth))
+    first = devs[0]
+    return [torch.stack([torch.cat([t.to(first) for t in next(out)])
+                         for _ in range(count)]).reshape(shape)
+            for shape, count in shapes]
+
+
+def sharded_forward_planes(planes, mesh, kernel: WaveletKernel, depth: int,
+                           axis_name: str = "space") -> list:
+    """Forward DWT of (already padded) planes, each (..., H, W), cut into
+    row bands over the mesh's ``axis_name`` axis (its first row or column
+    of devices), one ``lift_levels`` call a level a device for all of them.
+    Values and layout equal the unsharded ``lifting.forward_plane``'s;
+    returned whole on the axis's first device."""
+    return _sharded(planes, mesh, kernel, depth, axis_name, False)
+
+
+def sharded_inverse_planes(transforms, mesh, kernel: WaveletKernel,
+                           depth: int, axis_name: str = "space") -> list:
+    """Inverse of ``sharded_forward_planes`` (``lifting.inverse_plane``
+    over row bands)."""
+    return _sharded(transforms, mesh, kernel, depth, axis_name, True)
+
+
+def sharded_forward_plane(plane, mesh, kernel: WaveletKernel, depth: int,
+                          axis_name: str = "space") -> torch.Tensor:
+    """``sharded_forward_planes`` of one plane (the JAX package's
+    signature)."""
+    return _sharded([plane], mesh, kernel, depth, axis_name, False)[0]
+
+
+def sharded_inverse_plane(transform, mesh, kernel: WaveletKernel,
+                          depth: int, axis_name: str = "space"):
+    """``sharded_inverse_planes`` of one plane."""
+    return _sharded([transform], mesh, kernel, depth, axis_name, True)[0]

@@ -41,6 +41,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32,
                                          adjust_quant_index, quant)
 from vc2tpu_torch.vlc.golomb import (_code_bits, interleave, signed_codes,
@@ -304,11 +305,13 @@ def launch_pack(lanes, q_idx, prefix: int, scalar: int, slice_sizes=None,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = _lib().hq_pack_launch(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, ptr(qm_y),
-        ptr(qm_c), ptr(ky), ptr(ku), ptr(kv), q_idx.data_ptr(),
-        ptr(slice_sizes), n, group, prefix, scalar,
-        out.data_ptr(), out.numel() - 4 * n, scratch.data_ptr(), _stream(y))
+    with devices.guard(y):
+        rc = _lib().hq_pack_launch(
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, ptr(qm_y),
+            ptr(qm_c), ptr(ky), ptr(ku), ptr(kv), q_idx.data_ptr(),
+            ptr(slice_sizes), n, group, prefix, scalar,
+            out.data_ptr(), out.numel() - 4 * n, scratch.data_ptr(),
+            _stream(y))
     if rc:
         raise RuntimeError(f"hq_pack kernel launch failed: CUDA error {rc}")
     pack_hq.launches += 1
@@ -367,9 +370,29 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
     by the rate control. CUDA lanes go through the one launch of
     csrc/hq_pack.cu (quantised in its load) and one synchronisation; CPU
     lanes through ``quant_pack_hq_plain``."""
+    buf, status, keep = quant_pack_hq_queued(
+        y, u, v, q_idx, qm_y, qm_c, prefix, scalar, slice_sizes, keep_lanes,
+        scratch)
+    flags, total = status.tolist()         # the one synchronisation
+    return buf[:4 * y.shape[0] + (0 if flags else total)], flags, keep
+
+
+def quant_pack_hq_queued(y, u, v, q_idx, qm_y, qm_c, prefix: int,
+                         scalar: int, slice_sizes=None,
+                         keep_lanes: bool = False, scratch=None):
+    """``quant_pack_hq`` without its synchronisation, for a caller that
+    reads several packs at once (``pipeline.sharded``): returns (buffer,
+    status, lanes), status the int64 [flags, payload size] on the lanes'
+    device; when flags is 0 the payload is buffer[4N:4N + size] (the
+    buffer may be longer). CUDA lanes go through the one launch of
+    csrc/hq_pack.cu, not synchronised; CPU lanes through
+    ``quant_pack_hq_plain``."""
+    n = y.shape[0]
     if y.device.type == "cpu":
-        return quant_pack_hq_plain(y, u, v, q_idx, qm_y, qm_c, prefix,
-                                   scalar, slice_sizes, keep_lanes, scratch)
+        buf, flags, lanes = quant_pack_hq_plain(
+            y, u, v, q_idx, qm_y, qm_c, prefix, scalar, slice_sizes,
+            keep_lanes, scratch)
+        return buf, torch.tensor([flags, buf.numel() - 4 * n]), lanes
     if y.device.type != "cuda":
         raise ValueError(f"quant_pack_hq: unsupported device {y.device}")
     _check(y, u, v, q_idx, slice_sizes)
@@ -377,13 +400,12 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
     _cuda_inputs("quant_pack_hq", (y, u, v, q_idx, slice_sizes, qm_y, qm_c))
     keep = tuple(torch.empty_like(x) for x in (y, u, v)) if keep_lanes \
         else None
-    n = y.shape[0]
     if n == 0:
-        return torch.empty(0, dtype=torch.uint8, device=y.device), 0, keep
-    buf, flags = _result(*launch_pack((y, u, v), q_idx, prefix, scalar,
-                                      slice_sizes, (qm_y, qm_c), keep,
-                                      scratch=scratch), n)
-    return buf, flags, keep
+        return (torch.empty(0, dtype=torch.uint8, device=y.device),
+                torch.zeros(2, dtype=torch.int64, device=y.device), keep)
+    out, scratch = launch_pack((y, u, v), q_idx, prefix, scalar, slice_sizes,
+                               (qm_y, qm_c), keep, scratch=scratch)
+    return out, scratch[1:3], keep
 
 
 pack_hq.launches = 0
@@ -592,12 +614,14 @@ def launch_ld_pack(lanes, ll, q_idx, qm, sizes, starts, total: int,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = _ld_lib().ld_pack_launch(
-        y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc, ll[0].data_ptr(),
-        ll[1].data_ptr(), ll[2].data_ptr(), ll[0].shape[1], ll[1].shape[1],
-        qm[0].data_ptr(), qm[1].data_ptr(), ptr(ky), ptr(ku), ptr(kv),
-        q_idx.data_ptr(), sizes.data_ptr(), starts.data_ptr(), n,
-        ld_group_size(ly, lc), out.data_ptr(), _stream(y))
+    with devices.guard(y):
+        rc = _ld_lib().ld_pack_launch(
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), ly, lc,
+            ll[0].data_ptr(), ll[1].data_ptr(), ll[2].data_ptr(),
+            ll[0].shape[1], ll[1].shape[1], qm[0].data_ptr(),
+            qm[1].data_ptr(), ptr(ky), ptr(ku), ptr(kv), q_idx.data_ptr(),
+            sizes.data_ptr(), starts.data_ptr(), n, ld_group_size(ly, lc),
+            out.data_ptr(), _stream(y))
     if rc:
         raise RuntimeError(f"ld_pack kernel launch failed: CUDA error {rc}")
     quant_pack_ld.launches += 1

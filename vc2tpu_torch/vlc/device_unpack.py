@@ -36,6 +36,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 
 
@@ -298,12 +299,13 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
     qy, qu, qv = out
     if n == 0:
         return out
-    rc = _lib().hq_unpack_launch(
-        payload.data_ptr(), payload.numel(), dstart.data_ptr(),
-        clen.data_ptr(), n, ly, lc, qy.data_ptr(), qu.data_ptr(),
-        qv.data_ptr(), s, WINDOW_BYTES, int(stage),
-        staged.data_ptr() if staged is not None else None,
-        torch.cuda.current_stream(payload.device).cuda_stream)
+    with devices.guard(payload):
+        rc = _lib().hq_unpack_launch(
+            payload.data_ptr(), payload.numel(), dstart.data_ptr(),
+            clen.data_ptr(), n, ly, lc, qy.data_ptr(), qu.data_ptr(),
+            qv.data_ptr(), s, WINDOW_BYTES, int(stage),
+            staged.data_ptr() if staged is not None else None,
+            torch.cuda.current_stream(payload.device).cuda_stream)
     if rc:
         raise RuntimeError(f"hq_unpack kernel launch failed: CUDA error {rc}")
     unpack_hq.launches += 1
@@ -409,11 +411,13 @@ def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
     qy, qu, qv = out
     if n == 0:
         return out
-    rc = _ld_lib().ld_unpack_launch(
-        payload.data_ptr(), payload.numel(), fields.data_ptr(), n, ly, lc,
-        qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), s, LD_WINDOW_BYTES,
-        int(stage), staged.data_ptr() if staged is not None else None,
-        torch.cuda.current_stream(payload.device).cuda_stream)
+    with devices.guard(payload):
+        rc = _ld_lib().ld_unpack_launch(
+            payload.data_ptr(), payload.numel(), fields.data_ptr(), n, ly,
+            lc, qy.data_ptr(), qu.data_ptr(), qv.data_ptr(), s,
+            LD_WINDOW_BYTES, int(stage),
+            staged.data_ptr() if staged is not None else None,
+            torch.cuda.current_stream(payload.device).cuda_stream)
     if rc:
         raise RuntimeError(f"ld_unpack kernel launch failed: CUDA error {rc}")
     unpack_ld.launches += 1

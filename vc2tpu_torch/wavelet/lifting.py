@@ -29,6 +29,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.wavelet.matrices import TRANSFORM_SHIFT, padded_size
@@ -208,7 +209,7 @@ def col_halo(h: int) -> int:
 # of the card CTAS_PER_SM CTAs.
 REGIONS = ((64, 256), (64, 128), (32, 128), (32, 64))
 CTAS_PER_SM = 3
-MAX_PLANES = 3
+MAX_PLANES = 48               # planes a launch takes (csrc/lift_level.cu)
 SMEM_LIMIT = 232448            # bytes of shared memory a CTA may opt into
 
 
@@ -300,7 +301,7 @@ class _LiftPlane(ctypes.Structure):
 
 
 class _LiftTable(ctypes.Structure):
-    """Mirror of ``struct LiftTable`` in csrc/lift_level.cu."""
+    """Mirror of ``struct LiftTable<MAX_PLANES>`` in csrc/lift_level.cu."""
 
     _fields_ = [
         ("n", ctypes.c_int),
@@ -370,9 +371,10 @@ def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
     from ``overlays[i]`` where it is not None. Returns compact
     (H / stride, W / stride) planes.
 
-    CUDA planes go through csrc/lift_level.cu, all in one launch, reading
-    the sub-lattice and the overlay in place; CPU planes through
-    ``lift_level`` (its plain route) on a copied sub-lattice."""
+    CUDA planes go through csrc/lift_level.cu, all in one launch (one a
+    ``MAX_PLANES`` of them), reading the sub-lattice and the overlay in
+    place; CPU planes through ``lift_level`` (its plain route) on a copied
+    sub-lattice."""
     overlays = overlays or [None] * len(planes)
     dev = planes[0].device if len(planes) else None
     if dev is not None and dev.type == "cpu":
@@ -380,6 +382,11 @@ def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
                 for p, o in zip(planes, overlays)]
     if dev is None or dev.type != "cuda":
         raise ValueError(f"lift_levels: unsupported device {dev}")
+    if len(planes) > MAX_PLANES:
+        return [out for i in range(0, len(planes), MAX_PLANES)
+                for out in lift_levels(planes[i:i + MAX_PLANES], kernel,
+                                       invert, stride,
+                                       overlays[i:i + MAX_PLANES])]
     index, kernel = dev.index, int(kernel)
     template, sizes = _plan(tuple([p.shape for p in planes]), stride, kernel,
                             _sm_count(index))
@@ -400,8 +407,10 @@ def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
         out = torch.empty((h, w), dtype=torch.int32, device=dev)
         entry.src, entry.dst = p.data_ptr(), out.data_ptr()
         outs.append(out)
-    rc = _lib().lift_level_launch(ctypes.byref(table), kernel, int(invert),
-                                  torch.cuda.current_stream(dev).cuda_stream)
+    with devices.guard(planes[0]):
+        rc = _lib().lift_level_launch(
+            ctypes.byref(table), kernel, int(invert),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"lift_level kernel launch failed: CUDA error {rc}")
     lift_levels.launches += 1
