@@ -105,7 +105,15 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    picture's slices), its bound by the dependent chain (the steps times
    the deepest LL block's cells at LL_CELL_CHAIN dependent instructions
    of INT_LATENCY cycles) and its body table kernel alone;
-7. the multi-device paths on the one card, every mesh ``[cuda:0] * n``:
+7. the encode CLI's one-picture pipeline: 16 distinct seeded 1080p
+   4:2:2 10-bit pictures (``make_1080p.make_sequence``) through the CLI's
+   ``run`` in ConstQ ``-q 40``, CBR ``-S 2 -s 829440`` and CBR with ``-F
+   16384``, each stream equal to the plain per-picture loop's
+   (``plain_encode``; lift 2, hq_pack 1, hq_cbr 1 launches a picture);
+   ``Encoder.encode_picture_async``'s dispatch with no synchronisation;
+   ms a picture of the pipelined CLI and the plain loop in ConstQ and CBR
+   (and of the file's read alone), in turns;
+8. the multi-device paths on the one card, every mesh ``[cuda:0] * n``:
    the halo lift against the unsharded lift (7 wavelets at depth 2,
    Fidelity also at 3, over 2 and 4 bands and over the thinnest bands the
    JAX package takes, whose margins reach two bands away; ``depth``
@@ -123,7 +131,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    against ``Decoder()``; the per-band balance, the 8K times (one card,
    the bands on one device: not a scaling figure); two processes sharing
    the card (gloo on 127.0.0.1, a 2x1 mesh, 1080p CBR) against one
-   device; the dry run on a 2x2 mesh. It runs after the times, so that
+   device; the dry run on a 2x2 mesh; then a row split over two
+   processes sharing the card (1x2 at 1080p, a band each; 1x4 at 8K, two
+   bands each, with the halo lift over the split row for every wavelet
+   at depths 1-3) against one device. It runs after the times, so that
    what the 8K runs leave in the process does not weigh on them.
 
 Each phase prints its time.
@@ -168,6 +179,10 @@ RANDOM_ROWS = 64800       # slices of the random-bytes unpack check (1080p)
 TESTDATA = os.path.join(ROOT, "vc2tpu_torch", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 FRAGMENT = 16384          # -F of the fragmented 1080p CBR encode
+SEQ_PICTURES = 16         # distinct pictures of the encode pipeline's input
+PIPE_REPS = 5             # timed runs of each encode over that input
+# (harness size, bands) of the rows split over two processes on the card
+SPLIT_ROWS = (("1080p", 2), ("8k", 4))
 # the LD rate control's dependent chain, from csrc/ld_rate.cu: the
 # dependent integer instructions of one LL cell (the prediction's mean and
 # edge select 8, the difference and its magnitude 2, the exact quotient
@@ -319,18 +334,21 @@ def report_rate(label: str, fn, card: str) -> float:
     return print_rate(label, host_samples(fn, E2E_REPS), card)
 
 
-def report_rates_in_turns(runs: dict, card: str) -> dict:
-    """End-to-end rates of several functions sampled in turns (one call of
-    each per round, ``E2E_REPS`` rounds after a warm-up), so the host's
-    drift over the run falls on all of them alike."""
+def report_rates_in_turns(runs: dict, card: str, pictures: int = 1,
+                          reps: int = E2E_REPS) -> dict:
+    """End-to-end rates of several functions, each over ``pictures``
+    pictures, sampled in turns (one call of each per round, ``reps``
+    rounds after a warm-up), so the host's drift over the run falls on
+    all of them alike."""
     samples = {label: [] for label in runs}
     for fn in runs.values():
         fn()
-    for _ in range(E2E_REPS):
+    for _ in range(reps):
         for label, fn in runs.items():
             t0 = time.perf_counter()
             fn()
-            samples[label].append(1e3 * (time.perf_counter() - t0))
+            samples[label].append(1e3 * (time.perf_counter() - t0)
+                                  / pictures)
     return {label: print_rate(label, ts, card, ", in turns")
             for label, ts in samples.items()}
 
@@ -1447,8 +1465,6 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
     encode and decode against one device, the two-process harness and the
     dry run. Returns the launch counts of each sharded path."""
     from vc2tpu_torch.cli.decode_stream import Decoder
-    from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig,
-                                          FrameRate, Mode, WaveletKernel)
     from vc2tpu_torch.pipeline.encoder import Encoder
     from vc2tpu_torch.pipeline.sharded import ShardedEncoder
     from vc2tpu_torch.shard import dryrun, multihost
@@ -1519,12 +1535,7 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
           + json.dumps({k: v for k, v in paths.items()}))
 
     # BASELINE config #5: 8K HQ CBR, 1080 x 960 slices
-    cfg8 = EncoderConfig(height=4320, width=7680,
-                         chroma_format=ColourFormat.CF422,
-                         kernel=WaveletKernel.LeGall, wavelet_depth=2,
-                         y_size=1, x_size=2, mode=Mode.HQ_CBR, luma_depth=10,
-                         chroma_depth=10, frame_rate=FrameRate.FR50,
-                         compressed_bytes=16 * 829440, slice_scalar=2)
+    cfg8 = multihost.harness_config("8k")
     pics = multihost.harness_frames(cfg8, 2, seed=1)
     enc8 = Encoder(cfg8, device=dev)
     want8 = [enc8.encode_picture(p) for p in pics]
@@ -1611,6 +1622,192 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
           f"({time.perf_counter() - t0:.1f} s)")
     dryrun.dryrun_multichip([dev] * 4, fast=True)
     return paths
+
+
+def plain_encode(argv, src: str, out: str) -> bytes:
+    """The plain per-picture loop over ``src`` (the encode CLI's HQ Stream
+    output without its pipeline): read a picture, ``encode_picture``,
+    write its data unit to ``out``; returns the stream."""
+    from vc2tpu_torch.cli import encode_stream
+    from vc2tpu_torch.core.config import Profile
+    from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.stream.dataunit import PicturePreamble, StreamWriter
+    from vc2tpu_torch.stream.headers import SequenceHeader
+
+    cfg = encode_stream.config_from_args(
+        encode_stream.build_parser().parse_args(argv + [src, out]))
+    enc = Encoder(cfg)
+    geo, g = enc.geo, cfg.geometry
+    fmt = SampleFormat(word_width=cfg.bytes_per_sample,
+                       bit_depth=cfg.luma_depth)
+    pre = PicturePreamble(
+        wavelet_kernel=cfg.kernel, depth=cfg.wavelet_depth,
+        slices_x=geo.x_slices, slices_y=geo.y_slices,
+        slice_prefix=cfg.slice_prefix, slice_size_scalar=cfg.slice_scalar)
+    with open(src, "rb") as f, open(out, "wb") as o:
+        w = StreamWriter(o)
+        w.fragment_length = cfg.fragment_length
+        w.start_sequence()
+        w.write_sequence_header(SequenceHeader(
+            profile=Profile.PROFILE_HQ, height=g.luma_height,
+            width=g.luma_width, chroma_format=cfg.chroma_format,
+            interlace=cfg.interlaced, frame_rate=cfg.frame_rate,
+            top_field_first=cfg.top_field_first, bitdepth=cfg.luma_depth))
+        reader = PlanarReader(f, g, fmt)
+        k = 0
+        while (pic := reader.read_frame()) is not None:
+            e = enc.encode_picture(pic)
+            w.write_picture(k, pre, e.payload, slice_sizes=e.slice_totals)
+            k += 1
+        w.end_sequence()
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def pipeline_phase(torch, work, zero_counts, counts, card) -> dict:
+    """The encode CLI's one-picture pipeline over ``SEQ_PICTURES`` distinct
+    seeded 1080p pictures (``make_1080p.make_sequence``) in ConstQ, CBR
+    and CBR with fragments: the stream equals the plain per-picture loop's
+    (``plain_encode``), with lift 2, hq_pack 1 (and hq_cbr 1) launches a
+    picture; ``Encoder.encode_picture_async`` dispatches with no
+    synchronisation; ms a picture of the pipelined CLI in turns with the
+    plain loop (and the file's read alone). Returns the launch counts of
+    each run."""
+    import make_1080p
+    from vc2tpu_torch.cli import encode_stream
+    from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
+
+    src = os.path.join(work, "sequence.16p2")
+    make_1080p.make_sequence(src, SEQ_PICTURES)
+    out = os.path.join(work, "sequence.vc2")
+    paths = {}
+    runs = {"constq": fixture_encode_args("constq_1080p"),
+            "cbr": fixture_encode_args("cbr_1080p"),
+            "cbr_fragments": fixture_encode_args("cbr_1080p")
+            + ["-F", str(FRAGMENT)]}
+    for mode, argv in runs.items():
+        want = plain_encode(argv, src, out)
+        zero_counts()
+        got = run_encode_cli(argv, src, out)
+        path = f"encode_pipeline_{mode}"
+        paths[path] = counts()
+        check(got == want, f"{path}: the pipelined stream differs from the "
+                           "per-picture encode_picture stream")
+        for k, n in (("lift_level", 2), ("hq_pack", 1),
+                     ("hq_cbr", 0 if mode == "constq" else 1)):
+            check(paths[path][k] == n * SEQ_PICTURES,
+                  f"{path}: {k} launched {paths[path][k]} times, expected "
+                  f"{n * SEQ_PICTURES}")
+    print(f"encode pipeline: {SEQ_PICTURES} distinct 1080p pictures in "
+          f"ConstQ, CBR and CBR -F {FRAGMENT}, streams equal to the "
+          f"per-picture loop's; launches {json.dumps(paths)}")
+
+    # the dispatch alone, in the steady state (both staging slots made)
+    from vc2tpu_torch.pipeline.encoder import Encoder
+
+    args = encode_stream.build_parser().parse_args(runs["cbr"] + [src, out])
+    cfg = encode_stream.config_from_args(args)
+    with open(src, "rb") as f:
+        reader = PlanarReader(f, cfg.geometry, SampleFormat(
+            word_width=2, bit_depth=cfg.luma_depth))
+        pics = [reader.read_frame() for _ in range(2)]
+    enc = Encoder(cfg)
+    want = [enc.encode_picture(p).payload for p in pics]
+    handles = []
+    syncs = count_syncs(torch, lambda: handles.append(
+        enc.encode_picture_async(pics[1])))
+    handles.append(enc.encode_picture_async(pics[0]))
+    check(syncs == 0, f"encode_picture_async synchronised {syncs} times")
+    check([h().payload for h in handles] == [want[1], want[0]],
+          "the async handles differ from encode_picture")
+    print(f"encode pipeline: encode_picture_async's dispatch synchronised "
+          f"{syncs} times (PyTorch's sync debug mode)")
+
+    def read_alone():
+        with open(src, "rb") as f:
+            reader = PlanarReader(f, cfg.geometry, SampleFormat(
+                word_width=2, bit_depth=cfg.luma_depth))
+            while reader.read_frame() is not None:
+                pass
+
+    # the fragments' time is their writer's Python loop on both sides
+    # (PERF.md §6); vc2tpu_torch/testdata/encode_turns.py times them
+    for mode in ("constq", "cbr"):
+        argv = runs[mode]
+        turns = {f"encode pipeline {mode}: plain per-picture loop":
+                 lambda a=argv: plain_encode(a, src, out),
+                 f"encode pipeline {mode}: pipelined CLI":
+                 lambda a=argv: run_encode_cli(a, src, out)}
+        if mode == "constq":
+            turns["encode pipeline: the read alone (PlanarReader over the "
+                  "file)"] = read_alone
+        report_rates_in_turns(turns, card, pictures=SEQ_PICTURES,
+                              reps=PIPE_REPS)
+    return paths
+
+
+def split_row_phase(torch, np, dev, work, card) -> None:
+    """Two gloo processes sharing the card hold one row of the mesh
+    (``SPLIT_ROWS``): 1x2 (a band each) over the 1080p harness, 1x4 (two
+    bands each) over the 8K config #5 picture with the halo check; the
+    stream, the fragments and the decode equal one device's, and the 1x4
+    run's halo lift over the split row equals the unsharded lift (every
+    wavelet, depths 1-3)."""
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.core.config import WaveletKernel
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.shard import multihost
+    from vc2tpu_torch.wavelet import lifting
+
+    for size, space in SPLIT_ROWS:
+        t0 = time.perf_counter()
+        mh = os.path.join(work, f"row_{size}_{space}.vc2")
+        multihost.launch(mh, world=2, device=str(dev), space=space, data=1,
+                         size=size, fragment_length=FRAGMENT, timeout=300,
+                         check_halo=space == 4)
+        secs = time.perf_counter() - t0
+        cfg = multihost.harness_config(size)
+        encoded = [Encoder(cfg, device=dev).encode_picture(
+            multihost.harness_frames(cfg, 1)[0])]
+        frag = multihost.harness_stream(cfg, encoded, FRAGMENT)
+        with open(mh, "rb") as f:
+            check(f.read() == multihost.harness_stream(cfg, encoded),
+                  f"the {size} split-row stream differs from one device's")
+        with open(mh + ".frag", "rb") as f:
+            check(f.read() == frag, f"the {size} split-row fragments differ")
+        sink = io.BytesIO()
+        check(Decoder(sink=sink, device=dev).run(frag) == 0, "decode")
+        with open(mh + ".dec", "rb") as f:
+            check(f.read() == sink.getvalue(),
+                  f"the {size} split-row decode differs from one device's")
+        print(f"split row: two processes on one card (gloo), a 1x{space} "
+              f"mesh of {space // 2} band(s) each, {size} CBR: stream, -F "
+              f"{FRAGMENT} stream and decode equal one device's "
+              f"({secs:.1f} s, {card})")
+    bands = {}
+    for rank in (0, 1):
+        with np.load(f"{mh}.halo{rank}.npz") as z:
+            bands.update({k: z[k] for k in z.files})
+    cases = 0
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for depth in (1, 2, 3):
+            planes = multihost.halo_planes(kernel, depth, 4)
+            fwd = lifting.forward_planes(planes, kernel, depth)
+            for p, (x, f) in enumerate(zip(planes, fwd)):
+                for kind, want in (("f", f), ("i", x)):
+                    got = np.concatenate([
+                        bands[f"{kernel.name}_{depth}_{p}_{kind}_{s}"]
+                        for s in range(4)])
+                    check(np.array_equal(got, want.numpy()),
+                          f"split-row halo lift {kernel.name} d{depth} "
+                          f"plane {p} ({kind}) differs")
+                cases += 1
+    print(f"split row: the halo lift over 4 bands of two processes on the "
+          f"card, {cases} planes (7 wavelets x depths 1-3 x 2 heights), "
+          "forward and back, equal to the unsharded lift on the CPU")
 
 
 def main(argv) -> int:
@@ -2299,7 +2496,12 @@ def main(argv) -> int:
 
     phase_done("6 times")
 
-    # 7. the multi-device paths on the one card, after the times, so that
+    # 7. the encode CLI's one-picture pipeline, before the 8K runs too
+    pipeline_paths = pipeline_phase(torch, work.name, zero_counts, counts,
+                                    card)
+    phase_done("7 encode pipeline")
+
+    # 8. the multi-device paths on the one card, after the times, so that
     # what the 8K runs leave in the process does not weigh on them
     dev0 = torch.device("cuda", 0)
     halo_cases, halo_err = check_halo_lift(torch, np, rng, dev0)
@@ -2310,12 +2512,13 @@ def main(argv) -> int:
     sharded_paths = sharded_phase(torch, np, dev0, streams, fixtures,
                                   src_1080p, frag_stream, work.name,
                                   zero_counts, counts, card)
-    phase_done("7 sharded")
+    split_row_phase(torch, np, dev0, work.name, card)
+    phase_done("8 sharded")
 
     paths = {"decode": decode_launches, "encode": encode_launches,
              "encode_cbr": cbr_launches, "decode_fragments": frag_launches,
              "decode_ld": ld_launches, "encode_ld": ld_enc_launches,
-             **sharded_paths}
+             **pipeline_paths, **sharded_paths}
 
     def launches(k):
         return sum(p[k] for p in paths.values())

@@ -849,6 +849,32 @@ def test_sharded_1080p_encode_and_decode_on_one_card(cuda):
     assert out.getvalue() == ref.getvalue()
 
 
+def test_async_encodes_of_distinct_pictures(cuda):
+    """Four distinct 1080p pictures dispatched with
+    ``encode_picture_async`` before any handle is resolved (so the
+    two-slot staging ring waits on its events): each handle equals
+    ``encode_picture`` of its own picture, one at a time."""
+    import dataclasses
+
+    from vc2tpu_torch.core.config import Mode
+    from vc2tpu_torch.pipeline.encoder import Encoder
+    from vc2tpu_torch.shard import multihost
+
+    for cfg in (multihost.harness_config("1080p"),
+                dataclasses.replace(multihost.harness_config("1080p"),
+                                    mode=Mode.HQ_ConstQ, q_index=40,
+                                    compressed_bytes=0)):
+        pics = multihost.harness_frames(cfg, 4, seed=3)
+        enc = Encoder(cfg)
+        handles = [enc.encode_picture_async(p) for p in pics]
+        results = [h() for h in handles]
+        for got, p in zip(results, pics):
+            want = enc.encode_picture(p)
+            assert got.payload == want.payload
+            assert np.array_equal(got.slice_totals, want.slice_totals)
+        assert len({r.payload for r in results}) == len(pics)
+
+
 def _two_cards():
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")

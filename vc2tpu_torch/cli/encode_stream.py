@@ -7,7 +7,10 @@ Indices / Packaged / Stream / Decoded / PSNR, EncodeStream.cpp:486-767).
 Each picture is encoded on the device by ``pipeline.encoder.Encoder``
 (HQ) or ``pipeline.ld.LDEncoder`` (LD); interlaced input encodes each
 field as a picture of half the height (and, for LD, half the bytes). HQ
-CBR and LD with ``-F`` write each picture as a series of fragments.
+CBR and LD with ``-F`` write each picture as a series of fragments. HQ
+Stream output keeps one picture in flight (``Encoder.encode_picture_async``):
+picture k is written after picture k + 1 has been read and dispatched, so
+an error in picture k surfaces then, with the pictures before it written.
 
 ``--mesh DxS`` (Stream output only) encodes HQ over a D x S device mesh
 (``pipeline.sharded.ShardedEncoder``: pictures in batches of D over the
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import math
 import sys
+from collections import deque
 
 import numpy as np
 
@@ -310,6 +314,23 @@ def run(args) -> int:
     all_q_indices = []          # quantiser index stats (EncodeStream.cpp:676)
     # the q indices come back from the device only for what shows them
     keep_q = verbose or output == EncOutput.PSNR
+    # Stream output: one picture in flight, so the next picture's read and
+    # dispatch overlap the previous picture's device work and fetch (the
+    # JAX package's one-picture software pipeline); an error in a picture
+    # surfaces when the next one has been dispatched
+    can_pipeline = (output == EncOutput.STREAM and not keep_planes
+                    and hasattr(encoder, "encode_picture_async"))
+    pending = deque()           # FIFO of (picture number, handle)
+    pipe_depth = 1
+
+    def flush_one():
+        number, handle = pending.popleft()
+        enc = handle()
+        if keep_q:
+            all_q_indices.append(enc.q_indices.ravel())
+        writer.write_picture(number, preamble, enc.payload,
+                             slice_sizes=enc.slice_totals)
+
     frame = 0
     while True:
         in_frame = reader.read_frame()
@@ -335,10 +356,14 @@ def run(args) -> int:
                 picture = (in_frame.first_field(cfg.top_field_first)
                            if pic_i == 0
                            else in_frame.second_field(cfg.top_field_first))
+            number = intmath.picture_number(pic_i, frame, frame_pics)
             if mesh is not None:
-                mesh.submit(writer, preamble,
-                            intmath.picture_number(pic_i, frame, frame_pics),
-                            picture)
+                mesh.submit(writer, preamble, number, picture)
+                continue
+            if can_pipeline:
+                pending.append((number, encoder.encode_picture_async(picture)))
+                while len(pending) > pipe_depth:
+                    flush_one()
                 continue
             enc = encoder.encode_picture(picture, keep_planes=keep_planes)
             if keep_q:
@@ -352,10 +377,8 @@ def run(args) -> int:
             elif output == EncOutput.PACKAGED:
                 outfile.write(enc.payload)
             elif output == EncOutput.STREAM:
-                writer.write_picture(
-                    intmath.picture_number(pic_i, frame, frame_pics),
-                    preamble, enc.payload, slice_sizes=enc.slice_totals,
-                    hq=not ld)
+                writer.write_picture(number, preamble, enc.payload,
+                                     slice_sizes=enc.slice_totals, hq=not ld)
             else:                                   # DECODED / PSNR
                 pic_geom = PictureGeometry.of(
                     geometry.luma_height // frame_pics, geometry.luma_width,
@@ -387,6 +410,8 @@ def run(args) -> int:
                           file=sys.stderr)
         all_q_indices.extend(frame_q_indices)
         frame += 1
+    while pending:
+        flush_one()
     if mesh is not None:
         mesh.flush(writer, preamble)
         all_q_indices.extend(mesh.q_log)

@@ -4,17 +4,24 @@ Port of ``vc2tpu.pipeline.encoder.Encoder`` for ``Mode.HQ_ConstQ`` and
 ``Mode.HQ_CBR``, covering the picture loop of the reference encoder
 (src/EncodeStream/EncodeStream.cpp:452-770):
 
-    upload (one H2D of the picture's samples at their read width)
+    upload (the samples at their read width into a pinned staging slot,
+       one non-blocking H2D)
     -> wavelet_pad -> forward_planes (one lift launch a level)
     -> plane_to_lanes
     -> HQ CBR only: cbr_quant_indices (the rate control, one launch; the
        q indices stay on the device)
-    -> quant_pack_hq (quant at each lane's adjusted index, fused into the
-       pack's one launch; one synchronisation for the payload size and
-       the flags of the search and the pack)
-    -> one D2H of the [totals | payload] buffer
+    -> quant_pack_hq_queued (quant at each lane's adjusted index, fused
+       into the pack's one launch), then a non-blocking D2H of its status
+       (flags, payload size) into pinned memory behind a CUDA event
+    -> the handle: one blocking wait (the event), the flags checked, then
+       one D2H of exactly the [totals | payload] bytes used, on a side
+       stream so it does not wait for a picture dispatched since
 
-The stages are separate functions so a profiler can time each.
+``Encoder.encode_picture_async`` queues everything up to the handle
+without synchronising, so the caller can read the next picture while the
+card works (the encode CLI keeps one picture in flight);
+``encode_picture`` is the same encode resolved at once. The stages are
+separate functions so a profiler can time each.
 ``quantise`` is the quantiser on its own, for the tests.
 ``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
 decoder's ``dequantise_planes`` and ``inverse_planes``.
@@ -117,21 +124,96 @@ class EncodedPicture:
         return self.q_device.cpu().numpy().reshape(self.slices)
 
 
+class Staging:
+    """A ring of pinned host buffers for the pictures' uploads to a card.
+    A slot is filled again only after the CUDA event recorded behind its
+    last H2D has completed, so a picture's samples never overwrite those
+    of a picture still in flight."""
+
+    def __init__(self, slots: int = 2):
+        self.slots = [(None, None)] * slots     # (pinned buffer, event)
+        self.turn = 0
+
+    def take(self, n: int, dtype: torch.dtype) -> tuple:
+        """(slot, a pinned buffer of ``n`` elements free to fill)."""
+        k = self.turn
+        self.turn = (k + 1) % len(self.slots)
+        buf, event = self.slots[k]
+        if event is not None and not event.query():
+            event.synchronize()
+        if buf is None or buf.dtype != dtype or buf.numel() < n:
+            buf = torch.empty(n, dtype=dtype, pin_memory=True)
+        self.slots[k] = (buf, None)
+        return k, buf[:n]
+
+    def sent(self, k: int, device: torch.device) -> None:
+        """Record the event behind slot ``k``'s H2D, queued on
+        ``device``'s current stream."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        self.slots[k] = (self.slots[k][0], event)
+
+
 def upload_picture(picture: Picture, bytes_per_sample: int,
-                   device: torch.device):
+                   device: torch.device, staging: Staging | None = None):
     """The picture's three planes to the device in one copy at their read
     width (int16 for up to 2 bytes a sample, else int32); returns int32
-    planes on the device."""
-    dt = np.int16 if bytes_per_sample <= 2 else np.int32
-    planes = (picture.y, picture.c1, picture.c2)
-    host = np.concatenate([np.asarray(p).astype(dt).ravel() for p in planes])
-    flat = torch.from_numpy(host).to(device)
+    planes on the device. To a card the samples go through a pinned slot
+    of ``staging`` (a one-slot ring when None) and a non-blocking copy, so
+    the host does not wait for the H2D; on the CPU nothing is pinned."""
+    dt = torch.int16 if bytes_per_sample <= 2 else torch.int32
+    planes = [np.asarray(p) for p in (picture.y, picture.c1, picture.c2)]
+    n = sum(p.size for p in planes)
+    device = torch.device(device)
+    if device.type == "cuda":
+        staging = staging or Staging(1)
+        slot, host = staging.take(n, dt)
+    else:
+        host = torch.empty(n, dtype=dt)
+    at, view = 0, host.numpy()
+    for p in planes:
+        np.copyto(view[at:at + p.size].reshape(p.shape), p, casting="unsafe")
+        at += p.size
+    flat = host.to(device, non_blocking=True)
+    if device.type == "cuda":
+        staging.sent(slot, flat.device)
     out, at = [], 0
     for p in planes:
         h, w = p.shape
         out.append(flat[at:at + h * w].reshape(h, w).to(torch.int32))
         at += h * w
     return out
+
+
+def fetch_async(t: torch.Tensor):
+    """A zero-argument function that returns ``t`` on the host: a card's
+    tensor is copied into pinned memory without blocking, behind a CUDA
+    event that the function waits on (the caller's one blocking wait)."""
+    if t.device.type != "cuda":
+        return lambda: t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+
+    def wait() -> torch.Tensor:
+        event.synchronize()
+        return host
+    return wait
+
+
+def fetch_ready(t: torch.Tensor, stream=None) -> np.ndarray:
+    """``t``, whose producers have completed, on the host as a NumPy
+    array. On a card it is copied into pinned memory on ``stream``, a side
+    stream, so the copy does not wait behind the work queued on the
+    tensor's stream since (the next picture's, in the encode pipeline)."""
+    if stream is None:
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        host.copy_(t, non_blocking=True)
+    stream.synchronize()
+    return host.numpy()
 
 
 def analyse(planes, kernel, depth: int) -> list:
@@ -187,50 +269,87 @@ class Encoder:
                 cfg.slice_scalar)
             self.budgets = torch.from_numpy(budgets.ravel().copy()).to(
                 self.device)
+        self.staging = Staging()
+        # the handles' copies of the payload, beside the next picture's work
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == "cuda" else None)
 
     def q_indices(self) -> torch.Tensor:
         return torch.full((self.geo.n_slices,), self.cfg.q_index,
                           dtype=torch.int32, device=self.device)
 
-    def encode_picture(self, picture: Picture,
-                       keep_planes: bool = False) -> EncodedPicture:
-        """Encode one picture (a frame, or a field when interlaced). With
-        ``keep_planes`` the result also holds the transform, the quantised
-        planes and lanes on the device, for the tap outputs."""
+    def _analyse(self, picture: Picture) -> tuple:
+        """Queue the upload, the forward lift and (CBR) the search: the
+        transform planes, their lanes, the q indices and the pack's
+        scratch (None for ConstQ)."""
         cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
-        planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
+        planes = upload_picture(picture, cfg.bytes_per_sample, self.device,
+                                self.staging)
         transform = analyse(planes, cfg.kernel, d)
         tlanes = planes_to_lanes(transform, geo, d)
-        scratch = None
         if self.budgets is None:
-            q_idx = self.q_indices()
-        else:
-            # the search reports an index above 119 in the pack's flags word
-            ly, lc = tlanes[0].shape[1], tlanes[1].shape[1]
-            scratch = device_pack.pack_scratch(geo.n_slices, ly, lc,
-                                               self.device)
-            q_idx = cbr.cbr_quant_indices(*tlanes, *self.qm, self.budgets,
-                                          cfg.slice_scalar,
-                                          flags=scratch[1:2])
+            return transform, tlanes, self.q_indices(), None
+        # the search reports an index above 119 in the pack's flags word
+        ly, lc = tlanes[0].shape[1], tlanes[1].shape[1]
+        scratch = device_pack.pack_scratch(geo.n_slices, ly, lc, self.device)
+        q_idx = cbr.cbr_quant_indices(*tlanes, *self.qm, self.budgets,
+                                      cfg.slice_scalar, flags=scratch[1:2])
+        return transform, tlanes, q_idx, scratch
+
+    def encode_picture_async(self, picture: Picture):
+        """Queue the encode of one picture (a frame, or a field when
+        interlaced) and return a zero-argument handle that returns its
+        ``EncodedPicture``. The dispatch does not synchronise: the upload,
+        the lift, the search, the pack and the read of the pack's status
+        are queued on the card. The handle makes the picture's one
+        blocking wait, raises the reference's error for the pack's flags,
+        and copies exactly the [totals | payload] bytes used (on a side
+        stream, beside any picture dispatched since); it holds the
+        picture's device buffers until it has run."""
+        cfg, geo = self.cfg, self.geo
+        _transform, tlanes, q_idx, scratch = self._analyse(picture)
+        buf, status, _ = device_pack.quant_pack_hq_queued(
+            *tlanes, q_idx, *self.qm, cfg.slice_prefix, cfg.slice_scalar,
+            slice_sizes=self.budgets, scratch=scratch)
+        status = fetch_async(status)
+        n = geo.n_slices
+
+        def result() -> EncodedPicture:
+            flags, total = status().tolist()
+            device_pack.check_flags(flags)
+            totals, payload = device_pack.split_result(
+                fetch_ready(buf[:4 * n + total], self.copy_stream), n)
+            return EncodedPicture(
+                q_device=q_idx, slices=(geo.y_slices, geo.x_slices),
+                payload=payload.tobytes(), slice_totals=totals.copy())
+        return result
+
+    def encode_picture(self, picture: Picture,
+                       keep_planes: bool = False) -> EncodedPicture:
+        """Encode one picture (a frame, or a field when interlaced):
+        ``encode_picture_async(picture)()``. With ``keep_planes`` the
+        result also holds the transform, the quantised planes and lanes on
+        the device, for the tap outputs."""
+        if not keep_planes:
+            return self.encode_picture_async(picture)()
+        cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
+        transform, tlanes, q_idx, scratch = self._analyse(picture)
         buf, flags, lanes = device_pack.quant_pack_hq(
             *tlanes, q_idx, *self.qm, cfg.slice_prefix, cfg.slice_scalar,
-            slice_sizes=self.budgets, keep_lanes=keep_planes,
-            scratch=scratch)
+            slice_sizes=self.budgets, keep_lanes=True, scratch=scratch)
         device_pack.check_flags(flags)
         totals, payload = device_pack.split_result(buf.cpu().numpy(),
                                                    geo.n_slices)
-        out = EncodedPicture(
+        return EncodedPicture(
             q_device=q_idx, slices=(geo.y_slices, geo.x_slices),
-            payload=payload.tobytes(), slice_totals=totals)
-        if keep_planes:
-            out.transform = Picture(*transform, picture.chroma_format)
-            out.quantised = Picture(*[
+            payload=payload.tobytes(), slice_totals=totals,
+            transform=Picture(*transform, picture.chroma_format),
+            quantised=Picture(*[
                 layout.lanes_to_plane(
                     q, geo.y_slices, geo.x_slices,
                     *(geo.luma_slice if c == 0 else geo.chroma_slice), d)
-                for c, q in enumerate(lanes)], picture.chroma_format)
-            out.lanes = tuple(lanes)
-        return out
+                for c, q in enumerate(lanes)], picture.chroma_format),
+            lanes=tuple(lanes))
 
     def decode_inprocess(self, enc: EncodedPicture,
                          geometry: PictureGeometry) -> Picture:

@@ -4,7 +4,8 @@ Port of the device route of ``vc2tpu.pipeline.ld.LDEncoder``
 (``_analyse_dev_impl``), the picture loop of the reference encoder's LD
 mode (src/EncodeStream/EncodeStream.cpp:195-245 and 452-770):
 
-    upload (one H2D of the picture's samples at their read width)
+    upload (the samples at their read width into a pinned staging slot,
+       one non-blocking H2D; ``pipeline.encoder.upload_picture``)
     -> wavelet_pad -> forward_planes (one lift launch a level)
     -> plane_to_lanes
     -> ld_rate_control (one launch of csrc/ld_rate.cu: the q indices and
@@ -44,7 +45,7 @@ from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import EncoderConfig, Mode, PictureGeometry
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.pipeline.decoder import dequantise_ld_planes
-from vc2tpu_torch.pipeline.encoder import (EncodedPicture, analyse,
+from vc2tpu_torch.pipeline.encoder import (EncodedPicture, Staging, analyse,
                                            planes_to_lanes, slice_geometry,
                                            upload_picture)
 from vc2tpu_torch.pipeline.sharded import upload_blocks
@@ -104,6 +105,7 @@ class LDEncoder:
         self.starts = torch.as_tensor(np.cumsum(budgets) - budgets,
                                       device=dev)
         self.avail_device = torch.as_tensor(self.avail, device=dev)
+        self.staging = Staging()
 
     def analyse(self, picture: Picture) -> list:
         """The padded planes' forward DWT on the device: over the mesh's
@@ -113,7 +115,8 @@ class LDEncoder:
             planes = self._analyse_mesh(picture)
             if planes is not None:
                 return planes
-        planes = upload_picture(picture, cfg.bytes_per_sample, self.device)
+        planes = upload_picture(picture, cfg.bytes_per_sample, self.device,
+                                self.staging)
         return analyse(planes, cfg.kernel, cfg.wavelet_depth)
 
     def _analyse_mesh(self, picture: Picture):

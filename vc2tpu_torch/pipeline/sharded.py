@@ -21,10 +21,13 @@ rows, so everything after the DWT is local to the band:
 
 Bands on one device share its stream; each device is synchronised once a
 batch to read every pack's flags and size, and its spans come back in
-one copy. A band's slices are contiguous in raster order, so its payload
-is a contiguous span of the picture's: the host concatenates the spans
-into ``EncodedPicture``s equal to ``Encoder.encode_picture``'s, or frames
-each span as fragments as it lands (``encode_batch_to_fragments``),
+one copy. In a process of a multi-process mesh (``shard.multihost``) the
+encoder works only the positions that process holds; a row split over
+processes exchanges its halo rows over ``torch.distributed``. A band's
+slices are contiguous in raster order, so its payload is a contiguous
+span of the picture's: the host concatenates the spans into
+``EncodedPicture``s equal to ``Encoder.encode_picture``'s, or frames each
+span as fragments as it lands (``encode_batch_to_fragments``),
 byte-identical to ``write_picture`` over the whole payload.
 
 The JAX package's ``w32``/``cap`` buckets, their retry and its host
@@ -59,15 +62,21 @@ def _pad_block(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return x.index_select(0, r).index_select(1, c)
 
 
-def upload_blocks(picture, bytes_per_sample: int, devs, geos, padded) -> list:
+def upload_blocks(picture, bytes_per_sample: int, devs, geos, padded,
+                  mine=None) -> list:
     """Each band's blocks of the picture's padded planes (rows [a, b) of
     ``geos[c][i]``), its three planes in one copy to ``devs[i]`` at their
     read width (int16 for up to 2 bytes a sample). Returns ``[c][i]``
-    int32 blocks."""
+    int32 blocks; None for a band that ``mine[i]`` says another process
+    holds."""
     dt = np.int16 if bytes_per_sample <= 2 else np.int32
     planes = (picture.y, picture.c1, picture.c2)
     out = [[], [], []]
     for i, dev in enumerate(devs):
+        if mine is not None and not mine[i]:
+            for c in range(3):
+                out[c].append(None)
+            continue
         parts, shapes = [], []
         for c, p in enumerate(planes):
             a, _r0, _r1, b = geos[c][i]
@@ -89,9 +98,12 @@ class ShardedEncoder:
     length a multiple of the ``data`` extent, the frames of data row d the
     d-th block) to ``EncodedPicture``s identical to
     ``Encoder.encode_picture``'s. ``y_slices`` must divide by the ``space``
-    extent."""
+    extent. With a ``rank`` the encoder works the positions that
+    ``mesh.owners`` gives that process, and the halo rows of a row split
+    over processes travel over ``torch.distributed`` (``shard.multihost``
+    drives this); without one it works every position."""
 
-    def __init__(self, cfg: EncoderConfig, mesh):
+    def __init__(self, cfg: EncoderConfig, mesh, rank: int | None = None):
         cfg.validate()
         if cfg.mode == Mode.LD:
             raise ValueError("ShardedEncoder encodes HQ pictures; LD pictures "
@@ -114,6 +126,8 @@ class ShardedEncoder:
         self.padded = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
         self.geos = [halo.band_rows(h, self.space, halo.margin(cfg.kernel, d))
                      for h, _w in self.padded]
+        self.mine = [[rank is None or o == rank for o in row]
+                     for row in mesh.owners]
         self.slice_budgets = None
         self._budgets = {}
         if cfg.mode == Mode.HQ_CBR:
@@ -132,8 +146,8 @@ class ShardedEncoder:
 
     def _launch(self, pictures) -> list:
         """Queue the device work of a batch: ``jobs[b][s]`` = (q indices,
-        pack buffer, pack status) of picture b's band s, not
-        synchronised."""
+        pack buffer, pack status) of picture b's band s, not synchronised;
+        None for a band of another process."""
         cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
         if len(pictures) % self.data:
             raise ValueError(f"a batch of {len(pictures)} pictures does not "
@@ -141,18 +155,23 @@ class ShardedEncoder:
         per = len(pictures) // self.data
         for h, _w in self.padded:
             halo.check_rows(h, self.space, cfg.kernel, d)
-        blocks, geos = [], []
+        blocks, geos, owners = [], [], []
         for b, pic in enumerate(pictures):
+            mine = self.mine[b // per]
             blocks += upload_blocks(pic, cfg.bytes_per_sample,
                                     self.mesh.row(b // per), self.geos,
-                                    self.padded)
+                                    self.padded, mine)
             geos += self.geos
-        bands = halo.forward_blocks(blocks, geos, cfg.kernel, d)
+            owners += [None if all(mine) else self.mesh.owners[b // per]] * 3
+        bands = halo.forward_blocks(blocks, geos, cfg.kernel, d, owners)
         n = self.n_loc
         jobs = []
         for b in range(len(pictures)):
             row = []
             for s, dev in enumerate(self.mesh.row(b // per)):
+                if not self.mine[b // per][s]:
+                    row.append(None)
+                    continue
                 lanes = [layout.plane_to_lanes(bands[3 * b + c][s],
                                                self.ys_local, geo.x_slices, d)
                          for c in range(3)]
@@ -177,22 +196,25 @@ class ShardedEncoder:
             jobs.append(row)
         return jobs
 
-    def _statuses(self, jobs) -> dict:
-        """(flags, payload size) of every band, read with one
-        synchronisation a device; raises the reference's error for the
-        first band (in picture, then band order) with a flag set."""
+    def _statuses(self, jobs, check: bool = True) -> dict:
+        """(flags, payload size) of every band of this process, read with
+        one synchronisation a device; with ``check``, raises the
+        reference's error for the first band (in picture, then band order)
+        with a flag set."""
         by_dev: dict = {}
         for b, row in enumerate(jobs):
-            for s, (_q, _buf, st) in enumerate(row):
-                by_dev.setdefault(st.device, []).append((b, s))
+            for s, job in enumerate(row):
+                if job is not None:
+                    by_dev.setdefault(job[2].device, []).append((b, s))
         out = {}
         for keys in by_dev.values():
             vals = torch.stack([jobs[b][s][2] for b, s in keys]).tolist()
             out.update(zip(keys, vals))
-        for key in sorted(out):
-            device_pack.check_flags(out[key][0])
-        self.balance = [[out[b, s][1] for s in range(len(row))]
-                        for b, row in enumerate(jobs)]
+        if check:
+            for key in sorted(out):
+                device_pack.check_flags(out[key][0])
+        self.balance = [[out[b, s][1] for s in range(len(row))
+                         if (b, s) in out] for b, row in enumerate(jobs)]
         return out
 
     def _q_indices(self, row) -> torch.Tensor:

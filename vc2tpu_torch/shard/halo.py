@@ -19,7 +19,9 @@ rows are exchanged once a level instead:
   picture's;
 * the margin rows are copied from whichever bands hold them, more than one
   band away when bands are thinner than the margin (a device copy on one
-  card, a peer copy between cards);
+  card, a peer copy between cards; between processes, where a row of the
+  mesh spans them, point-to-point over ``torch.distributed``, every send
+  and receive of a level posted together and then waited on);
 * one ``lift_levels`` call a level on each device lifts every block of
   every plane that device holds (one kernel launch), and a band keeps its
   block's interior: the rows past the margin are exact, since nothing from
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.wavelet import lifting
@@ -79,38 +82,106 @@ def band_rows(rows: int, n: int, extra: int) -> list:
              min(rows, (i + 1) * h + extra)) for i in range(n)]
 
 
-def _fill(bufs, geo, i: int, lo: int, hi: int) -> None:
-    """Copy rows [lo, hi) of the plane into band i's block from the bands
-    that own them."""
-    a = geo[i][0]
-    for j, (aj, r0, r1, _b) in enumerate(geo):
-        x0, x1 = max(lo, r0), min(hi, r1)
-        if j != i and x0 < x1:
-            bufs[i][x0 - a:x1 - a].copy_(bufs[j][x0 - aj:x1 - aj],
-                                         non_blocking=True)
+class _Exchange:
+    """The margin-row copies of one lifting call. Between two bands of
+    this process a copy is made at once (a device copy on one card, a peer
+    copy between cards). With a band of another process (``owners[p][j]``,
+    the process of plane p's band j, not this one) the rows go over
+    ``torch.distributed`` point-to-point: ``run`` posts every send and
+    receive of a level together and then waits on all of them, so no order
+    of the peers' sends can deadlock. Gloo carries CPU tensors: a card's
+    rows are staged through pinned host buffers. The k-th message from one
+    process to another carries tag k in both processes, since both
+    enumerate the shared planes' copies in the same order."""
+
+    def __init__(self, owners=None):
+        self.owners = owners
+        self.rank = dist.get_rank() if owners and any(owners) else None
+        self.tags: dict = {}
+        self.sends, self.recvs = [], []
+
+    def mine(self, p: int, i: int) -> bool:
+        """Whether this process holds band i of plane p."""
+        o = self.owners[p] if self.owners else None
+        return o is None or o[i] == self.rank
+
+    def fill(self, bufs, geo, p: int, i: int, lo: int, hi: int) -> None:
+        """Copy rows [lo, hi) of plane p into band i's block from the bands
+        that own them (``bufs[j]`` is None for a band of another
+        process)."""
+        a = geo[i][0]
+        for j, (aj, r0, r1, _b) in enumerate(geo):
+            x0, x1 = max(lo, r0), min(hi, r1)
+            if j == i or x0 >= x1:
+                continue
+            here, there = self.mine(p, i), self.mine(p, j)
+            if here and there:
+                bufs[i][x0 - a:x1 - a].copy_(bufs[j][x0 - aj:x1 - aj],
+                                             non_blocking=True)
+            elif here:
+                self._recv(self.owners[p][j], bufs[i][x0 - a:x1 - a])
+            elif there:
+                self._send(self.owners[p][i], bufs[j][x0 - aj:x1 - aj])
+
+    def _tag(self, peer: int, way: str) -> int:
+        k = self.tags.get((peer, way), 0)
+        self.tags[peer, way] = k + 1
+        return k
+
+    def _host(self, rows: torch.Tensor) -> torch.Tensor:
+        return torch.empty(rows.shape, dtype=rows.dtype,
+                           pin_memory=rows.device.type == "cuda")
+
+    def _send(self, peer: int, rows: torch.Tensor) -> None:
+        host = self._host(rows)
+        host.copy_(rows, non_blocking=True)
+        self.sends.append((peer, self._tag(peer, "send"), host, rows.device))
+
+    def _recv(self, peer: int, rows: torch.Tensor) -> None:
+        self.recvs.append((peer, self._tag(peer, "recv"), self._host(rows),
+                           rows))
+
+    def run(self) -> None:
+        """Send and receive the level's rows across processes, then copy
+        the received rows into their blocks."""
+        if not self.sends and not self.recvs:
+            return
+        for dev in {d for *_x, d in self.sends if d.type == "cuda"}:
+            torch.cuda.current_stream(dev).synchronize()   # the staged rows
+        works = ([dist.isend(h, peer, tag=tag)
+                  for peer, tag, h, _d in self.sends]
+                 + [dist.irecv(h, peer, tag=tag)
+                    for peer, tag, h, _r in self.recvs])
+        for w in works:
+            w.wait()
+        for _peer, _tag, h, rows in self.recvs:
+            rows.copy_(h, non_blocking=True)
+        self.sends, self.recvs = [], []
 
 
-def _refresh(bufs, geo, i: int, reach: int, scale: int = 1,
+def _refresh(xch, bufs, geo, p: int, i: int, reach: int, scale: int = 1,
              blocks=None) -> None:
-    """Refresh the rows of band i's block within ``reach`` plane rows of
-    the band, from the bands that own them. For a compact level of stride
-    ``scale``, ``blocks`` gives each block's first row and the band's rows
-    in that level's rows."""
+    """Refresh the rows of plane p's band i's block within ``reach`` plane
+    rows of the band, from the bands that own them. For a compact level of
+    stride ``scale``, ``blocks`` gives each block's first row and the
+    band's rows in that level's rows."""
     _a, r0, r1, _b = geo[i]
     rows = geo[-1][2]
     g = geo if blocks is None else blocks
-    _fill(bufs, g, i, max(0, r0 - reach) // scale, r0 // scale)
-    _fill(bufs, g, i, r1 // scale, min(rows, r1 + reach) // scale)
+    xch.fill(bufs, g, p, i, max(0, r0 - reach) // scale, r0 // scale)
+    xch.fill(bufs, g, p, i, r1 // scale, min(rows, r1 + reach) // scale)
 
 
 def _lift_by_device(blocks, kernel, invert: bool, stride: int,
                     overlays=None) -> list:
-    """``lifting.lift_levels`` of every block, one call (one launch) for
-    the blocks of each device; results in the blocks' order."""
+    """``lifting.lift_levels`` of every block (None for a band of another
+    process), one call (one launch) for the blocks of each device; results
+    in the blocks' order."""
     overlays = overlays or [None] * len(blocks)
     groups: dict = {}
     for k, x in enumerate(blocks):
-        groups.setdefault(x.device, []).append(k)
+        if x is not None:
+            groups.setdefault(x.device, []).append(k)
     out = [None] * len(blocks)
     for idx in groups.values():
         res = lifting.lift_levels([blocks[k] for k in idx], kernel, invert,
@@ -121,106 +192,139 @@ def _lift_by_device(blocks, kernel, invert: bool, stride: int,
 
 
 def _geometry(planes, kernel, depth: int) -> list:
-    return [band_rows(sum(t.shape[0] for t in bands), len(bands),
-                      margin(kernel, depth)) for bands in planes]
+    return [band_rows(len(bands) * next(t.shape[0] for t in bands
+                                        if t is not None),
+                      len(bands), margin(kernel, depth)) for bands in planes]
 
 
-def extend(bands, geo) -> list:
-    """The blocks of one plane's bands: each band's rows with its margins
+def _extend(xch, planes, geos) -> list:
+    """The blocks of the planes' bands: each band's rows with its margins
     copied from the bands that own them (int32, contiguous, on the band's
-    device)."""
+    device; None for a band of another process)."""
     blocks = []
-    for x, (a, r0, r1, b) in zip(bands, geo):
-        blk = torch.empty((b - a, x.shape[1]), dtype=torch.int32,
-                          device=x.device)
-        blk[r0 - a:r1 - a].copy_(x)
-        blocks.append(blk)
-    for i, (a, r0, r1, b) in enumerate(geo):
-        _fill(blocks, geo, i, a, r0)
-        _fill(blocks, geo, i, r1, b)
+    for bands, geo in zip(planes, geos):
+        row = []
+        for x, (a, r0, r1, b) in zip(bands, geo):
+            blk = None
+            if x is not None:
+                blk = torch.empty((b - a, x.shape[1]), dtype=torch.int32,
+                                  device=x.device)
+                blk[r0 - a:r1 - a].copy_(x)
+            row.append(blk)
+        blocks.append(row)
+    for p, geo in enumerate(geos):
+        for i, (a, r0, r1, b) in enumerate(geo):
+            xch.fill(blocks[p], geo, p, i, a, r0)
+            xch.fill(blocks[p], geo, p, i, r1, b)
+    xch.run()
     return blocks
 
 
-def forward_blocks(blocks, geos, kernel: WaveletKernel, depth: int) -> list:
+def forward_blocks(blocks, geos, kernel: WaveletKernel, depth: int,
+                   owners=None) -> list:
     """Forward DWT of row-band-sharded planes given as blocks:
     ``blocks[p][i]`` holds rows [a, b) of plane p's band i (``geos[p][i]``
     = (a, r0, r1, b) from ``band_rows(rows, n, margin(kernel, depth))``),
     int32 and contiguous on the band's device. Returns ``out[p][i]``, the
     band's rows [r0, r1) of the transform (views of new blocks). One
-    ``lift_levels`` call a level a device."""
+    ``lift_levels`` call a level a device. ``owners[p]``, where given and
+    not None, is the process of each band of plane p: a band of another
+    process is None in ``blocks`` and in the result, and its rows travel
+    over ``torch.distributed``."""
+    return _forward(_Exchange(owners), blocks, geos, kernel, depth)
+
+
+def _forward(xch, blocks, geos, kernel, depth: int) -> list:
     hr = lifting.halo(kernel)
     bufs = [list(p) for p in blocks]
     jobs = [(p, i) for p in range(len(bufs)) for i in range(len(bufs[p]))]
     for level in range(depth):
         s = 1 << level
+        if level:
+            for p, i in jobs:
+                _refresh(xch, bufs[p], geos[p], p, i, hr * s)
+            xch.run()
         views = []
         for p, i in jobs:
             a, r0, r1, b = geos[p][i]
-            if level:
-                _refresh(bufs[p], geos[p], i, hr * s)
-                lo, hi = max(a, r0 - hr * s), min(b, r1 + hr * s)
-                views.append(bufs[p][i][lo - a:hi - a])
-            else:
-                views.append(bufs[p][i])
+            x = bufs[p][i]
+            lo, hi = max(a, r0 - hr * s), min(b, r1 + hr * s)
+            views.append(x if x is None or not level else x[lo - a:hi - a])
         outs = _lift_by_device(views, kernel, False, s)
         for (p, i), out in zip(jobs, outs):
             a, r0, r1, b = geos[p][i]
+            if out is None:
+                continue
             if not level:
                 bufs[p][i] = out          # the whole block, margins stale
                 continue
             lo = max(a, r0 - hr * s)
             bufs[p][i][r0 - a:r1 - a][::s, ::s] = \
                 out[(r0 - lo) // s:(r1 - lo) // s]
-    return [[bufs[p][i][g[1] - g[0]:g[2] - g[0]]
-             for i, g in enumerate(geos[p])] for p in range(len(bufs))]
+    return [[None if x is None else x[g[1] - g[0]:g[2] - g[0]]
+             for x, g in zip(bufs[p], geos[p])] for p in range(len(bufs))]
 
 
-def forward_bands(planes, kernel: WaveletKernel, depth: int) -> list:
+def forward_bands(planes, kernel: WaveletKernel, depth: int,
+                  owners=None) -> list:
     """Forward DWT of row-band-sharded planes: ``planes[p][i]`` is band i
     of plane p, its own rows on its device (every band of a plane the same
     height, a multiple of ``2**depth``). Returns the bands of the
-    transform, in the same shape."""
-    planes = [[t.to(torch.int32) for t in bands] for bands in planes]
+    transform, in the same shape. ``owners`` as ``forward_blocks``'s."""
+    planes = [[None if t is None else t.to(torch.int32) for t in bands]
+              for bands in planes]
     if not depth:
-        return [[t.contiguous() for t in bands] for bands in planes]
+        return [[None if t is None else t.contiguous() for t in bands]
+                for bands in planes]
+    xch = _Exchange(owners)
     geos = _geometry(planes, kernel, depth)
-    return forward_blocks([extend(b, g) for b, g in zip(planes, geos)],
-                          geos, kernel, depth)
+    return _forward(xch, _extend(xch, planes, geos), geos, kernel, depth)
 
 
-def inverse_bands(planes, kernel: WaveletKernel, depth: int) -> list:
+def inverse_bands(planes, kernel: WaveletKernel, depth: int,
+                  owners=None) -> list:
     """Inverse DWT of row-band-sharded transform planes (as
     ``forward_bands``'s result): one ``lift_levels`` call a level a device,
     coarsest first, each level's compact result the overlay of the next
-    after its margins are refreshed from the neighbours'."""
-    planes = [[t.to(torch.int32) for t in bands] for bands in planes]
+    after its margins are refreshed from the neighbours'. ``owners`` as
+    ``forward_blocks``'s."""
+    planes = [[None if t is None else t.to(torch.int32) for t in bands]
+              for bands in planes]
     if not depth:
-        return [[t.contiguous() for t in bands] for bands in planes]
+        return [[None if t is None else t.contiguous() for t in bands]
+                for bands in planes]
     hr = lifting.halo(kernel)
+    xch = _Exchange(owners)
     geos = _geometry(planes, kernel, depth)
-    tbufs = [extend(b, g) for b, g in zip(planes, geos)]
+    tbufs = _extend(xch, planes, geos)
     jobs = [(p, i) for p in range(len(planes)) for i in range(len(planes[p]))]
     coarse = None       # coarse[p][i]: (compact result, its first row)
     for level in range(depth - 1, -1, -1):
         s = 1 << level
+        if coarse is not None:
+            sc = 2 * s                # the coarser level's stride
+            for p, i in jobs:
+                blocks = [(c0, g[1] // sc, g[2] // sc, None)
+                          for (_t, c0), g in zip(coarse[p], geos[p])]
+                _refresh(xch, [t for t, _ in coarse[p]], geos[p], p, i,
+                         hr * s, sc, blocks)
+            xch.run()
         views, overlays, firsts = [], [], []
         for p, i in jobs:
             a, r0, r1, b = geos[p][i]
             lo, hi = max(a, r0 - hr * s), min(b, r1 + hr * s)
-            views.append(tbufs[p][i][lo - a:hi - a])
+            x = tbufs[p][i]
+            views.append(None if x is None else x[lo - a:hi - a])
             firsts.append(lo // s)
             if coarse is not None:
-                sc = 2 * s            # the coarser level's stride
-                c = [t for t, _ in coarse[p]]
-                blocks = [(c0, g[1] // sc, g[2] // sc, c0 + t.shape[0])
-                          for (t, c0), g in zip(coarse[p], geos[p])]
-                _refresh(c, geos[p], i, hr * s, sc, blocks)
-                c0 = coarse[p][i][1]
-                overlays.append(c[i][lo // (2 * s) - c0:hi // (2 * s) - c0])
+                c, c0 = coarse[p][i]
+                overlays.append(None if c is None else
+                                c[lo // (2 * s) - c0:hi // (2 * s) - c0])
         outs = _lift_by_device(views, kernel, True, s, overlays or None)
         it = iter(zip(outs, firsts))
         coarse = [[next(it) for _ in planes[p]] for p in range(len(planes))]
-    return [[t[g[1] - c0:g[2] - c0] for (t, c0), g in zip(coarse[p], geos[p])]
+    return [[None if t is None else t[g[1] - c0:g[2] - c0]
+             for (t, c0), g in zip(coarse[p], geos[p])]
             for p in range(len(planes))]
 
 

@@ -25,18 +25,27 @@ from vc2tpu_torch.core import device as core_device
 class Mesh:
     """A (data, space) grid of torch devices. ``shape`` is a dict, as the
     JAX package's ``mesh.shape["space"]``; ``devices[d][s]`` is the device
-    of data row ``d``, row band ``s``. ``processes[d]`` is the process that
-    owns data row ``d`` (0 for a mesh of one process)."""
+    of data row ``d``, row band ``s``. ``owners[d][s]`` is the process that
+    holds position (d, s) (0 for a mesh of one process); only the owner's
+    device is real."""
 
-    def __init__(self, grid, processes=None):
+    def __init__(self, grid, owners=None):
         grid = [[torch.device(d) for d in row] for row in grid]
         if not grid or not grid[0] or any(len(r) != len(grid[0])
                                           for r in grid):
             raise ValueError("a mesh is a non-empty (data, space) grid")
         self.devices = grid
         self.shape = {"data": len(grid), "space": len(grid[0])}
-        self.processes = (list(processes) if processes is not None
-                          else [0] * len(grid))
+        self.owners = ([list(r) for r in owners] if owners is not None
+                       else [[0] * len(grid[0]) for _ in grid])
+        if [len(r) for r in self.owners] != [len(r) for r in grid]:
+            raise ValueError("a mesh's owners have its (data, space) shape")
+
+    @property
+    def processes(self) -> list:
+        """The process of each data row where one process holds the whole
+        row, else None."""
+        return [r[0] if len(set(r)) == 1 else None for r in self.owners]
 
     @property
     def first(self) -> torch.device:

@@ -1,26 +1,34 @@
 """Multi-process orchestration: the process group, the global mesh, the
-frame axis across processes, process-0 stream assembly and the
-throughput harness.
+frame axis and the row bands across processes, process-0 stream assembly
+and the throughput harness.
 
-Port of ``vc2tpu.shard.multihost``. Processes split the ``data`` axis:
-each owns whole rows of the global mesh and encodes its own frames on
-them with the sharded pipeline (``pipeline.sharded``); the ``space`` bands
-of a row, and so the halo exchange, stay within one process. What crosses
-processes is host bytes: each band's q indices, slice sizes and payload
-span, gathered with ``torch.distributed`` on the gloo backend (sizes first,
-then padded uint8 tensors), so every process assembles the same stream
-and process 0 writes it. Gloo runs on any machine, also for processes that
-share one card (NCCL cannot put two ranks on one card).
-
-A ``space`` row that would span processes raises ValueError: the halo
-exchange over ``torch.distributed`` point-to-point is not ported.
+Port of ``vc2tpu.shard.multihost``. The global mesh is every process's
+devices in process order, reshaped to (data, space), as the JAX package
+reshapes ``jax.devices()``: a process holds whole rows when its devices
+cover them, and a ``space`` row may span processes. Each process encodes
+the pictures of the rows it holds positions in, on its own positions
+(``pipeline.sharded``); the halo rows of a row split over processes go
+point-to-point over ``torch.distributed`` (``shard.halo``). What else
+crosses processes is host bytes: each band's flags, q indices, slice sizes
+and payload span, keyed by (picture, band) and gathered on the gloo
+backend (sizes first, then padded uint8 tensors), so every process
+assembles the same stream (and raises the same first error) and process
+0 writes it. Gloo runs on any machine, also for processes that share one
+card (NCCL cannot put two ranks on one card).
 
     python -m vc2tpu_torch.shard.multihost --world 2 --device cpu OUT
+    python -m vc2tpu_torch.shard.multihost --world 2 --data 1 --space 4 \\
+        --device cpu OUT
 
-runs the two-process harness (``launch``): both processes encode their
-frame of a deterministic batch, process 0 writes the stream (OUT), the
-fragment-streamed stream (OUT.frag) and the multi-process decode of the
-fragments (OUT.dec, the decoder's DECODED bytes).
+runs the two-process harness (``launch``): the processes encode a
+deterministic batch of ``data`` frames (default: one a process) over a
+``data`` x ``space`` global mesh (``data * space / world`` devices a
+process; the second command splits one row of four bands over two
+processes), process 0 writes the stream (OUT), the fragment-streamed
+stream (OUT.frag) and the multi-process decode of the fragments (OUT.dec,
+the decoder's DECODED bytes). ``--halo-check`` also lifts seeded planes
+forward and back over the first row's bands, for every wavelet at depths
+1-3, and each process writes its bands to OUT.halo<rank>.npz.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.pipeline.decoder import format_planes
 from vc2tpu_torch.pipeline.encoder import EncodedPicture
 from vc2tpu_torch.pipeline.sharded import ShardedDecoder, ShardedEncoder
+from vc2tpu_torch.shard import halo
 from vc2tpu_torch.shard.mesh import Mesh, devices_of
 from vc2tpu_torch.stream.dataunit import (DataUnitType, PicturePreamble,
                                           StreamReader, StreamWriter)
@@ -69,40 +78,52 @@ def init_distributed(coordinator_address: str | None = None,
 
 def make_global_mesh(data: int | None = None, space: int | None = None,
                      devices=None, device=None) -> Mesh:
-    """The mesh over every process's devices: ``data`` (frames, one block
-    of rows a process, in process order) x ``space`` (row bands, within a
-    process). A process's devices are ``devices``, else the visible cards
-    (``device`` a card or None) or the CPU in every position (``device=
-    "cpu"``). Defaults: a row a process, a band a local device (1 on the
-    CPU). ``mesh.processes[d]`` is the owner of row d; only the owner's
-    devices are real."""
+    """The mesh over every process's devices, in process order, reshaped to
+    ``data`` (frames) x ``space`` (row bands): position (d, s) belongs to
+    process ``(d * space + s) // local``, ``local`` being the devices a
+    process has, so a row spans processes where a process has fewer
+    devices than ``space``. A process's devices are ``devices``, else the
+    visible cards (``device`` a card or None) or, on the CPU (``device=
+    "cpu"``), as many CPU positions as the mesh gives each process.
+    Defaults: a row a process, the devices left a row (1 on the CPU).
+    Raises the JAX package's ValueError where ``data * space`` is not the
+    number of devices. ``mesh.owners[d][s]`` is the owner of position
+    (d, s); only the owner's device is real."""
     world = dist.get_world_size()
     local = ([torch.device(d) for d in devices] if devices is not None
              else devices_of(device))
     data = world if data is None else data
+    if local is None:                    # the CPU: as many as asked
+        space = 1 if space is None else space
+        if data * space % world:
+            raise ValueError(f"mesh {data}x{space} does not divide over "
+                             f"{world} processes")
+        local = [torch.device("cpu")] * (data * space // world)
+    n = world * len(local)
     if space is None:
-        space = len(local) * world // data if local else 1
-    if local is not None and data * space != world * len(local):
-        raise ValueError(f"mesh {data}x{space} != {world * len(local)} "
-                         "devices")
-    if data % world or (local is not None and space > len(local)):
-        raise ValueError(f"mesh {data}x{space}: a space row would span "
-                         f"processes ({world} processes); the halo exchange "
-                         "runs within one process")
-    rows = data // world
-    if local is None:
-        local = [torch.device("cpu")] * (rows * space)
-    grid = [local[(d % rows) * space:(d % rows + 1) * space]
-            for d in range(data)]
-    return Mesh(grid, processes=[d // rows for d in range(data)])
+        space = n // data
+    if data * space != n:
+        raise ValueError(f"mesh {data}x{space} != {n} devices")
+    per = len(local)
+    return Mesh([[local[(d * space + s) % per] for s in range(space)]
+                 for d in range(data)],
+                [[(d * space + s) // per for s in range(space)]
+                 for d in range(data)])
+
+
+def local_rows(mesh: Mesh, rank: int | None = None) -> list:
+    """The data rows in which process ``rank`` (default: this one) holds a
+    position."""
+    rank = dist.get_rank() if rank is None else rank
+    return [d for d, row in enumerate(mesh.owners) if rank in row]
 
 
 def local_mesh(mesh: Mesh, rank: int | None = None) -> Mesh:
-    """The rows of ``mesh`` that process ``rank`` (default: this one)
-    owns."""
-    rank = dist.get_rank() if rank is None else rank
-    return Mesh([r for r, p in zip(mesh.devices, mesh.processes)
-                 if p == rank])
+    """The rows of ``mesh`` in which process ``rank`` (default: this one)
+    holds a position, with their owners."""
+    rows = local_rows(mesh, rank)
+    return Mesh([mesh.devices[d] for d in rows],
+                [mesh.owners[d] for d in rows])
 
 
 def all_gather_bytes(blob: bytes) -> list:
@@ -122,64 +143,72 @@ def all_gather_bytes(blob: bytes) -> list:
 
 
 def _pack_bands(bands) -> bytes:
-    """[picture][band] (q int32 [n], totals int32 [n], payload bytes) as one
-    blob: the counts, then each band's n and payload size, its arrays and
-    its payload."""
-    out = [np.array([len(bands), len(bands[0]) if bands else 0],
-                    np.int64).tobytes()]
-    for row in bands:
-        for q, totals, payload in row:
-            out += [np.array([q.size, len(payload)], np.int64).tobytes(),
-                    q.astype(np.int32).tobytes(),
-                    totals.astype(np.int32).tobytes(), payload]
+    """[(picture, band, flags, q int32 [n], totals int32 [n], payload
+    bytes)] as one blob: the count, then each band's keys, n and payload
+    size, its arrays and its payload."""
+    out = [np.array([len(bands)], np.int64).tobytes()]
+    for pic, band, flags, q, totals, payload in bands:
+        out += [np.array([pic, band, flags, q.size, len(payload)],
+                         np.int64).tobytes(),
+                q.astype(np.int32).tobytes(),
+                totals.astype(np.int32).tobytes(), payload]
     return b"".join(out)
 
 
 def _unpack_bands(blob: bytes) -> list:
-    n_pic, n_band = np.frombuffer(blob, np.int64, 2, 0)
-    at, out = 16, []
-    for _ in range(int(n_pic)):
-        row = []
-        for _ in range(int(n_band)):
-            n, size = (int(v) for v in np.frombuffer(blob, np.int64, 2, at))
-            at += 16
-            q = np.frombuffer(blob, np.int32, n, at)
-            totals = np.frombuffer(blob, np.int32, n, at + 4 * n)
-            at += 8 * n
-            row.append((q, totals, blob[at:at + size]))
-            at += size
-        out.append(row)
+    count = int(np.frombuffer(blob, np.int64, 1, 0)[0])
+    at, out = 8, []
+    for _ in range(count):
+        pic, band, flags, n, size = (int(v) for v in
+                                     np.frombuffer(blob, np.int64, 5, at))
+        at += 40
+        q = np.frombuffer(blob, np.int32, n, at)
+        totals = np.frombuffer(blob, np.int32, n, at + 4 * n)
+        at += 8 * n
+        out.append((pic, band, flags, q, totals, blob[at:at + size]))
+        at += size
     return out
 
 
 class MultiHostEncoder:
-    """Frame-parallel multi-process HQ encoder. Every process calls with
-    its own frames (its rows' block of the global batch); the bands' bytes
-    are gathered so every process holds the global batch's results, in
-    data-axis order; process 0 writes the stream."""
+    """Multi-process HQ encoder over a global mesh. Every process calls
+    with the pictures of the rows it holds positions in (a row's block of
+    the global batch, in row order; a row split over processes gives each
+    of them the row's whole pictures) and encodes its own positions; the
+    bands' bytes are gathered so every process holds the global batch's
+    results, in data-axis order; process 0 writes the stream."""
 
     def __init__(self, cfg: EncoderConfig, mesh: Mesh):
         self.cfg = cfg
         self.mesh = mesh
-        self.enc = ShardedEncoder(cfg, local_mesh(mesh))
+        self.rows = local_rows(mesh)
+        self.enc = ShardedEncoder(cfg, local_mesh(mesh), dist.get_rank())
 
     def _gather(self, pictures) -> list:
         """Encode this process's pictures and gather every process's bands:
-        [picture][band] (q, totals, payload span), global order."""
+        [picture][band] (q, totals, payload span), global order. Every
+        band's flags are gathered before any is checked, so each process
+        raises the same first error (in picture, then band order) and none
+        is left waiting in a collective."""
         enc = self.enc
         jobs = enc._launch(pictures)
-        status = enc._statuses(jobs)
+        status = enc._statuses(jobs, check=False)
         n = enc.n_loc
-        bands = []
-        for b, row in enumerate(jobs):
-            out = []
-            for s, (q, buf, _st) in enumerate(row):
-                span = buf[:4 * n + status[b, s][1]].cpu().numpy()
-                totals, payload = device_pack.split_result(span, n)
-                out.append((q.cpu().numpy(), totals, payload.tobytes()))
-            bands.append(out)
-        return [row for blob in all_gather_bytes(_pack_bands(bands))
-                for row in _unpack_bands(blob)]
+        per = len(pictures) // len(self.rows)
+        mine = []
+        for (b, s), (flags, size) in sorted(status.items()):
+            q, buf, _st = jobs[b][s]
+            span = buf[:4 * n + (0 if flags else size)].cpu().numpy()
+            totals, payload = device_pack.split_result(span, n)
+            mine.append((self.rows[b // per] * per + b % per, s, flags,
+                         q.cpu().numpy(), totals, payload.tobytes()))
+        bands = {(pic, s): rest for blob in all_gather_bytes(
+            _pack_bands(mine)) for pic, s, *rest in _unpack_bands(blob)}
+        for key in sorted(bands):
+            device_pack.check_flags(bands[key][0])
+        space = self.mesh.shape["space"]
+        return [[tuple(bands[p, s][1:]) for s in range(space)]
+                for p in range(self.mesh.shape["data"] * per)]
 
     def encode_local_batch(self, pictures) -> list:
         """``EncodedPicture``s of the global batch (its q indices on the
@@ -328,8 +357,18 @@ def scaling_efficiency(cfg: EncoderConfig, mesh: Mesh, n_frames: int = 4,
 
 def harness_config(size: str) -> EncoderConfig:
     """The harness's HQ CBR configuration: ``tiny`` (64 x 64, the JAX
-    package's multi-host test) or ``1080p`` (BASELINE config #1's 4:2:2
-    10-bit picture at -u 1 -a 2, 829440 bytes, scalar 2)."""
+    package's multi-host test), ``1080p`` (BASELINE config #1's 4:2:2
+    10-bit picture at -u 1 -a 2, 829440 bytes, scalar 2) or ``8k``
+    (BASELINE config #5: 7680 x 4320 4:2:2 10-bit at -u 1 -a 2, 16 x
+    829440 bytes, scalar 2)."""
+    if size == "8k":
+        return EncoderConfig(height=4320, width=7680,
+                             chroma_format=ColourFormat.CF422,
+                             kernel=WaveletKernel.LeGall, wavelet_depth=2,
+                             y_size=1, x_size=2, mode=Mode.HQ_CBR,
+                             luma_depth=10, chroma_depth=10,
+                             frame_rate=FrameRate.FR50,
+                             compressed_bytes=16 * 829440, slice_scalar=2)
     if size == "tiny":
         return EncoderConfig(height=64, width=64,
                              chroma_format=ColourFormat.CF422,
@@ -393,19 +432,66 @@ def harness_preamble(cfg: EncoderConfig, slices) -> PicturePreamble:
         slice_size_scalar=cfg.slice_scalar)
 
 
+def halo_planes(kernel: WaveletKernel, depth: int, n: int) -> list:
+    """The halo check's seeded planes for ``kernel`` at ``depth`` over
+    ``n`` bands: bands of the thinnest height the JAX package accepts and
+    of three times it, samples in [-2**16, 2**16)."""
+    thin = (1 << depth) * max(1, halo.halo_width(kernel))
+    rng = np.random.default_rng(int(kernel) * 8 + depth)
+    return [torch.from_numpy(rng.integers(-(1 << 16), 1 << 16,
+                                          (n * rows, 24)).astype(np.int32))
+            for rows in (thin, 3 * thin)]
+
+
+def halo_check(mesh: Mesh, out: str) -> None:
+    """Lift ``halo_planes`` forward over the bands of the mesh's first row
+    (this process's positions of it), then back from the forward's bands,
+    for every wavelet at depths 1-3; write this process's bands of both to
+    ``out`` (an .npz keyed ``{kernel}_{depth}_{plane}_{f|i}_{band}``)."""
+    owners = mesh.owners[0]
+    n = len(owners)
+    mine = [o == dist.get_rank() for o in owners]
+    saved = {}
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for depth in (1, 2, 3):
+            planes = halo_planes(kernel, depth, n)
+            bands = [[t[s * t.shape[0] // n:(s + 1) * t.shape[0] // n].to(
+                dev) if m else None for s, (dev, m) in enumerate(
+                zip(mesh.devices[0], mine))] for t in planes]
+            fwd = halo.forward_bands(bands, kernel, depth,
+                                     [owners] * len(planes))
+            inv = halo.inverse_bands(fwd, kernel, depth,
+                                     [owners] * len(planes))
+            for p in range(len(planes)):
+                for kind, res in (("f", fwd), ("i", inv)):
+                    for s in range(n):
+                        if mine[s]:
+                            saved[f"{kernel.name}_{depth}_{p}_{kind}_{s}"] = (
+                                res[p][s].cpu().numpy())
+    np.savez(out, **saved)
+
+
 def worker(address: str, world: int, rank: int, out: str, device: str,
            space: int, size: str, fragment_length: int,
-           timeout: float) -> None:
-    """One process of the harness: a global (world x space) mesh, this
-    process's frame of the batch encoded on its row, the stream (and the
-    fragment-streamed one) written by process 0, then the multi-process
-    decode of the fragmented stream."""
+           timeout: float, data: int | None = None,
+           check_halo: bool = False) -> None:
+    """One process of the harness: a global ``data`` (default: ``world``)
+    x ``space`` mesh of ``data * space / world`` devices a process, the
+    frames of the rows this process holds positions in encoded on its
+    positions, the stream (and the fragment-streamed one) written by
+    process 0, then the multi-process decode of the fragmented stream (on
+    this process's devices); with ``check_halo``, ``halo_check``."""
     init_distributed(address, world, rank, timeout)
     try:
-        mesh = make_global_mesh(data=world, space=space,
-                                devices=[device] * space)
+        data = world if data is None else data
+        n_local = data * space // world
+        mesh = make_global_mesh(data=data, space=space,
+                                devices=[device] * n_local)
         cfg = harness_config(size)
-        local = harness_frames(cfg, world)[rank:rank + 1]
+        pictures = harness_frames(cfg, data)
+        local = [pictures[d] for d in local_rows(mesh)]
         enc = MultiHostEncoder(cfg, mesh)
         encoded = enc.encode_local_batch(local)
         if rank == 0:
@@ -418,7 +504,7 @@ def worker(address: str, world: int, rank: int, out: str, device: str,
         w.write_sequence_header(harness_header(cfg))
         geo = enc.enc.geo
         pre = harness_preamble(cfg, (geo.y_slices, geo.x_slices))
-        qs = enc.stream_fragments(local, w, list(range(world)), pre)
+        qs = enc.stream_fragments(local, w, list(range(data)), pre)
         if rank == 0:
             w.end_sequence()
             with open(out + ".frag", "wb") as f:
@@ -430,7 +516,7 @@ def worker(address: str, world: int, rank: int, out: str, device: str,
             harness_stream(cfg, encoded, fragment_length))
         g = cfg.geometry
         dec = MultiHostDecoder(cfg.kernel, cfg.wavelet_depth, geo,
-                               devices=[device] * space)
+                               devices=[device] * n_local)
         frames = dec.decode_pictures(
             [(p, pl) for p, _pre, pl in items], cfg.slice_prefix,
             cfg.slice_scalar, (g.luma_height, g.luma_width),
@@ -441,6 +527,8 @@ def worker(address: str, world: int, rank: int, out: str, device: str,
                     f.write(format_planes([torch.from_numpy(p) for p in
                                            planes], g,
                                           cfg.luma_depth).numpy().tobytes())
+        if check_halo and rank in mesh.owners[0]:
+            halo_check(mesh, f"{out}.halo{rank}.npz")
     finally:
         dist.destroy_process_group()
 
@@ -453,12 +541,13 @@ def free_port() -> int:
 
 def launch(out: str, world: int = 2, device: str | None = None,
            space: int = 1, size: str = "tiny", fragment_length: int = 256,
-           timeout: float = 110.0) -> list:
-    """Run the harness in ``world`` processes on 127.0.0.1, each with its
-    own ``timeout`` (the process group's too), every process on ``device``
-    (None: the card; RuntimeError without one). Returns each process's
-    output; raises RuntimeError if any process failed or timed out (the
-    others are then killed)."""
+           timeout: float = 110.0, data: int | None = None,
+           check_halo: bool = False) -> list:
+    """Run the harness (``worker``) in ``world`` processes on 127.0.0.1,
+    each with its own ``timeout`` (the process group's too), every process
+    on ``device`` (None: the card; RuntimeError without one). Returns each
+    process's output; raises RuntimeError if any process failed or timed
+    out (the others are then killed)."""
     if device is None:
         device = str(devices.resolve(None))
     port = free_port()
@@ -471,7 +560,10 @@ def launch(out: str, world: int = 2, device: str | None = None,
          "--address", f"127.0.0.1:{port}", "--world", str(world), "--rank",
          str(r), "--device", device, "--space", str(space), "--size", size,
          "--fragment-length", str(fragment_length), "--timeout",
-         str(timeout), out], env=env, stdout=subprocess.PIPE,
+         str(timeout), out]
+        + ([] if data is None else ["--data", str(data)])
+        + (["--halo-check"] if check_halo else []), env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(world)]
     outputs, failed = [], []
     deadline = time.monotonic() + timeout
@@ -509,20 +601,26 @@ def main(argv=None) -> int:
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device of every process (default: cuda)")
-    p.add_argument("--space", type=int, default=1)
-    p.add_argument("--size", choices=["tiny", "1080p"], default="tiny")
+    p.add_argument("--data", type=int, default=None,
+                   help="rows of the global mesh (default: --world)")
+    p.add_argument("--space", type=int, default=1,
+                   help="bands a row of the global mesh")
+    p.add_argument("--size", choices=["tiny", "1080p", "8k"], default="tiny")
     p.add_argument("--fragment-length", type=int, default=256)
     p.add_argument("--timeout", type=float, default=110.0)
+    p.add_argument("--halo-check", action="store_true",
+                   help="also lift seeded planes over the first row's bands "
+                        "and write each process's to OUT.halo<rank>.npz")
     a = p.parse_args(argv)
     if a.device is None:
         a.device = str(devices.resolve(None))
     if a.worker:
         worker(a.address, a.world, a.rank, a.out, a.device, a.space, a.size,
-               a.fragment_length, a.timeout)
+               a.fragment_length, a.timeout, a.data, a.halo_check)
         print(f"worker {a.rank} done", flush=True)
         return 0
     for text in launch(a.out, a.world, a.device, a.space, a.size,
-                       a.fragment_length, a.timeout):
+                       a.fragment_length, a.timeout, a.data, a.halo_check):
         print(text, end="")
     return 0
 

@@ -48,6 +48,23 @@ def make_input(path: str) -> None:
             f.write(v.astype(">u2").tobytes())
 
 
+def make_sequence(path: str, n: int = 16, seed: int = 1) -> None:
+    """``n`` distinct 1920x1080 4:2:2 10-bit frames in one planar file:
+    ``make_input``'s sinusoid moved a few samples a frame, with seeded
+    noise (the encode pipeline's input in ``chip_smoke.py``)."""
+    rng = np.random.default_rng(seed)
+    h, w = 1080, 1920
+    with open(path, "wb") as f:
+        for k in range(n):
+            for ww in (w, w // 2, w // 2):
+                base = 512 + 400 * np.outer(
+                    np.sin((np.arange(h) + 3 * k) / 17.0),
+                    np.cos((np.arange(ww) + 5 * k) / 23.0))
+                v = base.astype(np.int64) + rng.integers(-30, 30, (h, ww))
+                v = np.clip(v, 0, 1023).astype(np.uint16) << 6
+                f.write(v.astype(">u2").tobytes())
+
+
 def main() -> int:
     work = os.path.join(HERE, "_work")
     os.makedirs(work, exist_ok=True)

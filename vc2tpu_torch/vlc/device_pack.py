@@ -368,8 +368,11 @@ def quant_pack_hq(y, u, v, q_idx, qm_y, qm_c, prefix: int, scalar: int,
     and the quantised lanes (y, u, v) when ``keep_lanes``, else None.
     ``scratch`` (``pack_scratch``) may carry flags set before the pack,
     by the rate control. CUDA lanes go through the one launch of
-    csrc/hq_pack.cu (quantised in its load) and one synchronisation; CPU
-    lanes through ``quant_pack_hq_plain``."""
+    csrc/hq_pack.cu (quantised in its load) and one synchronisation, to
+    read the payload size and the flags; the buffer stays on the device,
+    so the caller's copy of it to the host waits a second time
+    (``Encoder.encode_picture_async`` waits once, on an event, before its
+    copy). CPU lanes go through ``quant_pack_hq_plain``."""
     buf, status, keep = quant_pack_hq_queued(
         y, u, v, q_idx, qm_y, qm_c, prefix, scalar, slice_sizes, keep_lanes,
         scratch)
@@ -381,7 +384,8 @@ def quant_pack_hq_queued(y, u, v, q_idx, qm_y, qm_c, prefix: int,
                          scalar: int, slice_sizes=None,
                          keep_lanes: bool = False, scratch=None):
     """``quant_pack_hq`` without its synchronisation, for a caller that
-    reads several packs at once (``pipeline.sharded``): returns (buffer,
+    reads several packs at once (``pipeline.sharded``) or later
+    (``Encoder.encode_picture_async``): returns (buffer,
     status, lanes), status the int64 [flags, payload size] on the lanes'
     device; when flags is 0 the payload is buffer[4N:4N + size] (the
     buffer may be longer). CUDA lanes go through the one launch of
