@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero, and the last line is then not printed):
 
-1. build the seven CUDA kernels, the host chain scan and the host LD scan
-   from ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at
-   once; timed);
+1. build the nine CUDA kernels (eight sources: ``band_lift.cu`` holds the
+   band route's two), the host chain scan and the host LD scan from
+   ``vc2tpu_torch/csrc`` (nvcc and the host C++ compiler, all at once;
+   timed);
 2. hold the lift kernel against its plain PyTorch version, all seven
    wavelets forward and inverse: one plane at the 1080p planes and
    sub-lattices, a shape that is not a tile multiple and tiny planes; the
@@ -15,7 +16,13 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    stride-2 sub-lattices and at stride 1 under a compact overlay, as the
    inverse runs them; narrow planes at strides 2 and 4 whose widths take
    the 4-byte paths; and ``forward_planes`` of three 1080p 4:2:2 planes
-   against the same on the CPU (integer ==);
+   against the same on the CPU (integer ==); hold the band route's two
+   kernels (``wavelet.bands.inverse_lanes`` and ``forward_lanes``) against
+   their plain versions (integer ==): the 1080p 4:2:2 LeGall depth-2 slice
+   grid, all seven wavelets at depths 1-3, slice grids whose bands are not
+   powers of two (-u 1 -a 2 at 1080p, 12-row slices, 4:2:0, 4:4:4), lanes
+   and samples over the whole int32 range at q 116-119 (LeGall, Daub97),
+   with and without LD LL grids, from int16 and int32 samples;
 3. hold the unpack kernel against its plain version on the 1080p fixtures'
    payloads (every CTA's byte window staged in shared memory), on a
    fixture payload cut short (regions past the payload end), on a seeded
@@ -76,18 +83,18 @@ Phases (any failure exits non-zero, and the last line is then not printed):
 5. the main paths, each with the launch counters zeroed just before it and
    read just after: decode the committed 1080p HQ fixtures
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
-   package's decode; lift 2 launches a picture, unpack 1); decode the 1080p
-   LD fixture, this slice's main path (SHA-256 against the JAX package's
-   decode; ld_unpack 1, lift 2, hq_unpack 0); encode the
-   1080p ConstQ input (``make_1080p.make_input``) with the encode CLI
-   (bytes equal to ``constq_1080p.vc2``, its decode at the recorded
-   SHA-256; lift 2, pack 1); encode the same input as HQ CBR, this
-   slice's main path (bytes equal to ``cbr_1080p.vc2``; lift 2, cbr 1,
-   pack 1), and again with ``-F 16384``, whose fragments ``Decoder()``
-   decodes to the recorded SHA-256; encode the same input as LD, this
-   slice's main path (bytes equal to ``ld_1080p.vc2``; lift 2, ld_rate 1,
-   ld_pack 1, hq_pack 0, hq_cbr 0; one synchronisation from the forward
-   lift to the result's read, counted by PyTorch's sync debug mode); then
+   package's decode; band_inverse 2 launches a picture, unpack 1,
+   lift_level 0); decode the 1080p LD fixture (SHA-256 against the JAX
+   package's decode; ld_unpack 1, band_inverse 2, lift_level 0, hq_unpack
+   0); encode the 1080p ConstQ input (``make_1080p.make_input``) with the
+   encode CLI (bytes equal to ``constq_1080p.vc2``, its decode at the
+   recorded SHA-256; band_forward 2, lift_level 0, pack 1); encode the
+   same input as HQ CBR (bytes equal to ``cbr_1080p.vc2``; band_forward 2,
+   cbr 1, pack 1), and again with ``-F 16384``, whose fragments
+   ``Decoder()`` decodes to the recorded SHA-256; encode the same input as
+   LD (bytes equal to ``ld_1080p.vc2``; band_forward 2, ld_rate 1, ld_pack
+   1, hq_pack 0, hq_cbr 0; one synchronisation from the forward lift to
+   the result's read, counted by PyTorch's sync debug mode); then
    every golden of ``tests/golden``, HQ and LD (``cbr_fragmented`` and
    ``ld_fragmented`` among them), decodes, the three decoder taps of
    ``constq_legall_d2``, ``cbr_fragmented``, ``ld_legall_d2`` and
@@ -96,11 +103,16 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    and LD) encodes, byte-identically;
 6. times on the card: the host cost of the device guard a launch runs
    in, end-to-end HQ and LD decode, ConstQ, CBR and LD encode (in turns)
-   and fragmented decode frames/s, the per-stage breakdown of one 1080p
-   picture each way (a "cbr search" stage in the CBR encode, a "rate
-   control" stage in the LD encode; the LD decode's host "ld scan + LL
-   recurrence"), the device's idle share, each kernel's time beside its
-   bound and its plain version's time, and the LD rate control's
+   and fragmented decode frames/s; the band route (the entry points')
+   against the in-place route (``inplace_route``: dequantise,
+   lanes_to_plane and lift_level to decode, forward_planes and
+   plane_to_lanes to encode; first checked to the same bytes), end to end
+   in turns (band, in-place, in-place, band) for the three 1080p fixture
+   decodes and the ConstQ encode; the per-stage breakdown of one 1080p
+   picture each way on both routes (a "cbr search" stage in the CBR
+   encode, a "rate control" stage in the LD encode; the LD decode's host
+   "ld scan + LL recurrence"), the device's idle share, each kernel's time
+   beside its bound and its plain version's time, and the LD rate control's
    dependent step (the kernel on one row and on one column of the
    picture's slices), its bound by the dependent chain (the steps times
    the deepest LL block's cells at LL_CELL_CHAIN dependent instructions
@@ -109,7 +121,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    4:2:2 10-bit pictures (``make_1080p.make_sequence``) through the CLI's
    ``run`` in ConstQ ``-q 40``, CBR ``-S 2 -s 829440`` and CBR with ``-F
    16384``, each stream equal to the plain per-picture loop's
-   (``plain_encode``; lift 2, hq_pack 1, hq_cbr 1 launches a picture);
+   (``plain_encode``; band_forward 2, hq_pack 1, hq_cbr 1 launches a
+   picture);
    ``Encoder.encode_picture_async``'s dispatch with no synchronisation;
    ms a picture of the pipelined CLI and the plain loop in ConstQ and CBR
    (and of the file's read alone), in turns;
@@ -279,6 +292,35 @@ def time_host(fn, reps: int = REPS) -> float:
     return statistics.median(host_samples(fn, reps))
 
 
+def stage_times(torch, fn, route: str, reps: int = REPS) -> dict:
+    """Median ms of each device stage of ``fn(mark)``, which calls
+    ``mark(label)`` after each stage: CUDA-event intervals between
+    consecutive marks (the host's issue gaps included), after a warm-up.
+    A stage that both routes run is labelled with ``route`` too."""
+    def once():
+        marks = []
+
+        def mark(label):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((label, e))
+
+        mark(None)
+        fn(mark)
+        torch.cuda.synchronize()
+        return [(label, a.elapsed_time(b))
+                for (_, a), (label, b) in zip(marks, marks[1:])]
+
+    once()
+    rows = [once() for _ in range(reps)]
+    out = {}
+    for i, (label, _ms) in enumerate(rows[0]):
+        if "route" not in label:
+            label = f"{label} [{route}]"
+        out[label] = statistics.median(r[i][1] for r in rows)
+    return out
+
+
 def device_busy(torch, fn):
     """(device-busy ms, wall ms, {kernel name: ms}) of one call of ``fn``
     under torch.profiler: the union of the intervals of the device events
@@ -351,6 +393,73 @@ def report_rates_in_turns(runs: dict, card: str, pictures: int = 1,
                                   / pictures)
     return {label: print_rate(label, ts, card, ", in turns")
             for label, ts in samples.items()}
+
+
+def report_routes_in_turns(pairs: dict, card: str,
+                           reps: int = E2E_REPS // 2) -> None:
+    """End-to-end ms of the same work on the band route and on the
+    in-place route, ``pairs`` {label: (band fn, in-place fn)}, sampled in
+    turns: each round runs band, in-place, in-place, band (``reps`` rounds
+    after a warm-up), so both routes meet the host's drift alike."""
+    for label, fns in pairs.items():
+        for fn in fns:
+            fn()
+        samples = ([], [])
+        for _ in range(reps):
+            for k in (0, 1, 1, 0):
+                t0 = time.perf_counter()
+                fns[k]()
+                samples[k].append(1e3 * (time.perf_counter() - t0))
+        for route, ts in zip(("band route", "in-place route"), samples):
+            print_rate(f"{label}, {route}", ts, card,
+                       ", in turns band / in-place / in-place / band")
+
+
+def inplace_route():
+    """(Decoder, Encoder) subclasses that take the in-place route, the
+    entry points' route before the band route: dequantise, lanes_to_plane
+    and one lift_level launch a level to decode; widen to int32,
+    forward_planes and plane_to_lanes to encode (ConstQ). Reachable from
+    this script only, to time the two routes in turns."""
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.core.config import PictureGeometry
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.pipeline import encoder as enc_mod
+    from vc2tpu_torch.wavelet import lifting, matrices
+
+    class InplaceDecoder(Decoder):
+        def _decode_picture(self, job):
+            pre, geo = job.pre, job.geo
+            qm = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
+            if job.ld is not None:
+                lanes, q, grids = pipe.unpack_ld_payload(
+                    job.payload, job.ld, geo, device=self.device)
+                planes = pipe.dequantise_ld_planes(lanes, q, grids, qm,
+                                                   pre.depth, geo)
+            else:
+                lanes, q = pipe.unpack_payload(
+                    job.payload, job.q_idx, job.cbytes, geo, pre.slice_prefix,
+                    start=job.start, device=self.device)
+                planes = pipe.dequantise_planes(lanes, q, qm, pre.depth, geo)
+            planes = lifting.inverse_planes(planes, pre.wavelet_kernel,
+                                            pre.depth)
+            out = PictureGeometry.of(job.pic_h, self.hdr.width,
+                                     self.hdr.chroma_format)
+            self._cur_picnum = job.picnum
+            self._emit_words(pipe.format_planes(planes, out,
+                                                self.hdr.bitdepth))
+
+    class InplaceEncoder(enc_mod.Encoder):
+        def _analyse(self, picture):
+            cfg, d = self.cfg, self.cfg.wavelet_depth
+            check(self.budgets is None, "the in-place route encodes ConstQ")
+            planes = enc_mod.upload_picture(picture, cfg.bytes_per_sample,
+                                            self.device, self.staging)
+            lanes = enc_mod.planes_to_lanes(
+                enc_mod.analyse(planes, cfg.kernel, d), self.geo, d)
+            return lanes, self.q_indices(), None
+
+    return InplaceDecoder, InplaceEncoder
 
 
 def max_err(torch, a, b) -> int:
@@ -488,6 +597,103 @@ def check_lift(torch, np, rng, dev) -> int:
     print(f"lift kernel == plain: {n_cmp} cases (7 of them forward_planes "
           f"at 1080p), max |err| {lift_err}")
     return lift_err
+
+
+def slice_grid(ys: int, xs: int, luma: tuple, chroma: tuple):
+    """A ``SliceGeometry`` of ys x xs slices of the given luma and chroma
+    slice sizes."""
+    from vc2tpu_torch.slices.hq import SliceGeometry
+
+    return SliceGeometry(ys, xs, (ys * luma[0], xs * luma[1]),
+                         (ys * chroma[0], xs * chroma[1]), luma, chroma)
+
+
+def check_bands(torch, np, rng, dev) -> tuple:
+    """Both band kernels (csrc/band_lift.cu) against their plain versions
+    (integer ==): the 1080p 4:2:2 LeGall depth-2 geometry (depth launches
+    each way), all seven wavelets at depths 1-3 on small grids, slice grids
+    whose bands' sub-blocks are not powers of two (-u 1 -a 2 at 1080p,
+    12-row slices, 4:2:0 with 24 / 12 columns, 4:4:4 at depth 3), and
+    lanes and samples over the whole int32 range with half the slices at
+    q 116-119 (LeGall, Daub97); the inverse from the lanes alone and with
+    LD LL grids, the forward from int16 and from int32 samples whose planes
+    pad. Returns (inverse max |err|, forward max |err|, cases)."""
+    from vc2tpu_torch.core.config import WaveletKernel
+    from vc2tpu_torch.wavelet import bands, matrices
+
+    errs = [0, 0]
+    n_cmp = 0
+
+    def case(geo, kernel, depth, lim=2000, q_hi=60, wrap=False):
+        nonlocal n_cmp
+        qm = matrices.quant_matrix(kernel, depth)
+        comps = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
+        pads = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
+        lanes = [torch.as_tensor(rng.integers(-lim, lim, (geo.n_slices, h * w))
+                                 .astype(np.int32), device=dev)
+                 for h, w in comps]
+        q = rng.integers(0, q_hi, geo.n_slices).astype(np.int32)
+        if wrap:
+            q[::2] = rng.integers(116, 120, len(q[::2]))
+        q = torch.as_tensor(q, device=dev)
+        n0 = (bands.inverse_lanes.launches, bands.forward_lanes.launches)
+        grids = [torch.as_tensor(rng.integers(-1 << 14, 1 << 14,
+                                              (h >> depth, w >> depth))
+                                 .astype(np.int32), device=dev)
+                 for h, w in pads]
+        for ll in (None, grids):
+            got = bands.inverse_lanes(lanes, q, qm, geo, kernel, depth, ll)
+            want = bands.inverse_lanes_plain(lanes, q, qm, geo, kernel, depth,
+                                             ll)
+            torch.cuda.synchronize()
+            err = max(max_err(torch, g, w) for g, w in zip(got, want))
+            check(err == 0, f"band_inverse {kernel.name} d{depth} "
+                            f"{geo.luma_slice}/{geo.chroma_slice} ll="
+                            f"{ll is not None}: max |err| {err}")
+            errs[0] = max(errs[0], err)
+            n_cmp += 1
+        cut = 1 if depth == 1 else 3          # rows and columns the pad adds
+        for dtype, span in ((torch.int16, 512), (torch.int32, lim)):
+            planes = [torch.as_tensor(rng.integers(-span, span,
+                                                   (h - cut, w - 1)),
+                                      device=dev).to(dtype) for h, w in pads]
+            got = bands.forward_lanes(planes, kernel, depth, geo)
+            want = bands.forward_lanes_plain(planes, kernel, depth, geo)
+            torch.cuda.synchronize()
+            err = max(max_err(torch, g, w) for g, w in zip(got, want))
+            check(err == 0, f"band_forward {kernel.name} d{depth} "
+                            f"{geo.luma_slice}/{geo.chroma_slice} {dtype}: "
+                            f"max |err| {err}")
+            errs[1] = max(errs[1], err)
+            n_cmp += 1
+        return (bands.inverse_lanes.launches - n0[0],
+                bands.forward_lanes.launches - n0[1])
+
+    launches = case(slice_grid(135, 240, (8, 8), (8, 4)), WaveletKernel.LeGall,
+                    2)
+    check(launches == (4, 4), f"the 1080p band kernels launched {launches} "
+                              "times for two pictures each way, expected 4")
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for depth in (1, 2, 3):
+            side = 8 << max(depth - 1, 0)
+            case(slice_grid(3, 5, (side, 16), (side, 8)), kernel, depth)
+    for ys, xs, luma, chroma, depth in ((270, 240, (4, 8), (4, 4), 2),
+                                        (3, 5, (12, 24), (12, 12), 2),
+                                        (4, 3, (16, 24), (8, 12), 2),
+                                        (2, 3, (24, 40), (24, 40), 3)):
+        for kernel in (WaveletKernel.DD137, WaveletKernel.Fidelity):
+            case(slice_grid(ys, xs, luma, chroma), kernel, depth)
+    for kernel in (WaveletKernel.LeGall, WaveletKernel.Daub97):
+        case(slice_grid(4, 6, (24, 40), (24, 16)), kernel, 3,
+             lim=(1 << 31) - 1, q_hi=120, wrap=True)
+    print(f"band kernels == plain: {n_cmp} cases (1080p LeGall d2; 7 "
+          "wavelets at depths 1-3; -u 1 -a 2 at 1080p, 12-row, 4:2:0 and "
+          "4:4:4 slice grids; int32-wrapping lanes at q 116-119 and "
+          f"samples; LD grids; int16 and int32 samples), max |err| "
+          f"{errs[0]} / {errs[1]}")
+    return errs[0], errs[1], n_cmp
 
 
 def check_unpack(torch, np, rng, dev, streams):
@@ -1669,8 +1875,8 @@ def pipeline_phase(torch, work, zero_counts, counts, card) -> dict:
     """The encode CLI's one-picture pipeline over ``SEQ_PICTURES`` distinct
     seeded 1080p pictures (``make_1080p.make_sequence``) in ConstQ, CBR
     and CBR with fragments: the stream equals the plain per-picture loop's
-    (``plain_encode``), with lift 2, hq_pack 1 (and hq_cbr 1) launches a
-    picture; ``Encoder.encode_picture_async`` dispatches with no
+    (``plain_encode``), with band_forward 2, hq_pack 1 (and hq_cbr 1)
+    launches a picture; ``Encoder.encode_picture_async`` dispatches with no
     synchronisation; ms a picture of the pipelined CLI in turns with the
     plain loop (and the file's read alone). Returns the launch counts of
     each run."""
@@ -1694,7 +1900,7 @@ def pipeline_phase(torch, work, zero_counts, counts, card) -> dict:
         paths[path] = counts()
         check(got == want, f"{path}: the pipelined stream differs from the "
                            "per-picture encode_picture stream")
-        for k, n in (("lift_level", 2), ("hq_pack", 1),
+        for k, n in (("band_forward", 2), ("lift_level", 0), ("hq_pack", 1),
                      ("hq_cbr", 0 if mode == "constq" else 1)):
             check(paths[path][k] == n * SEQ_PICTURES,
                   f"{path}: {k} launched {paths[path][k]} times, expected "
@@ -1840,7 +2046,7 @@ def main(argv) -> int:
                                               StreamWriter)
     from vc2tpu_torch.vlc import device_pack as dp
     from vc2tpu_torch.vlc import device_unpack as du
-    from vc2tpu_torch.wavelet import lifting, matrices
+    from vc2tpu_torch.wavelet import bands, lifting, matrices
 
     sys.path.insert(0, TESTDATA)
     import make_1080p
@@ -1854,7 +2060,8 @@ def main(argv) -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    libs = build.build(lifting.kernel_source(), du.kernel_source(),
+    libs = build.build(lifting.kernel_source(), bands.kernel_source(),
+                       du.kernel_source(),
                        dp.kernel_source(), cbr.kernel_source(),
                        du.ld_kernel_source(), rdo_ld.kernel_source(),
                        dp.ld_kernel_source(), slices_hq.scan_source(),
@@ -1873,7 +2080,9 @@ def main(argv) -> int:
     # 2. lift kernel (and forward_planes) against its plain version
     rng = np.random.default_rng(2042)
     lift_err = check_lift(torch, np, rng, dev)
-    phase_done("2 lift")
+    band_inverse_err, band_forward_err, _n_band = check_bands(torch, np, rng,
+                                                              dev)
+    phase_done("2 lift and band kernels")
 
     # 3. unpack kernels against their plain versions; the native scans
     with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
@@ -1922,6 +2131,8 @@ def main(argv) -> int:
     # just after
     def zero_counts():
         lifting.lift_levels.launches = 0
+        bands.inverse_lanes.launches = 0
+        bands.forward_lanes.launches = 0
         du.unpack_hq.launches = 0
         dp.pack_hq.launches = 0
         cbr.cbr_quant_indices.launches = 0
@@ -1931,6 +2142,8 @@ def main(argv) -> int:
 
     def counts():
         return {"lift_level": lifting.lift_levels.launches,
+                "band_inverse": bands.inverse_lanes.launches,
+                "band_forward": bands.forward_lanes.launches,
                 "hq_unpack": du.unpack_hq.launches,
                 "hq_pack": dp.pack_hq.launches,
                 "hq_cbr": cbr.cbr_quant_indices.launches,
@@ -1950,11 +2163,12 @@ def main(argv) -> int:
     decode_launches = counts()
     print(f"main path decode: {n_pictures} 1080p pictures, SHA-256 equal to "
           f"the JAX package's decode; launches {decode_launches}")
-    check(decode_launches["lift_level"] == 2 * n_pictures,
-          f"lift_level launched {decode_launches['lift_level']} times in the "
-          f"decode, expected {2 * n_pictures}")
+    check(decode_launches["band_inverse"] == 2 * n_pictures,
+          f"band_inverse launched {decode_launches['band_inverse']} times in "
+          f"the decode, expected {2 * n_pictures}")
     check(decode_launches["hq_unpack"] == n_pictures
-          and decode_launches["ld_unpack"] == 0,
+          and decode_launches["ld_unpack"] == 0
+          and decode_launches["lift_level"] == 0,
           f"the HQ decode launched {decode_launches}")
 
     # the slice's main path: the 1080p LD decode
@@ -1969,7 +2183,8 @@ def main(argv) -> int:
           f"package's {fixtures['ld_1080p']['decoded_sha256']}")
     print("main path LD decode: the 1080p LD picture, SHA-256 equal to the "
           f"JAX package's decode; launches {ld_launches}")
-    for k, want in (("ld_unpack", 1), ("lift_level", 2), ("hq_unpack", 0)):
+    for k, want in (("ld_unpack", 1), ("band_inverse", 2), ("lift_level", 0),
+                    ("hq_unpack", 0)):
         check(ld_launches[k] == want, f"{k} launched {ld_launches[k]} times "
                                       f"in the LD decode, expected {want}")
 
@@ -1988,9 +2203,11 @@ def main(argv) -> int:
     print(f"main path encode: the 1080p ConstQ picture, {len(stream)} bytes "
           "equal to constq_1080p.vc2, its decode at the recorded SHA-256; "
           f"launches {encode_launches}")
-    check(encode_launches["lift_level"] == 2,
-          f"lift_level launched {encode_launches['lift_level']} times in the "
-          "encode, expected 2")
+    check(encode_launches["band_forward"] == 2
+          and encode_launches["lift_level"] == 0,
+          f"band_forward launched {encode_launches['band_forward']} times "
+          f"(lift_level {encode_launches['lift_level']}) in the encode, "
+          "expected 2 (0)")
     check(encode_launches["hq_pack"] == 1,
           f"hq_pack launched {encode_launches['hq_pack']} times, expected 1")
 
@@ -2004,8 +2221,8 @@ def main(argv) -> int:
           "the 1080p CBR encode differs from cbr_1080p.vc2")
     print(f"main path CBR encode: the 1080p HQ CBR picture, {len(stream)} "
           f"bytes equal to cbr_1080p.vc2; launches {cbr_launches}")
-    for k, want in (("lift_level", 2), ("hq_cbr", 1), ("hq_pack", 1),
-                    ("hq_unpack", 0), ("ld_unpack", 0)):
+    for k, want in (("band_forward", 2), ("lift_level", 0), ("hq_cbr", 1),
+                    ("hq_pack", 1), ("hq_unpack", 0), ("ld_unpack", 0)):
         check(cbr_launches[k] == want, f"{k} launched {cbr_launches[k]} "
                                        f"times in the CBR encode, expected "
                                        f"{want}")
@@ -2021,7 +2238,9 @@ def main(argv) -> int:
     digest = hashlib.sha256(sink.getvalue()).hexdigest()
     check(digest == fixtures["cbr_1080p"]["decoded_sha256"],
           f"the decode of the -F {FRAGMENT} encode has SHA-256 {digest}")
-    check(frag_launches["lift_level"] == 2 and frag_launches["hq_unpack"] == 1,
+    check(frag_launches["band_inverse"] == 2
+          and frag_launches["lift_level"] == 0
+          and frag_launches["hq_unpack"] == 1,
           f"the fragmented decode launched {frag_launches}")
     print(f"main path fragments: the -F {FRAGMENT} encode, {n_frags} HQ "
           f"fragments, decodes to the recorded SHA-256; launches "
@@ -2037,8 +2256,9 @@ def main(argv) -> int:
           "the 1080p LD encode differs from ld_1080p.vc2")
     print(f"main path LD encode: the 1080p LD picture, {len(stream)} bytes "
           f"equal to ld_1080p.vc2; launches {ld_enc_launches}")
-    for k, want in (("lift_level", 2), ("ld_rate", 1), ("ld_pack", 1),
-                    ("hq_pack", 0), ("hq_cbr", 0), ("ld_unpack", 0)):
+    for k, want in (("band_forward", 2), ("lift_level", 0), ("ld_rate", 1),
+                    ("ld_pack", 1), ("hq_pack", 0), ("hq_cbr", 0),
+                    ("ld_unpack", 0)):
         check(ld_enc_launches[k] == want, f"{k} launched {ld_enc_launches[k]}"
                                           f" times in the LD encode, expected "
                                           f"{want}")
@@ -2046,8 +2266,8 @@ def main(argv) -> int:
 
     def ld_device_half():
         lcfg, lgeo_ = ld_encoder.cfg, ld_encoder.geo
-        tr = enc_mod.analyse(ld_planes, lcfg.kernel, lcfg.wavelet_depth)
-        lanes = enc_mod.planes_to_lanes(tr, lgeo_, lcfg.wavelet_depth)
+        lanes = bands.forward_lanes(ld_planes, lcfg.kernel,
+                                    lcfg.wavelet_depth, lgeo_)
         q, *ll = ld_encoder.rate_control(lanes)
         dp.ld_result(ld_encoder.pack(lanes, q, ll)[0].cpu().numpy())
 
@@ -2182,6 +2402,41 @@ def main(argv) -> int:
     report_busy(torch, "encode cbr_1080p", encode_cbr_once, card)
     report_busy(torch, "encode ld_1080p", encode_ld_once, card)
 
+    # the band route (the entry points') against the in-place route, end
+    # to end in turns: the three 1080p fixture decodes and the ConstQ encode
+    InplaceDecoder, InplaceEncoder = inplace_route()
+    route_pairs = {}
+    for key in ("constq_1080p", "cbr_1080p", "ld_1080p"):
+        data = streams[key]
+        zero_counts()
+        sink = io.BytesIO()
+        check(InplaceDecoder(sink=sink).run(data) == 0,
+              f"in-place decode {key} failed")
+        got = counts()
+        check(hashlib.sha256(sink.getvalue()).hexdigest()
+              == fixtures[key]["decoded_sha256"],
+              f"{key}: the in-place route's decode differs")
+        check(got["lift_level"] == 2 and got["band_inverse"] == 0,
+              f"the in-place decode of {key} launched {got}")
+        route_pairs[f"decode {key}"] = (
+            lambda d=data: Decoder(sink=io.BytesIO()).run(d),
+            lambda d=data: InplaceDecoder(sink=io.BytesIO()).run(d))
+    inplace_encoder = InplaceEncoder(cfg)
+    check(inplace_encoder.encode_picture(picture_1080p).payload
+          == encoder.encode_picture(picture_1080p).payload,
+          "the in-place route's ConstQ encode differs from the band route's")
+
+    def encode_inplace_once():
+        enc = inplace_encoder.encode_picture(read_picture())
+        StreamWriter(io.BytesIO()).write_picture(0, preamble, enc.payload)
+
+    route_pairs["encode constq_1080p (read, encode, write a picture)"] = (
+        encode_once, encode_inplace_once)
+    print("routes: the in-place route decodes the three 1080p fixtures to "
+          "the recorded SHA-256 (lift_level 2, band_inverse 0 a picture) and "
+          "encodes the ConstQ picture to the band route's bytes")
+    report_routes_in_turns(route_pairs, card)
+
     def decode_fragments_once():
         Decoder(sink=io.BytesIO()).run(frag_stream)
 
@@ -2222,39 +2477,37 @@ def main(argv) -> int:
         time_host(lambda: slices_hq.scan_hq_slice_offsets_plain(
             unit, *scan_args), 3))
 
-    def staged_decode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-        ev[0].record()
+    routes = ("band route", "in-place route")
+
+    def decode_stages(mark, route):
         pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
-        ev[1].record()
+        mark("decode device: H2D (payload + slice fields)")
         clen = fields[1:]
         dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
-        ev[2].record()
+        mark("decode device: component offsets")
         lanes = du.unpack_hq(pay, dstart, clen, ly, lc)
-        ev[3].record()
-        planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth,
-                                        dgeo)
-        ev[4].record()
-        planes = lifting.inverse_planes(planes, kernel, depth)
-        ev[5].record()
+        mark("decode device: unpack kernel")
+        if route == routes[0]:
+            planes = bands.inverse_lanes(lanes, fields[0], qmatrix, dgeo,
+                                         kernel, depth)
+            mark("decode device: dequantise + inverse DWT (band route, 2 "
+                 "band_inverse launches)")
+        else:
+            planes = pipe.dequantise_planes(lanes, fields[0], qmatrix, depth,
+                                            dgeo)
+            mark("decode device (in-place route): dequantise + "
+                 "lanes_to_plane")
+            planes = lifting.inverse_planes(planes, kernel, depth)
+            mark("decode device (in-place route): inverse_planes (2 lift "
+                 "launches)")
         words = pipe.format_planes(planes, out_geom, hdr.bitdepth)
-        ev[6].record()
+        mark("decode device: crop + format")
         words.cpu()
-        ev[7].record()
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(7)]
+        mark("decode device: D2H copy of the output bytes")
 
-    labels = ["decode device: H2D (payload + slice fields)",
-              "decode device: component offsets",
-              "decode device: unpack kernel",
-              "decode device: dequantise + lanes_to_plane",
-              "decode device: inverse_planes (2 lift launches)",
-              "decode device: crop + format",
-              "decode device: D2H copy of the output bytes"]
-    staged_decode()
-    rows = [staged_decode() for _ in range(REPS)]
-    for i, lab in enumerate(labels):
-        stages[lab] = statistics.median(r[i] for r in rows)
+    for route in routes:
+        stages.update(stage_times(
+            torch, lambda mark, r=route: decode_stages(mark, r), route))
 
     # per-stage breakdown of one 1080p LD picture, decode: the host scan,
     # then the device stages
@@ -2278,107 +2531,92 @@ def main(argv) -> int:
     lly = lgeo.luma_slice[0] * lgeo.luma_slice[1]
     llc = lgeo.chroma_slice[0] * lgeo.chroma_slice[1]
 
-    def staged_ld_decode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        ev[0].record()
+    def ld_decode_stages(mark, route):
         pay, fields, grids = pipe.upload_ld(ld_job.payload, ld_job.ld, dev)
-        ev[1].record()
+        mark("LD decode device: H2D (payload + fields + LL grids)")
         lanes = du.unpack_ld(pay, fields[1:], lly, llc)
-        ev[2].record()
-        planes = pipe.dequantise_ld_planes(lanes, fields[0], grids, lqm,
-                                           lpre.depth, lgeo)
-        ev[3].record()
-        planes = lifting.inverse_planes(planes, lpre.wavelet_kernel,
-                                        lpre.depth)
-        ev[4].record()
+        mark("LD decode device: ld_unpack kernel")
+        if route == routes[0]:
+            planes = bands.inverse_lanes(lanes, fields[0], lqm, lgeo,
+                                         lpre.wavelet_kernel, lpre.depth,
+                                         grids)
+            mark("LD decode device: dequantise + inverse DWT with the LL "
+                 "grids (band route, 2 band_inverse launches)")
+        else:
+            planes = pipe.dequantise_ld_planes(lanes, fields[0], grids, lqm,
+                                               lpre.depth, lgeo)
+            mark("LD decode device (in-place route): dequantise + "
+                 "lanes_to_plane + LL grids")
+            planes = lifting.inverse_planes(planes, lpre.wavelet_kernel,
+                                            lpre.depth)
+            mark("LD decode device (in-place route): inverse_planes (2 lift "
+                 "launches)")
         words = pipe.format_planes(planes, ld_out, ld_dec.hdr.bitdepth)
-        ev[5].record()
+        mark("LD decode device: crop + format")
         words.cpu()
-        ev[6].record()
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+        mark("LD decode device: D2H copy of the output bytes")
 
-    labels = ["LD decode device: H2D (payload + fields + LL grids)",
-              "LD decode device: ld_unpack kernel",
-              "LD decode device: dequantise + lanes_to_plane + LL grids",
-              "LD decode device: inverse_planes (2 lift launches)",
-              "LD decode device: crop + format",
-              "LD decode device: D2H copy of the output bytes"]
-    staged_ld_decode()
-    rows = [staged_ld_decode() for _ in range(REPS)]
-    for i, lab in enumerate(labels):
-        stages[lab] = statistics.median(r[i] for r in rows)
+    for route in routes:
+        stages.update(stage_times(
+            torch, lambda mark, r=route: ld_decode_stages(mark, r), route))
 
     # per-stage breakdown of one 1080p picture, encode: ConstQ, and CBR
     # with the search before the pack
-    def staged_encode(enc):
-        cfg_, geo_, d_ = enc.cfg, enc.geo, enc.cfg.wavelet_depth
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        ev[0].record()
+    def analysis_stages(mark, prefix, route, cfg_, geo_):
+        d_ = cfg_.wavelet_depth
         planes = enc_mod.upload_picture(picture_1080p, cfg_.bytes_per_sample,
                                         dev)
-        ev[1].record()
-        tr = enc_mod.analyse(planes, cfg_.kernel, d_)
-        ev[2].record()
-        lanes = enc_mod.planes_to_lanes(tr, geo_, d_)
-        ev[3].record()
+        mark(f"{prefix} device: H2D of the samples (int16)")
+        if route == routes[0]:
+            lanes = bands.forward_lanes(planes, cfg_.kernel, d_, geo_)
+            mark(f"{prefix} device: pad + forward DWT + lanes (band route, "
+                 "2 band_forward launches)")
+        else:
+            tr = enc_mod.analyse(planes, cfg_.kernel, d_)
+            mark(f"{prefix} device (in-place route): widen + pad + "
+                 "forward_planes (2 lift launches)")
+            lanes = enc_mod.planes_to_lanes(tr, geo_, d_)
+            mark(f"{prefix} device (in-place route): plane_to_lanes")
+        return lanes
+
+    def encode_stages(mark, enc, prefix, route):
+        cfg_, geo_ = enc.cfg, enc.geo
+        lanes = analysis_stages(mark, prefix, route, cfg_, geo_)
         scratch = dp.pack_scratch(geo_.n_slices, lanes[0].shape[1],
                                   lanes[1].shape[1], dev)
         q = enc.q_indices()
         if enc.budgets is not None:
             q = cbr.cbr_quant_indices(*lanes, *enc.qm, enc.budgets,
                                       cfg_.slice_scalar, flags=scratch[1:2])
-        ev[4].record()
+            mark(f"{prefix} device: cbr search (1 launch, no sync)")
         buf, flags, _ = dp.quant_pack_hq(*lanes, q, *enc.qm,
                                          cfg_.slice_prefix, cfg_.slice_scalar,
                                          enc.budgets, scratch=scratch)
-        ev[5].record()
+        mark(f"{prefix} device: quantise + pack (1 launch, 1 sync)")
         check(flags == 0, "flags in the staged encode")
         buf.cpu()
-        ev[6].record()
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+        mark(f"{prefix} device: D2H of totals + payload")
 
     for prefix, enc in (("encode", encoder), ("CBR encode", cbr_encoder)):
-        labels = ["H2D of the samples (int16)",
-                  "pad + forward_planes (2 lift launches)", "plane_to_lanes",
-                  "cbr search (1 launch, no sync)",
-                  "quantise + pack (1 launch, 1 sync)",
-                  "D2H of totals + payload"]
-        staged_encode(enc)
-        rows = [staged_encode(enc) for _ in range(REPS)]
-        for i, lab in enumerate(labels):
-            if enc.budgets is not None or i != 3:
-                stages[f"{prefix} device: {lab}"] = statistics.median(
-                    r[i] for r in rows)
-    def staged_ld_encode():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        ev[0].record()
-        planes = enc_mod.upload_picture(picture_1080p, 2, dev)
-        ev[1].record()
-        tr = enc_mod.analyse(planes, lcfg.kernel, lcfg.wavelet_depth)
-        ev[2].record()
-        lanes = enc_mod.planes_to_lanes(tr, lgeo, lcfg.wavelet_depth)
-        ev[3].record()
-        q, *ll = ld_encoder.rate_control(lanes)
-        ev[4].record()
-        buf, _ = ld_encoder.pack(lanes, q, ll)
-        ev[5].record()
-        buf.cpu()
-        ev[6].record()
-        torch.cuda.synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
+        for route in routes:
+            stages.update(stage_times(
+                torch, lambda mark, e=enc, p=prefix, r=route:
+                encode_stages(mark, e, p, r), route))
 
-    labels = ["H2D of the samples (int16)",
-              "pad + forward_planes (2 lift launches)", "plane_to_lanes",
-              "rate control (1 launch, no sync)",
-              "quantise + pack (1 launch, no sync)",
-              "D2H of flags + payload (the picture's one sync)"]
-    staged_ld_encode()
-    rows = [staged_ld_encode() for _ in range(REPS)]
-    for i, lab in enumerate(labels):
-        stages[f"LD encode device: {lab}"] = statistics.median(
-            r[i] for r in rows)
+    def ld_encode_stages(mark, route):
+        lanes = analysis_stages(mark, "LD encode", route, lcfg,
+                                ld_encoder.geo)
+        q, *ll = ld_encoder.rate_control(lanes)
+        mark("LD encode device: rate control (1 launch, no sync)")
+        buf, _ = ld_encoder.pack(lanes, q, ll)
+        mark("LD encode device: quantise + pack (1 launch, no sync)")
+        buf.cpu()
+        mark("LD encode device: D2H of flags + payload (the picture's one "
+             "sync)")
+
+    for route in routes:
+        stages.update(stage_times(
+            torch, lambda mark, r=route: ld_encode_stages(mark, r), route))
     stages["encode host: read a picture (PlanarReader, NumPy)"] = time_host(
         read_picture)
     payload = encoder.encode_picture(picture_1080p).payload
@@ -2387,6 +2625,9 @@ def main(argv) -> int:
                                                          payload))
 
     times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
+    times.update(band_times(torch, job, dev,
+                            enc_mod.upload_picture(picture_1080p, 2, dev),
+                            encoder))
     times.update(cbr_times(torch, cbr_tlanes, cbr_encoder))
     times.update(ld_times(torch, np, ld_job, dev))
     times.update(ld_encode_times(torch, ld_encoder, ld_tlanes, ld_rate_1080p))
@@ -2409,6 +2650,26 @@ def main(argv) -> int:
             lift_ops += 2 * (n // 2) * (2 * len(taps) + 3)
         lift_ops += 2 * n                            # rounded unshift
     lift_bound, lift_by = bound_ms(lift_bytes, lift_ops)
+    # the band levels: the inverse reads every lane and q index once,
+    # writes each level's result once and reads the coarser results again
+    # as the next level's LL; it dequantises every lane (~12 operations)
+    # and runs the lift's ladders. The forward reads the samples once,
+    # writes every lane once and the coarser LLs once and reads them
+    # again; it runs the forward ladders and the accuracy shift
+    coarse = sum(4 * n for n in level_sizes) - sum(
+        4 * n for n in times["plane_samples"])   # results read again as LL
+    band_inverse_bound, band_inverse_by = bound_ms(
+        4 * times["band_lanes"] + 4 * times["band_slices"]
+        + sum(4 * n for n in level_sizes) + coarse,
+        lift_ops + 12 * times["band_lanes"])
+    forward_ops = 0
+    for n in level_sizes:
+        for (_t, _s, taps, _a, _sh) in lifting.ladder(kernel, False):
+            forward_ops += 2 * (n // 2) * (2 * len(taps) + 3)
+        forward_ops += n                              # accuracy shift
+    band_forward_bound, band_forward_by = bound_ms(
+        times["band_sample_bytes"] + 4 * times["band_lanes"] + 2 * coarse,
+        forward_ops)
 
     key, pay, dstart, clen, ly_, lc_ = unpack_cases[0]
     check(key == "constq_1080p", "fixture order")
@@ -2536,6 +2797,28 @@ def main(argv) -> int:
          "ms": times["lift_ms"], "device_ms": times["lift_device_ms"],
          "plain_ms": times["lift_plain_ms"], "bound_ms": lift_bound,
          "bound_by": lift_by, "library_ms": None},
+        {"name": "band_inverse", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/band_lift.cu",
+         "replaces": "vc2tpu/pipeline/decoder.py:101",
+         "launches": launches("band_inverse"),
+         "launches_by_path": by_path("band_inverse"),
+         "max_abs_err": band_inverse_err,
+         "ms": times["band_inverse_ms"],
+         "device_ms": times["band_inverse_device_ms"],
+         "plain_ms": times["band_inverse_plain_ms"],
+         "bound_ms": band_inverse_bound, "bound_by": band_inverse_by,
+         "library_ms": None},
+        {"name": "band_forward", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/band_lift.cu",
+         "replaces": "vc2tpu/pipeline/encoder.py:253",
+         "launches": launches("band_forward"),
+         "launches_by_path": by_path("band_forward"),
+         "max_abs_err": band_forward_err,
+         "ms": times["band_forward_ms"],
+         "device_ms": times["band_forward_device_ms"],
+         "plain_ms": times["band_forward_plain_ms"],
+         "bound_ms": band_forward_bound, "bound_by": band_forward_by,
+         "library_ms": None},
         {"name": "hq_unpack", "route": "cuda",
          "source": "vc2tpu_torch/csrc/hq_unpack.cu",
          "replaces": "vc2tpu/vlc/device_unpack.py:107",
@@ -2698,6 +2981,56 @@ def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
                                                   prefix, scalar), reps=3),
         "pack_payload_bytes": total,
         "plane_samples": [p.numel() for p in planes],
+    }
+
+
+def band_times(torch, job, dev, samples, enc) -> dict:
+    """Times of the band kernels at the main paths' 1080p shapes: the
+    inverse on the ConstQ fixture's unpacked lanes, the forward on the
+    1080p picture's uploaded int16 samples; ``*_ms`` as the host issues one
+    picture's ``depth`` launches, ``*_device_ms`` queued (the device's time
+    alone), ``*_plain_ms`` of the plain versions on the card; and the
+    sample counts of each level, for the bounds."""
+    from vc2tpu_torch.pipeline import decoder as pipe
+    from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import bands, matrices
+
+    pre, geo = job.pre, job.geo
+    kernel, depth = pre.wavelet_kernel, pre.depth
+    qm = matrices.quant_matrix(kernel, depth)
+    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
+    clen = fields[1:].contiguous()
+    dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
+    lanes = du.unpack_hq(pay, dstart, clen,
+                         geo.luma_slice[0] * geo.luma_slice[1],
+                         geo.chroma_slice[0] * geo.chroma_slice[1])
+    q = fields[0]
+    cfg = enc.cfg
+
+    def inverse():
+        return bands.inverse_lanes(lanes, q, qm, geo, kernel, depth)
+
+    def forward():
+        return bands.forward_lanes(samples, cfg.kernel, cfg.wavelet_depth,
+                                   enc.geo)
+
+    return {
+        "band_inverse_ms": time_device(torch, inverse),
+        "band_inverse_device_ms": time_device(torch, inverse, KERNEL_INNER,
+                                              queued=True),
+        "band_inverse_plain_ms": time_device(
+            torch, lambda: bands.inverse_lanes_plain(lanes, q, qm, geo,
+                                                     kernel, depth)),
+        "band_forward_ms": time_device(torch, forward),
+        "band_forward_device_ms": time_device(torch, forward, KERNEL_INNER,
+                                              queued=True),
+        "band_forward_plain_ms": time_device(
+            torch, lambda: bands.forward_lanes_plain(
+                samples, cfg.kernel, cfg.wavelet_depth, enc.geo)),
+        "band_lanes": sum(t.numel() for t in lanes),
+        "band_slices": q.numel(),
+        "band_sample_bytes": sum(t.numel() * t.element_size()
+                                 for t in samples),
     }
 
 

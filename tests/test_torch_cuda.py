@@ -25,7 +25,8 @@ from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.vlc import device_pack as dp
 from vc2tpu_torch.vlc import device_unpack as du
 from vc2tpu_torch.vlc import golomb
-from vc2tpu_torch.wavelet import lifting, matrices
+from vc2tpu_torch.slices.hq import SliceGeometry
+from vc2tpu_torch.wavelet import bands, lifting, matrices
 
 pytestmark = pytest.mark.cuda
 
@@ -212,10 +213,12 @@ def test_golden_decodes_through_the_kernels(case, cuda):
     with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
         want = f.read()
     lifts, unpacks = lifting.lift_levels.launches, du.unpack_hq.launches
+    inverses = bands.inverse_lanes.launches
     sink = io.BytesIO()
     assert Decoder(sink=sink).run(data) == 0
     assert sink.getvalue() == want
-    assert lifting.lift_levels.launches > lifts
+    assert bands.inverse_lanes.launches > inverses
+    assert lifting.lift_levels.launches == lifts
     assert du.unpack_hq.launches > unpacks
 
 
@@ -283,10 +286,12 @@ def test_ld_golden_decodes_through_the_kernels(case, cuda):
     with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
         want = f.read()
     lifts, unpacks = lifting.lift_levels.launches, du.unpack_ld.launches
+    inverses = bands.inverse_lanes.launches
     sink = io.BytesIO()
     assert Decoder(sink=sink).run(data) == 0
     assert sink.getvalue() == want
-    assert lifting.lift_levels.launches > lifts
+    assert bands.inverse_lanes.launches > inverses
+    assert lifting.lift_levels.launches == lifts
     assert du.unpack_ld.launches > unpacks
 
 
@@ -439,12 +444,12 @@ def test_golden_encodes_through_the_kernels(case, cuda, tmp_path):
     argv = ["-x", str(m["width"]), "-y", str(m["height"]), "-f", m["fmt"],
             "-l", str(m["depth"]), "-n", "2", *extra,
             os.path.join(GOLDEN, f"{inp}.16p2"), str(tmp_path / "out.vc2")]
-    lifts, packs = lifting.lift_levels.launches, dp.pack_hq.launches
+    lifts, packs = bands.forward_lanes.launches, dp.pack_hq.launches
     searches = cbr.cbr_quant_indices.launches
     assert encode_stream.main(argv) == 0
     with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
         assert (tmp_path / "out.vc2").read_bytes() == f.read()
-    assert lifting.lift_levels.launches > lifts
+    assert bands.forward_lanes.launches > lifts
     assert dp.pack_hq.launches > packs
     pictures = dp.pack_hq.launches - packs
     assert cbr.cbr_quant_indices.launches - searches == (
@@ -777,14 +782,110 @@ def test_ld_golden_encodes_through_the_kernels(case, tap, cuda, tmp_path):
             os.path.join(GOLDEN, f"{inp}.16p2"), str(tmp_path / "out.bin")]
     rates, packs = (rdo_ld.ld_rate_control.launches,
                     dp.quant_pack_ld.launches)
-    hq = dp.pack_hq.launches
+    hq, lifts = dp.pack_hq.launches, bands.forward_lanes.launches
     assert encode_stream.main(argv) == 0
     ref = f"{case}.vc2" if tap is None else f"{case}.{tap.lower()}.raw"
     with open(os.path.join(GOLDEN, ref), "rb") as f:
         assert (tmp_path / "out.bin").read_bytes() == f.read()
     pictures = rdo_ld.ld_rate_control.launches - rates
     assert pictures > 0 and dp.quant_pack_ld.launches - packs == pictures
+    assert bands.forward_lanes.launches - lifts == pictures * int(
+        extra[extra.index("-d") + 1])
     assert dp.pack_hq.launches == hq
+
+
+# --- the band route's kernels (csrc/band_lift.cu) ----------------------------
+
+def _slice_grid(ys, xs, luma, chroma):
+    return SliceGeometry(ys, xs, (ys * luma[0], xs * luma[1]),
+                         (ys * chroma[0], xs * chroma[1]), luma, chroma)
+
+
+def _check_band_kernels(rng, geo, kernel, depth, dev, lim=2000, q_hi=60,
+                        wrap=False):
+    """Both band kernels against their plain versions on seeded inputs of
+    slice geometry ``geo``: the inverse from lanes alone and with LD LL
+    grids, the forward from int16 samples and from int32 ones (whose
+    planes pad); ``wrap``: lanes over the whole int32 range with half the
+    slices at q 116-119 (the wrapped factors), int32 samples over it too.
+    Returns the launches of each."""
+    qm = matrices.quant_matrix(kernel, depth)
+    comps = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
+    pads = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
+    lanes = [torch.from_numpy(rng.integers(-lim, lim, (geo.n_slices, h * w))
+                              .astype(np.int32)).to(dev) for h, w in comps]
+    q = rng.integers(0, q_hi, geo.n_slices).astype(np.int32)
+    if wrap:
+        q[::2] = rng.integers(116, 120, len(q[::2]))
+    q = torch.from_numpy(q).to(dev)
+    inverses, forwards = bands.inverse_lanes.launches, \
+        bands.forward_lanes.launches
+    for ll in (None, [torch.from_numpy(
+            rng.integers(-1 << 14, 1 << 14, (h >> depth, w >> depth))
+            .astype(np.int32)).to(dev) for h, w in pads]):
+        got = bands.inverse_lanes(lanes, q, qm, geo, kernel, depth, ll)
+        want = bands.inverse_lanes_plain(lanes, q, qm, geo, kernel, depth, ll)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), ("inverse", ll is not None)
+    cut = 1 if depth == 1 else 3              # rows and columns the pad adds
+    for dtype, span in ((torch.int16, 512), (torch.int32, lim)):
+        planes = [torch.from_numpy(rng.integers(-span, span,
+                                                (h - cut, w - 1)))
+                  .to(dtype).to(dev) for h, w in pads]
+        got = bands.forward_lanes(planes, kernel, depth, geo)
+        want = bands.forward_lanes_plain(planes, kernel, depth, geo)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), ("forward", dtype)
+    return (bands.inverse_lanes.launches - inverses,
+            bands.forward_lanes.launches - forwards)
+
+
+def test_band_kernels_match_plain_at_1080p(cuda):
+    """The 1080p 4:2:2 LeGall depth-2 geometry (135 x 240 slices of 8 x 8
+    and 8 x 4): depth launches each way a picture."""
+    geo = _slice_grid(135, 240, (8, 8), (8, 4))
+    launches = _check_band_kernels(np.random.default_rng(1080), geo,
+                                   WaveletKernel.LeGall, 2, cuda)
+    assert launches == (2 * 2, 2 * 2)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_band_kernels_match_plain(kernel, depth, cuda):
+    side = 8 << max(depth - 1, 0)
+    geo = _slice_grid(3, 5, (side, 16), (side, 8))
+    _check_band_kernels(np.random.default_rng(10 * int(kernel) + depth), geo,
+                        kernel, depth, cuda)
+
+
+# slice grids whose bands' sub-blocks are not powers of two: -u 1 -a 2 at
+# 1080p (slices of 4 x 8 luma, 4 x 4 chroma), 12-row slices, 4:2:0 with
+# 24 / 12 columns, 4:4:4
+BAND_GRIDS = {"u1a2_1080p": (270, 240, (4, 8), (4, 4), 2),
+              "rows12": (3, 5, (12, 24), (12, 12), 2),
+              "420_cols24": (4, 3, (16, 24), (8, 12), 2),
+              "444_d3": (2, 3, (24, 40), (24, 40), 3)}
+
+
+@pytest.mark.parametrize("grid", list(BAND_GRIDS))
+def test_band_kernels_on_other_slice_grids(grid, cuda):
+    ys, xs, luma, chroma, depth = BAND_GRIDS[grid]
+    for kernel in (WaveletKernel.DD137, WaveletKernel.Fidelity):
+        _check_band_kernels(np.random.default_rng(len(grid)),
+                            _slice_grid(ys, xs, luma, chroma), kernel, depth,
+                            cuda)
+
+
+@pytest.mark.parametrize("kernel", [WaveletKernel.Daub97,
+                                    WaveletKernel.LeGall],
+                         ids=["Daub97", "LeGall"])
+def test_band_kernels_wrap_int32(kernel, cuda):
+    """Lanes and samples over the whole int32 range, half the slices at
+    q 116-119: the dequantise's wrapped products and factors and the
+    ladders' wrapped sums (Daub97's taps reach 6497)."""
+    _check_band_kernels(np.random.default_rng(97), _slice_grid(
+        4, 6, (24, 40), (24, 16)), kernel, 3, cuda, lim=(1 << 31) - 1,
+        q_hi=120, wrap=True)
 
 
 # --- the multi-device paths (shard/, pipeline/sharded.py) -------------------

@@ -29,7 +29,7 @@ from vc2tpu_torch.stream.dataunit import (PARSE_CODES, DataUnitType,
                                           PicturePreamble, StreamReader,
                                           StreamWriter)
 from vc2tpu_torch.vlc import device_unpack
-from vc2tpu_torch.wavelet import lifting, matrices
+from vc2tpu_torch.wavelet import bands, matrices
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 with open(os.path.join(GOLDEN, "meta.json")) as _f:
@@ -146,7 +146,8 @@ def _boom(*_a, **_k):
     raise RuntimeError("kernel launch failed")
 
 
-@pytest.mark.parametrize("module,name", [(lifting, "lift_level"),
+# the decode's lift is the band route's kernel (bands.inverse_lanes)
+@pytest.mark.parametrize("module,name", [(bands, "inverse_lanes"),
                                          (device_unpack, "unpack_hq")],
                          ids=["lift_level", "unpack_hq"])
 def test_kernel_error_propagates(module, name, monkeypatch):
@@ -173,7 +174,7 @@ def test_cli_main_writes_output(tmp_path):
 
 
 def test_cli_main_fails_on_kernel_error(tmp_path, monkeypatch):
-    monkeypatch.setattr(lifting, "lift_level", _boom)
+    monkeypatch.setattr(bands, "inverse_lanes", _boom)
     rc = decode_stream.main([os.path.join(GOLDEN, "constq_legall_d2.vc2"),
                              str(tmp_path / "out.16p2"), "--device", "cpu"])
     assert rc != 0

@@ -27,7 +27,7 @@ from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.rdo import ld as rdo_ld
 from vc2tpu_torch.slices import hq
 from vc2tpu_torch.vlc import device_pack, device_unpack
-from vc2tpu_torch.wavelet import lifting
+from vc2tpu_torch.wavelet import bands, lifting
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -222,7 +222,8 @@ def _boom(*_a, **_k):
     raise RuntimeError("kernel launch failed")
 
 
-@pytest.mark.parametrize("module,name", [(lifting, "lift_level"),
+# the decode's lift is the band route's kernel (bands.inverse_lanes)
+@pytest.mark.parametrize("module,name", [(bands, "inverse_lanes"),
                                          (device_unpack, "unpack_hq")],
                          ids=["lift_level", "unpack_hq"])
 def test_kernel_error_propagates_from_fragments(module, name, monkeypatch,
@@ -416,7 +417,7 @@ def test_every_kernel_launch_goes_to_its_tensors_card():
             if not inside:
                 bad.append(f"{path}:{line}")
     assert not bad, bad
-    assert found == 8        # lift, hq/ld unpack, hq/ld pack, cbr, ld x2
+    assert found == 10   # lift, band x2, hq/ld unpack, hq/ld pack, cbr, ld x2
 
 
 def test_guard_is_the_tensors_card():

@@ -2,14 +2,14 @@
 bytes.
 
 Ports of ``vc2tpu.pipeline.decoder.synthesise_payload_to_words`` and
-``synthesise_ld_payload_to_words`` on the in-place synthesis route (the
-JAX package's ``_synthesis_fn``), covering the HQ picture tail of the
+``synthesise_ld_payload_to_words``, covering the HQ picture tail of the
 reference decoder (src/DecodeStream/DecodeStream.cpp:451-609):
 
     upload (one H2D of the payload, one of the slice fields)
     -> component offsets -> unpack kernel       (``unpack_payload``)
-    -> dequantise
-    -> lanes_to_plane -> inverse_planes (one lift launch a level)
+    -> bands.inverse_lanes: dequantise + inverse DWT in the band layout
+       (one launch a level of csrc/band_lift.cu, dequantising the lanes
+       in its load)
     -> crop -> clip, offset, MSB-justify, big-endian bytes (uint8)
 
 and its LD picture tail (:289-450), after the host scan
@@ -18,14 +18,20 @@ DC prediction):
 
     upload (one H2D each of the payload, the fields and the LL grids)
     -> LD unpack kernel                          (``unpack_ld_payload``)
-    -> dequantise -> lanes_to_plane -> the LL samples from the host grids
-    -> inverse_planes -> crop and format, as for HQ
+    -> bands.inverse_lanes with the host's LL grids as band 0
+    -> crop and format, as for HQ
 
-The JAX package's LD band route (``lanes_to_bands``/``inverse_bands``) is
-not carried over. The stages are separate functions so a profiler can time
-each; the caller makes the one D2H copy of the returned bytes. The
-decoder's tap outputs (TRANSFORM, QUANTISED) stop after the unpack or the
-dequantise.
+That is the JAX package's band route (``_lanes_words_tail``: scale_banded,
+lanes_to_bands, inverse_bands). The JAX package keeps its in-place route
+(``_synthesis_fn``) for its taps, ``DecodeFrame`` and the encoder's
+in-process decode, and so does this port: ``dequantise_planes`` /
+``dequantise_ld_planes`` (dequantise, ``lanes_to_plane``, the LD grids
+into the LL sub-lattice) then ``lifting.inverse_planes`` (one
+csrc/lift_level.cu launch a level) serve the decoder's TRANSFORM and
+QUANTISED outputs, ``cli.decode_frame``, ``Encoder.decode_inprocess``
+and the mesh paths (``pipeline.sharded``, ``shard.halo``). The stages are
+separate functions so a profiler can time each; the caller makes the one
+D2H copy of the returned bytes.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
 from vc2tpu_torch.slices.ld import LDScan
 from vc2tpu_torch.vlc import device_unpack
-from vc2tpu_torch.wavelet import lifting
+from vc2tpu_torch.wavelet import bands
 
 
 def _make_fmt(bitdepth: int):
@@ -134,9 +140,23 @@ def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
     card), without synchronising."""
     lanes, q_idx = unpack_payload(payload, q_indices, cbytes, geo, prefix,
                                   start, device)
-    planes = dequantise_planes(lanes, q_idx, qmatrix, depth, geo)
-    planes = lifting.inverse_planes(planes, kernel, depth)
+    planes = synthesise_lanes(lanes, q_idx, qmatrix, kernel, depth, geo)
     return format_planes(planes, out_geometry, bitdepth)
+
+
+def synthesise_lanes(lanes, q_idx: torch.Tensor, qmatrix,
+                     kernel: WaveletKernel, depth: int, geo: SliceGeometry,
+                     grids=None) -> list:
+    """A picture's three padded planes from its (y, u, v) lanes and q
+    indices: ``bands.inverse_lanes`` (LD: ``grids`` as band 0). At depth 0
+    there is no transform, and the dequantised lanes (LD: the grids) are
+    the planes."""
+    if depth == 0:
+        if grids is not None:
+            return list(grids)
+        return dequantise_planes(lanes, q_idx, qmatrix, 0, geo)
+    return bands.inverse_lanes(lanes, q_idx, qmatrix, geo, kernel, depth,
+                               grids)
 
 
 def upload_ld(payload: np.ndarray, scan: LDScan, device: torch.device):
@@ -187,6 +207,6 @@ def synthesise_ld_payload_to_words(payload: np.ndarray, scan: LDScan,
     ``payload``). Returns the output bytes as a uint8 tensor on ``device``
     (default the card), without synchronising."""
     lanes, q_idx, grids = unpack_ld_payload(payload, scan, geo, device)
-    planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix, depth, geo)
-    planes = lifting.inverse_planes(planes, kernel, depth)
+    planes = synthesise_lanes(lanes, q_idx, qmatrix, kernel, depth, geo,
+                              grids)
     return format_planes(planes, out_geometry, bitdepth)

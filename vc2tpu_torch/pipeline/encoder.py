@@ -5,9 +5,11 @@ Port of ``vc2tpu.pipeline.encoder.Encoder`` for ``Mode.HQ_ConstQ`` and
 (src/EncodeStream/EncodeStream.cpp:452-770):
 
     upload (the samples at their read width into a pinned staging slot,
-       one non-blocking H2D)
-    -> wavelet_pad -> forward_planes (one lift launch a level)
-    -> plane_to_lanes
+       one non-blocking H2D; ``upload_picture``)
+    -> bands.forward_lanes: wavelet_pad, forward DWT in the band layout
+       and the lanes in serialisation order (one launch a level of
+       csrc/band_lift.cu, reading the int16 samples and storing the
+       subbands straight into the lanes)
     -> HQ CBR only: cbr_quant_indices (the rate control, one launch; the
        q indices stay on the device)
     -> quant_pack_hq_queued (quant at each lane's adjusted index, fused
@@ -22,9 +24,16 @@ without synchronising, so the caller can read the next picture while the
 card works (the encode CLI keeps one picture in flight);
 ``encode_picture`` is the same encode resolved at once. The stages are
 separate functions so a profiler can time each.
-``quantise`` is the quantiser on its own, for the tests.
+``quantise`` is the quantiser on its own, for the tests. The forward
+transform is the JAX package's band route (``Encoder._analyse_impl``:
+forward_bands, bands_to_lanes); the TRANSFORM tap's planes are the lanes
+in transform layout (``layout.lanes_to_plane``), as the JAX package builds
+them with ``bands_to_inplace``. The in-place route (``analyse``:
+``forward_planes``, one csrc/lift_level.cu launch a level, then
+``planes_to_lanes``) stays as the band route's yardstick.
 ``Encoder.decode_inprocess`` serves the DECODED/PSNR taps through the
-decoder's ``dequantise_planes`` and ``inverse_planes``.
+decoder's ``dequantise_planes`` and ``inverse_planes``, as the JAX
+package's in-process decode does.
 
 LD pictures are encoded by ``pipeline.ld.LDEncoder``, which shares the
 upload, the forward transform and the lane layout with this module.
@@ -48,7 +57,7 @@ from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
 from vc2tpu_torch.vlc import device_pack
-from vc2tpu_torch.wavelet import lifting, matrices
+from vc2tpu_torch.wavelet import bands, lifting, matrices
 
 def _print_slice_suggestions(cfg: EncoderConfig, luma_h: int,
                              chroma_h: int) -> None:
@@ -157,10 +166,11 @@ class Staging:
 def upload_picture(picture: Picture, bytes_per_sample: int,
                    device: torch.device, staging: Staging | None = None):
     """The picture's three planes to the device in one copy at their read
-    width (int16 for up to 2 bytes a sample, else int32); returns int32
-    planes on the device. To a card the samples go through a pinned slot
-    of ``staging`` (a one-slot ring when None) and a non-blocking copy, so
-    the host does not wait for the H2D; on the CPU nothing is pinned."""
+    width (int16 for up to 2 bytes a sample, else int32); returns the
+    planes at that width, views of the one uploaded buffer. To a card the
+    samples go through a pinned slot of ``staging`` (a one-slot ring when
+    None) and a non-blocking copy, so the host does not wait for the H2D;
+    on the CPU nothing is pinned."""
     dt = torch.int16 if bytes_per_sample <= 2 else torch.int32
     planes = [np.asarray(p) for p in (picture.y, picture.c1, picture.c2)]
     n = sum(p.size for p in planes)
@@ -180,7 +190,7 @@ def upload_picture(picture: Picture, bytes_per_sample: int,
     out, at = [], 0
     for p in planes:
         h, w = p.shape
-        out.append(flat[at:at + h * w].reshape(h, w).to(torch.int32))
+        out.append(flat[at:at + h * w].reshape(h, w))
         at += h * w
     return out
 
@@ -217,8 +227,8 @@ def fetch_ready(t: torch.Tensor, stream=None) -> np.ndarray:
 
 
 def analyse(planes, kernel, depth: int) -> list:
-    """Pad each plane to a multiple of 2**depth and take its forward DWT,
-    in-place transform layout."""
+    """Pad each plane (int16 or int32) to a multiple of 2**depth and take
+    its forward DWT, in-place transform layout, int32."""
     padded = [lifting.wavelet_pad(p, depth).contiguous() for p in planes]
     return lifting.forward_planes(padded, kernel, depth)
 
@@ -226,6 +236,14 @@ def analyse(planes, kernel, depth: int) -> list:
 def planes_to_lanes(planes, geo: SliceGeometry, depth: int) -> list:
     return [layout.plane_to_lanes(p, geo.y_slices, geo.x_slices, depth)
             for p in planes]
+
+
+def lanes_to_planes(lanes, geo: SliceGeometry, depth: int) -> list:
+    """(y, u, v) lanes in transform layout: the tap outputs' planes."""
+    return [layout.lanes_to_plane(
+        t, geo.y_slices, geo.x_slices,
+        *(geo.luma_slice if c == 0 else geo.chroma_slice), depth)
+        for c, t in enumerate(lanes)]
 
 
 def quantise(lanes, q_idx: torch.Tensor, qmatrix: np.ndarray, depth: int,
@@ -280,21 +298,21 @@ class Encoder:
 
     def _analyse(self, picture: Picture) -> tuple:
         """Queue the upload, the forward lift and (CBR) the search: the
-        transform planes, their lanes, the q indices and the pack's
-        scratch (None for ConstQ)."""
-        cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
+        transform lanes, the q indices and the pack's scratch (None for
+        ConstQ)."""
+        cfg, geo = self.cfg, self.geo
         planes = upload_picture(picture, cfg.bytes_per_sample, self.device,
                                 self.staging)
-        transform = analyse(planes, cfg.kernel, d)
-        tlanes = planes_to_lanes(transform, geo, d)
+        tlanes = bands.forward_lanes(planes, cfg.kernel, cfg.wavelet_depth,
+                                     geo)
         if self.budgets is None:
-            return transform, tlanes, self.q_indices(), None
+            return tlanes, self.q_indices(), None
         # the search reports an index above 119 in the pack's flags word
         ly, lc = tlanes[0].shape[1], tlanes[1].shape[1]
         scratch = device_pack.pack_scratch(geo.n_slices, ly, lc, self.device)
         q_idx = cbr.cbr_quant_indices(*tlanes, *self.qm, self.budgets,
                                       cfg.slice_scalar, flags=scratch[1:2])
-        return transform, tlanes, q_idx, scratch
+        return tlanes, q_idx, scratch
 
     def encode_picture_async(self, picture: Picture):
         """Queue the encode of one picture (a frame, or a field when
@@ -307,7 +325,7 @@ class Encoder:
         stream, beside any picture dispatched since); it holds the
         picture's device buffers until it has run."""
         cfg, geo = self.cfg, self.geo
-        _transform, tlanes, q_idx, scratch = self._analyse(picture)
+        tlanes, q_idx, scratch = self._analyse(picture)
         buf, status, _ = device_pack.quant_pack_hq_queued(
             *tlanes, q_idx, *self.qm, cfg.slice_prefix, cfg.slice_scalar,
             slice_sizes=self.budgets, scratch=scratch)
@@ -333,7 +351,7 @@ class Encoder:
         if not keep_planes:
             return self.encode_picture_async(picture)()
         cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
-        transform, tlanes, q_idx, scratch = self._analyse(picture)
+        tlanes, q_idx, scratch = self._analyse(picture)
         buf, flags, lanes = device_pack.quant_pack_hq(
             *tlanes, q_idx, *self.qm, cfg.slice_prefix, cfg.slice_scalar,
             slice_sizes=self.budgets, keep_lanes=True, scratch=scratch)
@@ -343,12 +361,10 @@ class Encoder:
         return EncodedPicture(
             q_device=q_idx, slices=(geo.y_slices, geo.x_slices),
             payload=payload.tobytes(), slice_totals=totals,
-            transform=Picture(*transform, picture.chroma_format),
-            quantised=Picture(*[
-                layout.lanes_to_plane(
-                    q, geo.y_slices, geo.x_slices,
-                    *(geo.luma_slice if c == 0 else geo.chroma_slice), d)
-                for c, q in enumerate(lanes)], picture.chroma_format),
+            transform=Picture(*lanes_to_planes(tlanes, geo, d),
+                              picture.chroma_format),
+            quantised=Picture(*lanes_to_planes(lanes, geo, d),
+                              picture.chroma_format),
             lanes=tuple(lanes))
 
     def decode_inprocess(self, enc: EncodedPicture,

@@ -6,8 +6,8 @@ mode (src/EncodeStream/EncodeStream.cpp:195-245 and 452-770):
 
     upload (the samples at their read width into a pinned staging slot,
        one non-blocking H2D; ``pipeline.encoder.upload_picture``)
-    -> wavelet_pad -> forward_planes (one lift launch a level)
-    -> plane_to_lanes
+    -> bands.forward_lanes (one launch a level of csrc/band_lift.cu: the
+       forward DWT in the band layout, the subbands stored into the lanes)
     -> ld_rate_control (one launch of csrc/ld_rate.cu: the q indices and
        the LL lanes quantised with DC prediction stay on the device)
     -> quant_pack_ld (one launch of csrc/ld_pack.cu: the body lanes
@@ -24,11 +24,12 @@ decoder's ``dequantise_ld_planes`` and ``inverse_planes``, as the JAX
 package's ``ld_dequantise_picture`` does.
 
 With a ``mesh`` the analysis DWT runs over the mesh's row bands (the
-halo forward lift of ``shard.halo``, one launch a level a device), as the
-JAX package's ``--mesh`` route does; where the padded rows do not divide
-into bands of whole ``2**depth`` rows it analyses on one device and says
-so once. The rate control's wavefront couples every slice, so it and the
-pack run once a picture on the mesh's first device.
+halo forward lift of ``shard.halo``, one csrc/lift_level.cu launch a
+level a device, then ``planes_to_lanes``), as the JAX package's
+``--mesh`` route does; where the padded rows do not divide into bands of
+whole ``2**depth`` rows it analyses on one device and says so once. The
+rate control's wavefront couples every slice, so it and the pack run
+once a picture on the mesh's first device.
 
 The JAX package's host and auto routes and its int16 fetch are not
 ported: they answered the TPU's link.
@@ -45,9 +46,9 @@ from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import EncoderConfig, Mode, PictureGeometry
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.pipeline.decoder import dequantise_ld_planes
-from vc2tpu_torch.pipeline.encoder import (EncodedPicture, Staging, analyse,
-                                           planes_to_lanes, slice_geometry,
-                                           upload_picture)
+from vc2tpu_torch.pipeline.encoder import (EncodedPicture, Staging,
+                                           lanes_to_planes, planes_to_lanes,
+                                           slice_geometry, upload_picture)
 from vc2tpu_torch.pipeline.sharded import upload_blocks
 from vc2tpu_torch.rdo import ld as rdo_ld
 from vc2tpu_torch.shard import halo
@@ -55,7 +56,7 @@ from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices import ld as slices_ld
 from vc2tpu_torch.vlc import device_pack
-from vc2tpu_torch.wavelet import lifting, matrices
+from vc2tpu_torch.wavelet import bands, lifting, matrices
 
 
 class LDEncoder:
@@ -83,9 +84,8 @@ class LDEncoder:
         self.qm_block_c = slices_ld.qm_block(*geo.chroma_slice, d,
                                              self.qmatrix)
         self.band_sizes_y, self.band_sizes_c = (
-            tuple(int(c) for c in np.bincount(
-                layout.lane_order(*sl, d)[1], minlength=3 * d + 1))
-            for sl in (geo.luma_slice, geo.chroma_slice))
+            bands.band_sizes(*sl, d) for sl in (geo.luma_slice,
+                                                geo.chroma_slice))
         self.ll_y = (geo.luma_slice[0] // ts, geo.luma_slice[1] // ts)
         self.ll_c = (geo.chroma_slice[0] // ts, geo.chroma_slice[1] // ts)
         # a field is half the frame's bytes (vc2tpu/pipeline/ld.py:61-64)
@@ -108,16 +108,17 @@ class LDEncoder:
         self.staging = Staging()
 
     def analyse(self, picture: Picture) -> list:
-        """The padded planes' forward DWT on the device: over the mesh's
-        row bands where they divide, else on the one device."""
-        cfg = self.cfg
+        """The picture's transform lanes (y, u, v) on the device: over the
+        mesh's row bands where they divide, else ``bands.forward_lanes``
+        on the one device."""
+        cfg, d = self.cfg, self.cfg.wavelet_depth
         if self.mesh is not None:
             planes = self._analyse_mesh(picture)
             if planes is not None:
-                return planes
+                return planes_to_lanes(planes, self.geo, d)
         planes = upload_picture(picture, cfg.bytes_per_sample, self.device,
                                 self.staging)
-        return analyse(planes, cfg.kernel, cfg.wavelet_depth)
+        return bands.forward_lanes(planes, cfg.kernel, d, self.geo)
 
     def _analyse_mesh(self, picture: Picture):
         """The halo forward lift over the ``space`` bands of the mesh's
@@ -167,8 +168,7 @@ class LDEncoder:
         ``keep_planes`` the result also holds the transform, the quantised
         planes and lanes on the device, for the tap outputs."""
         geo, d = self.geo, self.cfg.wavelet_depth
-        transform = self.analyse(picture)
-        tlanes = planes_to_lanes(transform, geo, d)
+        tlanes = self.analyse(picture)
         q_idx, *ll = self.rate_control(tlanes)
         buf, lanes = self.pack(tlanes, q_idx, ll, keep_planes)
         flags, payload = device_pack.ld_result(buf.cpu().numpy())
@@ -179,12 +179,10 @@ class LDEncoder:
             q_device=q_idx, slices=(geo.y_slices, geo.x_slices),
             payload=payload.tobytes(), slice_totals=self.slice_budgets.ravel())
         if keep_planes:
-            out.transform = Picture(*transform, picture.chroma_format)
-            out.quantised = Picture(*[
-                layout.lanes_to_plane(
-                    q, geo.y_slices, geo.x_slices,
-                    *(geo.luma_slice if c == 0 else geo.chroma_slice), d)
-                for c, q in enumerate(lanes)], picture.chroma_format)
+            out.transform = Picture(*lanes_to_planes(tlanes, geo, d),
+                                    picture.chroma_format)
+            out.quantised = Picture(*lanes_to_planes(lanes, geo, d),
+                                    picture.chroma_format)
             out.lanes = tuple(lanes)
         return out
 

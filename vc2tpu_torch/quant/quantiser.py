@@ -16,9 +16,11 @@ The quant_factor table is the 120-entry VC-2 standard table
 tabulated, not derived. Indices above 119 raise in the reference; the
 device lookup clamps them to 119.
 
-The per-element lookup is a plain gather: the one-hot matmul lookup of the
-JAX package (``banded_lookup``) worked around slow TPU gathers and is not
-carried over.
+The per-element lookup is a plain gather, and the banded forms
+(``scale_banded``, ``quant_banded``) gather per (slice, band): the one-hot
+matmul lookup of the JAX package (``banded_lookup``, ``pack_tables``,
+``mxu_tables_enabled``) worked around slow TPU gathers and is not carried
+over.
 """
 
 from __future__ import annotations
@@ -122,3 +124,54 @@ def scale(values: torch.Tensor, q_indices: torch.Tensor) -> torch.Tensor:
     qf_t, qo_t = _device_tables(values.device)
     q = torch.clamp(q_indices.to(torch.int64), 0, MAX_QINDEX)
     return _scale_core(values.to(torch.int64), qf_t[q], qo_t[q])
+
+
+# --- banded forms ------------------------------------------------------------
+# A slice's lanes are contiguous by subband (slices/layout.lane_order) and
+# the quant matrix is constant within a subband, so the tables are looked
+# up per (slice, band) and broadcast along the bands' lanes.
+
+def expand_bands(p: torch.Tensor, band_sizes: tuple) -> torch.Tensor:
+    """(..., B) per-band values -> (..., L) per-lane values."""
+    sizes = torch.as_tensor(band_sizes, device=p.device)
+    return torch.repeat_interleave(p, sizes, dim=-1)
+
+
+def banded_aq(q: torch.Tensor, qm_bands) -> torch.Tensor:
+    """Adjusted quant index per (..., band), max(q - qm, 0) clamped to the
+    table, int32."""
+    qm = torch.as_tensor(qm_bands, device=q.device).to(torch.int64)
+    aq = torch.clamp(q.to(torch.int64)[..., None] - qm, 0, MAX_QINDEX)
+    return aq.to(torch.int32)
+
+
+def scale_tables(q: torch.Tensor, qm_bands) -> tuple:
+    """(wrapped factor, offset) per (..., band) at the adjusted indices,
+    int64."""
+    qf, qo = _device_tables(q.device)
+    aq = banded_aq(q, qm_bands).to(torch.int64)
+    return qf[aq], qo[aq]
+
+
+def quant_tables(q: torch.Tensor, qm_bands) -> tuple:
+    """(|factor| clamped to int32, wrapped factor) per (..., band) at the
+    adjusted indices, int64. The division is exact, so no reciprocal goes
+    with them."""
+    qf, _ = _device_tables(q.device)
+    wrapped = qf[banded_aq(q, qm_bands).to(torch.int64)]
+    return wrapped.abs().clamp(max=(1 << 31) - 1), wrapped
+
+
+def quant_banded(values: torch.Tensor, q: torch.Tensor, qm_bands,
+                 band_sizes: tuple) -> torch.Tensor:
+    """``quant`` of band-contiguous lanes (..., N, L) with per-slice q
+    (..., N); ``qm_bands`` is the (B,) quant matrix."""
+    return quant(values, expand_bands(banded_aq(q, qm_bands), band_sizes))
+
+
+def scale_banded(values: torch.Tensor, q: torch.Tensor, qm_bands,
+                 band_sizes: tuple) -> torch.Tensor:
+    """``scale`` of band-contiguous lanes with per-slice q."""
+    qf_b, qo_b = scale_tables(q, qm_bands)
+    return _scale_core(values.to(torch.int64), expand_bands(qf_b, band_sizes),
+                       expand_bands(qo_b, band_sizes))

@@ -270,7 +270,9 @@ def forward_bands(planes, kernel: WaveletKernel, depth: int,
     """Forward DWT of row-band-sharded planes: ``planes[p][i]`` is band i
     of plane p, its own rows on its device (every band of a plane the same
     height, a multiple of ``2**depth``). Returns the bands of the
-    transform, in the same shape. ``owners`` as ``forward_blocks``'s."""
+    transform, in the same shape. ``owners`` as ``forward_blocks``'s.
+    These bands are a mesh's bands of rows, in-place layout; the subbands
+    of the Mallat form are ``wavelet.lifting.forward_bands``'s."""
     planes = [[None if t is None else t.to(torch.int32) for t in bands]
               for bands in planes]
     if not depth:
@@ -287,7 +289,8 @@ def inverse_bands(planes, kernel: WaveletKernel, depth: int,
     ``forward_bands``'s result): one ``lift_levels`` call a level a device,
     coarsest first, each level's compact result the overlay of the next
     after its margins are refreshed from the neighbours'. ``owners`` as
-    ``forward_blocks``'s."""
+    ``forward_blocks``'s. Row bands, as ``forward_bands``; the Mallat
+    form's subbands go through ``wavelet.lifting.inverse_bands``."""
     planes = [[None if t is None else t.to(torch.int32) for t in bands]
               for bands in planes]
     if not depth:

@@ -1,7 +1,11 @@
-"""Integer lifting wavelet transforms on the in-place interleaved layout.
+"""Integer lifting wavelet transforms: the in-place interleaved layout and
+the Mallat (band) form.
 
-Port of ``vc2tpu.wavelet.lifting`` (the in-place route) and of its Pallas
-kernel ``vc2tpu.wavelet.pallas_lift.lift_level``. One transform level of
+Port of ``vc2tpu.wavelet.lifting`` and of its Pallas kernel
+``vc2tpu.wavelet.pallas_lift.lift_level``. The band form's functions
+(``forward_bands``, ``inverse_bands``, ``bands_to_lanes``, ...) are plain
+PyTorch here; the kernels that run them on the card are wrapped in
+``wavelet.bands``. The in-place route follows. One transform level of
 one or more planes is ``lift_levels``: a CUDA kernel
 (``csrc/lift_level.cu``, one launch for all the planes) for CUDA tensors,
 the plain PyTorch version ``lift_level_plain`` for CPU tensors;
@@ -492,3 +496,158 @@ def inverse_plane(transform: torch.Tensor, kernel: WaveletKernel,
                   depth: int) -> torch.Tensor:
     """Inverse DWT of one plane (``inverse_planes`` of one)."""
     return inverse_planes([transform], kernel, depth)[0]
+
+
+def coefficient_bound(kernel: WaveletKernel, depth: int,
+                      input_max: int) -> int:
+    """Safe upper bound on |coefficient| after the forward transform,
+    propagated step by step through the lifting ladder (both axes, all
+    levels, the accuracy shift included)."""
+    steps = _STEPS[kernel]
+    shift = TRANSFORM_SHIFT[kernel]
+    m = int(input_max)
+    for _ in range(depth):
+        m <<= shift
+        for _axis in range(2):
+            bounds = {"e": m, "o": m}
+            for target, _sign, taps, add, sh in steps:
+                src = "e" if target == "o" else "o"
+                acc = sum(abs(c) for _off, c in taps) * bounds[src] + add
+                bounds[target] = bounds[target] + (acc >> sh if sh else acc)
+            m = max(bounds.values())
+    return m
+
+
+def forward_picture(picture, kernel: WaveletKernel, depth: int):
+    """Pad and forward-transform all three planes, in-place layout
+    (reference WaveletTransform.cpp:1267-1279)."""
+    from vc2tpu_torch.core.picture import Picture
+
+    planes = forward_planes([wavelet_pad(p, depth) for p in
+                             (picture.y, picture.c1, picture.c2)],
+                            kernel, depth)
+    return Picture(*planes, picture.chroma_format)
+
+
+def inverse_picture(transform, kernel: WaveletKernel, depth: int, geometry):
+    """Inverse-transform all planes and crop them to ``geometry``
+    (reference WaveletTransform.cpp:1281-1292)."""
+    from vc2tpu_torch.core.picture import Picture
+
+    y, c1, c2 = inverse_planes([transform.y, transform.c1, transform.c2],
+                               kernel, depth)
+    g = geometry
+    return Picture(y[:g.luma_height, :g.luma_width],
+                   c1[:g.chroma_height, :g.chroma_width],
+                   c2[:g.chroma_height, :g.chroma_width],
+                   transform.chroma_format)
+
+
+# --- the Mallat (band) form --------------------------------------------------
+# The slices' lanes are subband-major (slices/layout.lane_order), so the
+# band route keeps each subband a contiguous 2-D array: no sub-lattice is
+# read or written. Bands are ordered as lane_order and the quant matrix
+# index them: [LL, then per level coarsest -> finest HL, LH, HH]. These
+# are the subbands of one plane; ``shard.halo.forward_bands`` /
+# ``inverse_bands`` lift a mesh's bands of rows, which are another thing.
+# The kernels of this route (csrc/band_lift.cu) are wrapped in
+# ``wavelet.bands``; these are their plain building blocks.
+
+def forward_bands(plane: torch.Tensor, kernel: WaveletKernel,
+                  depth: int) -> list:
+    """Forward DWT of an already-padded (h, w) plane as a list of int32
+    subband arrays: per level the accuracy shift, the horizontal ladder,
+    then the vertical ladder on each half."""
+    steps = ladder(kernel, False)
+    shift = TRANSFORM_SHIFT[kernel]
+    x = plane.to(torch.int64)
+    fine_to_coarse = []
+    for _ in range(depth):
+        if shift:
+            x = wrap32(x << shift)
+        he, ho = _apply_steps(*_split(x, 1), steps, 1)
+        ll, lh = _apply_steps(*_split(he, 0), steps, 0)
+        hl, hh = _apply_steps(*_split(ho, 0), steps, 0)
+        fine_to_coarse.append((hl, lh, hh))
+        x = ll
+    bands = [x]
+    for level in reversed(fine_to_coarse):
+        bands.extend(level)
+    return [b.to(torch.int32) for b in bands]
+
+
+def inverse_bands(bands, kernel: WaveletKernel, depth: int) -> torch.Tensor:
+    """Inverse DWT from subband arrays back to the (padded) plane, int32:
+    per level, coarsest first, the vertical ladder on (LL, LH) and on (HL,
+    HH), the horizontal ladder, then the rounded unshift."""
+    steps = ladder(kernel, True)
+    shift = TRANSFORM_SHIFT[kernel]
+    x = bands[0].to(torch.int64)
+    for level in range(depth):
+        hl, lh, hh = (b.to(torch.int64)
+                      for b in bands[1 + 3 * level:4 + 3 * level])
+        he = _interleave(*_apply_steps(x, lh, steps, 0), 0)
+        ho = _interleave(*_apply_steps(hl, hh, steps, 0), 0)
+        x = _interleave(*_apply_steps(he, ho, steps, 1), 1)
+        if shift:
+            x = wrap32(x + (1 << (shift - 1))) >> shift
+    return x.to(torch.int32)
+
+
+def band_dims(padded_h: int, padded_w: int, depth: int) -> list:
+    """(h, w) of each band in ``forward_bands`` order."""
+    dims = [(padded_h >> depth, padded_w >> depth)]
+    for level in range(1, depth + 1):
+        s = 1 << (depth + 1 - level)
+        dims.extend([(padded_h // s, padded_w // s)] * 3)
+    return dims
+
+
+def bands_to_inplace(bands, depth: int) -> torch.Tensor:
+    """The reference's interleaved in-place layout of subband arrays
+    (split_into_subbands' inverse, WaveletTransform.cpp:428-476)."""
+    x = bands[0]
+    for level in range(depth):
+        hl, lh, hh = bands[1 + 3 * level:4 + 3 * level]
+        x = _interleave(_interleave(x, hl, 1), _interleave(lh, hh, 1), 0)
+    return x
+
+
+def inplace_to_bands(x: torch.Tensor, depth: int) -> list:
+    """The subband arrays of an interleaved in-place plane."""
+    fine_to_coarse = []
+    for _ in range(depth):
+        even, odd = _split(x, 0)
+        ll, hl = _split(even, 1)
+        lh, hh = _split(odd, 1)
+        fine_to_coarse.append((hl, lh, hh))
+        x = ll
+    bands = [x]
+    for level in reversed(fine_to_coarse):
+        bands.extend(level)
+    return bands
+
+
+def bands_to_lanes(bands, y_slices: int, x_slices: int) -> torch.Tensor:
+    """Subband arrays -> (nSlices, L) lanes in serialisation order
+    (band-major, raster within each band's slice sub-block): a reshape and
+    a permute a band."""
+    parts = []
+    for b in bands:
+        h, w = b.shape
+        sh, sw = h // y_slices, w // x_slices
+        t = b.reshape(y_slices, sh, x_slices, sw).permute(0, 2, 1, 3)
+        parts.append(t.reshape(y_slices * x_slices, sh * sw))
+    return torch.cat(parts, dim=1)
+
+
+def lanes_to_bands(lanes: torch.Tensor, y_slices: int, x_slices: int,
+                   dims) -> list:
+    """Inverse of ``bands_to_lanes``; ``dims`` from ``band_dims``."""
+    bands, pos = [], 0
+    for h, w in dims:
+        sh, sw = h // y_slices, w // x_slices
+        t = lanes[:, pos:pos + sh * sw].reshape(y_slices, x_slices, sh, sw)
+        bands.append(t.permute(0, 2, 1, 3).reshape(h, w))
+        pos += sh * sw
+    return bands
