@@ -22,7 +22,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    grid, all seven wavelets at depths 1-3, slice grids whose bands are not
    powers of two (-u 1 -a 2 at 1080p, 12-row slices, 4:2:0, 4:4:4), lanes
    and samples over the whole int32 range at q 116-119 (LeGall, Daub97),
-   with and without LD LL grids, from int16 and int32 samples;
+   with and without LD LL grids, from int16 and int32 samples; and the
+   edges of their run-major copies: tiles that split 64 x 64 slices, runs
+   that start off a 16-byte boundary, the 8K geometry (far more tiles
+   than resident CTAs) and the 1080p grid with a q a slice at 0-119;
 3. hold the unpack kernel against its plain version on the 1080p fixtures'
    payloads (every CTA's byte window staged in shared memory), on a
    fixture payload cut short (regions past the payload end), on a seeded
@@ -615,9 +618,11 @@ def check_bands(torch, np, rng, dev) -> tuple:
     whose bands' sub-blocks are not powers of two (-u 1 -a 2 at 1080p,
     12-row slices, 4:2:0 with 24 / 12 columns, 4:4:4 at depth 3), and
     lanes and samples over the whole int32 range with half the slices at
-    q 116-119 (LeGall, Daub97); the inverse from the lanes alone and with
-    LD LL grids, the forward from int16 and from int32 samples whose planes
-    pad. Returns (inverse max |err|, forward max |err|, cases)."""
+    q 116-119 (LeGall, Daub97); slices larger than a tile, runs that start
+    off a 16-byte boundary, the 8K geometry (many tiles a CTA) and the
+    1080p geometry with a q a slice; the inverse from the lanes alone and
+    with LD LL grids, the forward from int16 and from int32 samples whose
+    planes pad. Returns (inverse max |err|, forward max |err|, cases)."""
     from vc2tpu_torch.core.config import WaveletKernel
     from vc2tpu_torch.wavelet import bands, matrices
 
@@ -688,10 +693,26 @@ def check_bands(torch, np, rng, dev) -> tuple:
     for kernel in (WaveletKernel.LeGall, WaveletKernel.Daub97):
         case(slice_grid(4, 6, (24, 40), (24, 16)), kernel, 3,
              lim=(1 << 31) - 1, q_hi=120, wrap=True)
+    # the edges of the run-major design: slices of 64 x 64 at depth 1,
+    # whose 32-row sub-blocks every tile splits; runs that start off a
+    # 16-byte boundary (6 x 10 slices at depth 1: LL is 15 lanes, so the
+    # LD grids' runs start at lane 15); the 8K geometry (BASELINE config
+    # #5, -u 1 -a 2: 4536 tiles at its finest level, far more than the
+    # CTAs the card holds, so every CTA walks many tiles); the 1080p
+    # geometry with a q a slice over 0-119, half of them 116-119 (CBR-like)
+    for geo, depth in ((slice_grid(2, 3, (64, 64), (64, 32)), 1),
+                       (slice_grid(5, 7, (6, 10), (6, 6)), 1)):
+        for kernel in (WaveletKernel.LeGall, WaveletKernel.Fidelity):
+            case(geo, kernel, depth)
+    case(slice_grid(1080, 960, (4, 8), (4, 4)), WaveletKernel.LeGall, 2)
+    case(slice_grid(135, 240, (8, 8), (8, 4)), WaveletKernel.LeGall, 2,
+         q_hi=120, wrap=True)
     print(f"band kernels == plain: {n_cmp} cases (1080p LeGall d2; 7 "
           "wavelets at depths 1-3; -u 1 -a 2 at 1080p, 12-row, 4:2:0 and "
           "4:4:4 slice grids; int32-wrapping lanes at q 116-119 and "
-          f"samples; LD grids; int16 and int32 samples), max |err| "
+          "samples; LD grids; int16 and int32 samples; tiles that split "
+          "64 x 64 slices; runs off a 16-byte boundary; the 8K geometry; "
+          "1080p with a q a slice at 0-119), max |err| "
           f"{errs[0]} / {errs[1]}")
     return errs[0], errs[1], n_cmp
 
@@ -2625,9 +2646,10 @@ def main(argv) -> int:
                                                          payload))
 
     times = kernel_times(torch, job, dev, tlanes_1080p, encoder, q_1080p)
-    times.update(band_times(torch, job, dev,
-                            enc_mod.upload_picture(picture_1080p, 2, dev),
-                            encoder))
+    times.update(band_times(
+        torch, {"constq": job,
+                "cbr": pictures_of(streams["cbr_1080p"], dev)[0][2]}, dev,
+        enc_mod.upload_picture(picture_1080p, 2, dev), encoder))
     times.update(cbr_times(torch, cbr_tlanes, cbr_encoder))
     times.update(ld_times(torch, np, ld_job, dev))
     times.update(ld_encode_times(torch, ld_encoder, ld_tlanes, ld_rate_1080p))
@@ -2903,6 +2925,13 @@ def main(argv) -> int:
           f"{times['ld_rate_device_ms'] / (steps * times['ld_rate_col_us'] / 1e3):.3f} "
           f"({card})")
     for k in kernels:
+        if k["name"] == "band_inverse":
+            print(f"kernel band_inverse on the CBR fixture's lanes "
+                  f"({times['band_inverse_cbr_distinct_q']} distinct q; "
+                  f"ConstQ {times['band_inverse_distinct_q']}): "
+                  f"{times['band_inverse_cbr_ms']:.4f} ms per 1080p "
+                  f"picture (device alone "
+                  f"{times['band_inverse_cbr_device_ms']:.4f} ms) ({card})")
         print(f"kernel {k['name']}: {k['ms']:.4f} ms per 1080p picture "
               f"(device alone {k['device_ms']:.4f} ms), bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
@@ -2984,54 +3013,65 @@ def kernel_times(torch, job, dev, tlanes, enc, q_idx) -> dict:
     }
 
 
-def band_times(torch, job, dev, samples, enc) -> dict:
+def band_times(torch, jobs: dict, dev, samples, enc) -> dict:
     """Times of the band kernels at the main paths' 1080p shapes: the
-    inverse on the ConstQ fixture's unpacked lanes, the forward on the
-    1080p picture's uploaded int16 samples; ``*_ms`` as the host issues one
-    picture's ``depth`` launches, ``*_device_ms`` queued (the device's time
-    alone), ``*_plain_ms`` of the plain versions on the card; and the
-    sample counts of each level, for the bounds."""
+    inverse on each fixture's unpacked lanes (``jobs``: "constq", one q
+    for every slice, and "cbr", a q a slice, whose dequantisation reads a
+    factor a slice), the forward on the 1080p picture's uploaded int16
+    samples; ``*_ms`` as the host issues one picture's ``depth`` launches,
+    ``*_device_ms`` queued (the device's time alone), ``*_plain_ms`` of
+    the plain versions on the card (ConstQ); and the sample counts of each
+    level, for the bounds. The ConstQ keys carry no fixture name; the CBR
+    inverse's are ``band_inverse_cbr_*``."""
     from vc2tpu_torch.pipeline import decoder as pipe
     from vc2tpu_torch.vlc import device_unpack as du
     from vc2tpu_torch.wavelet import bands, matrices
 
-    pre, geo = job.pre, job.geo
-    kernel, depth = pre.wavelet_kernel, pre.depth
-    qm = matrices.quant_matrix(kernel, depth)
-    pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
-    clen = fields[1:].contiguous()
-    dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
-    lanes = du.unpack_hq(pay, dstart, clen,
-                         geo.luma_slice[0] * geo.luma_slice[1],
-                         geo.chroma_slice[0] * geo.chroma_slice[1])
-    q = fields[0]
-    cfg = enc.cfg
+    out = {}
+    for name, job in jobs.items():
+        pre, geo = job.pre, job.geo
+        kernel, depth = pre.wavelet_kernel, pre.depth
+        qm = matrices.quant_matrix(kernel, depth)
+        pay, fields = pipe.upload(job.payload, job.q_idx, job.cbytes, dev)
+        clen = fields[1:].contiguous()
+        dstart = du.hq_component_offsets(clen, pre.slice_prefix, job.start)
+        lanes = du.unpack_hq(pay, dstart, clen,
+                             geo.luma_slice[0] * geo.luma_slice[1],
+                             geo.chroma_slice[0] * geo.chroma_slice[1])
+        q = fields[0]
 
-    def inverse():
-        return bands.inverse_lanes(lanes, q, qm, geo, kernel, depth)
+        def inverse(lanes=lanes, q=q, qm=qm, geo=geo, kernel=kernel,
+                    depth=depth):
+            return bands.inverse_lanes(lanes, q, qm, geo, kernel, depth)
+
+        key = "band_inverse" if name == "constq" else f"band_inverse_{name}"
+        out[f"{key}_ms"] = time_device(torch, inverse)
+        out[f"{key}_device_ms"] = time_device(torch, inverse, KERNEL_INNER,
+                                              queued=True)
+        out[f"{key}_distinct_q"] = int(torch.unique(q).numel())
+        if name == "constq":
+            out["band_inverse_plain_ms"] = time_device(
+                torch, lambda: bands.inverse_lanes_plain(
+                    lanes, q, qm, geo, kernel, depth))
+            out["band_lanes"] = sum(t.numel() for t in lanes)
+            out["band_slices"] = q.numel()
+    cfg = enc.cfg
 
     def forward():
         return bands.forward_lanes(samples, cfg.kernel, cfg.wavelet_depth,
                                    enc.geo)
 
-    return {
-        "band_inverse_ms": time_device(torch, inverse),
-        "band_inverse_device_ms": time_device(torch, inverse, KERNEL_INNER,
-                                              queued=True),
-        "band_inverse_plain_ms": time_device(
-            torch, lambda: bands.inverse_lanes_plain(lanes, q, qm, geo,
-                                                     kernel, depth)),
+    out.update({
         "band_forward_ms": time_device(torch, forward),
         "band_forward_device_ms": time_device(torch, forward, KERNEL_INNER,
                                               queued=True),
         "band_forward_plain_ms": time_device(
             torch, lambda: bands.forward_lanes_plain(
                 samples, cfg.kernel, cfg.wavelet_depth, enc.geo)),
-        "band_lanes": sum(t.numel() for t in lanes),
-        "band_slices": q.numel(),
         "band_sample_bytes": sum(t.numel() * t.element_size()
                                  for t in samples),
-    }
+    })
+    return out
 
 
 def ld_times(torch, np, job, dev) -> dict:

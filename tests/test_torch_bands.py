@@ -277,3 +277,158 @@ def test_band_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         bands.forward_lanes([torch.zeros((4, 4), device="meta")] * 3,
                             TK.LeGall, 2, geo)
+
+
+# --- the kernels' plan: runs, run maps, tiles (csrc/band_lift.cu) ----------
+
+# (slices down, across, luma slice, chroma slice, depth): the 1080p 4:2:2
+# geometry (135 x 240 slices, cut to fewer for the maps), -u 1 -a 2 at
+# 1080p, 12-row slices, 4:2:0 with 24 / 12 columns, 4:4:4 at depth 3
+PLAN_GRIDS = {"1080p_422": (135, 240, (8, 8), (8, 4), 2),
+              "u1a2_1080p": (270, 240, (4, 8), (4, 4), 2),
+              "rows12": (3, 5, (12, 24), (12, 12), 2),
+              "420_cols24": (4, 3, (16, 24), (8, 12), 2),
+              "444_d3": (2, 3, (24, 40), (24, 40), 3)}
+
+
+def _map_fields(entries):
+    e = entries.astype(np.int64)
+    return e >> 30, (e >> 15) & bands.MAP_FIELD, e & bands.MAP_FIELD
+
+
+@pytest.mark.parametrize("grid", list(PLAN_GRIDS))
+def test_run_map_matches_lane_order(grid):
+    """Each level's run (level_run) and run map (run_map, run_maps) place
+    every lane of the run where vc2tpu's lane_order and lanes_to_bands put
+    it: lane run0 + l of slice (sy, sx) is band sample (sy bh + row,
+    sx bw + column) of the band of its parity plane; the run holds the
+    level's bands and nothing else, with LL first only where asked; the
+    map pads to whole quads with entries whose row no region reaches."""
+    from vc2tpu.slices import layout as jlayout
+
+    ys, xs, luma, chroma, depth = PLAN_GRIDS[grid]
+    ys, xs = min(ys, 3), min(xs, 4)          # the map is a slice's
+    geo = _geometry(ys, xs, luma, chroma)
+    for with_ll in (True, False):
+        maps = bands.run_maps(geo, depth, with_ll)
+        assert len(maps) == depth
+        for comp in range(3):
+            sh, sw = bands.slice_dims(geo, comp)
+            perm, band_of = jlayout.lane_order(sh, sw, depth)
+            n_lanes = geo.n_slices * sh * sw
+            lanes = np.arange(n_lanes, dtype=np.int32).reshape(
+                geo.n_slices, sh * sw)
+            dims = jl.band_dims(ys * sh, xs * sw, depth)
+            band_arrays = [np.asarray(b) for b in jl.lanes_to_bands(
+                jnp.asarray(lanes), ys, xs, dims)]
+            for level in range(1, depth + 1):
+                ll = with_ll and level == 1
+                run0, n, kb = bands.level_run(sh, sw, depth, level, ll)
+                bh, bw = bands.level_block(sh, sw, depth, level)
+                entries = maps[level - 1][comp]
+                assert entries.dtype == np.uint32
+                assert len(entries) == -(-n // 4) * 4
+                assert np.all(entries[n:] == bands.MAP_PAD)
+                k, row, col = _map_fields(entries[:n])
+                first = 1 + 3 * (level - 1)
+                want_bands = ([0] if ll else []) + [first, first + 1,
+                                                    first + 2]
+                assert kb == (0 if ll else 1)
+                assert list(band_of[run0:run0 + n]) == \
+                    [b for b in want_bands for _ in range(bh * bw)]
+                b_of_k = np.where(k == 0, 0, first + k - 1)
+                assert np.array_equal(b_of_k, band_of[run0:run0 + n])
+                # lane_order: the offset within the slice's block
+                s = 1 << (depth + 1 - level)
+                half = s // 2 if level > 0 else 0
+                oy = np.where((k == 2) | (k == 3), half, 0)
+                ox = np.where((k == 1) | (k == 3), half, 0)
+                assert np.array_equal(perm[run0:run0 + n],
+                                      (row * s + oy) * sw + col * s + ox)
+                # lanes_to_bands: every slice's run lands on its band
+                for sy in range(ys):
+                    for sx in range(xs):
+                        got = np.array([band_arrays[b][sy * bh + r,
+                                                       sx * bw + c]
+                                        for b, r, c in zip(b_of_k, row,
+                                                           col)])
+                        assert np.array_equal(
+                            got, lanes[sy * xs + sx, run0:run0 + n])
+
+
+@pytest.mark.parametrize("grid", list(PLAN_GRIDS))
+@pytest.mark.parametrize("kernel", [TK.LeGall, TK.Fidelity],
+                         ids=["LeGall", "Fidelity"])
+def test_plan_tiles_keep_whole_slices(grid, kernel):
+    """The plan's tiles (tile_shape) are whole slices of every component
+    where that keeps at least half of a side and fit their region with the
+    halo; every tile's window of slices fits the table's max_slices (the
+    shared memory the inverse is given); the tiles, quant matrix and run
+    fields of each component match the geometry and level_run."""
+    ys, xs, luma, chroma, depth = PLAN_GRIDS[grid]
+    geo = _geometry(ys, xs, luma, chroma)
+    hr = tl.halo(kernel)
+    hc = tl.col_halo(hr)
+    qm = tuple(range(3 * depth + 1))
+    for ll_in_run in (True, False):
+        levels = bands._plan(geo, qm, int(kernel), depth, 132, ll_in_run)
+        for level, (template, dims) in enumerate(levels, start=1):
+            t = bands._BandTable.from_buffer_copy(template)
+            assert t.rw >= t.tw + 2 * hc and t.rw & (t.rw - 1) == 0
+            assert t.th % 2 == 0 and t.tw % 8 == 0
+            rh = min(r for r, w in tl.REGIONS
+                     if w == t.rw and t.th + 2 * hr <= r)
+            blocks = [bands.level_block(*bands.slice_dims(geo, c), depth,
+                                        level) for c in range(3)]
+            # each side: whole slices of every component, or (where that
+            # would lose more than half) the region's full side
+            for side, full, steps in (
+                    (t.th, rh - 2 * hr, [2 * bh for bh, _ in blocks]),
+                    (t.tw, t.rw - 2 * hc, [8] + [2 * bw for _, bw in blocks])):
+                step = int(np.lcm.reduce(steps))
+                if side % step == 0:
+                    assert side == full - full % step
+                else:
+                    assert side == full and 2 * (full - full % step) < full
+            n_tiles = 0
+            for c, ((h, w), (bh, bw)) in enumerate(zip(dims, blocks)):
+                p = t.p[c]
+                sh, sw = bands.slice_dims(geo, c)
+                assert (p.h, p.w, p.bh, p.bw) == (h, w, bh, bw)
+                assert (p.run0, p.R) == bands.level_run(
+                    sh, sw, depth, level, ll_in_run and level == 1)[:2]
+                assert list(p.qm) == [qm[0]] + [qm[1 + 3 * (level - 1) + i]
+                                                for i in range(3)]
+                assert p.tile0 == n_tiles
+                n_tiles += p.tiles_x * -(-h // t.th)
+                # the kernel's window of slices of every tile's region
+                # fits the inverse's tables (max_slices words)
+                for ty0 in range(0, h, t.th):
+                    for tx0 in range(0, w, t.tw):
+                        r0, r1, c0, c1 = tl.tile_region(ty0, tx0, t.th,
+                                                        t.tw, h, w, hr)
+                        i0, i1, j0, j1 = r0 // 2, r1 // 2, c0 // 2, c1 // 2
+                        ns = ((i1 - 1) // bh - i0 // bh + 1) * \
+                            ((j1 - 1) // bw - j0 // bw + 1)
+                        assert ns <= t.max_slices
+            assert t.n_tiles == n_tiles
+            assert bands.smem_bytes(t.th, t.rw, hr, t.max_slices) <= \
+                tl.SMEM_LIMIT
+    if grid == "1080p_422" and kernel == TK.LeGall:
+        # the finest level's 60-row tile becomes 56: whole 8-row slices
+        fine = bands._BandTable.from_buffer_copy(levels[-1][0])
+        coarse = bands._BandTable.from_buffer_copy(levels[0][0])
+        assert (fine.th, fine.tw, fine.rw) == (56, 120, 128)
+        assert (coarse.th, coarse.tw, coarse.rw) == (28, 56, 64)
+
+
+def test_plan_splits_slices_larger_than_a_tile():
+    """Slices of 64 x 64 at depth 1 (32-row sub-blocks) are larger than
+    any tile: the tiles keep their full size and split the slices, whose
+    lanes the kernel masks."""
+    geo = _geometry(2, 3, (64, 64), (64, 32))
+    (template, _dims), = bands._plan(geo, (0,) * 4, int(TK.LeGall), 1, 132,
+                                     True)
+    t = bands._BandTable.from_buffer_copy(template)
+    assert (t.th, t.tw) in tl.tiles(tl.halo(TK.LeGall))
+    assert t.th % 64 and t.p[0].bh == 32

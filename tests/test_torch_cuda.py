@@ -888,6 +888,41 @@ def test_band_kernels_wrap_int32(kernel, cuda):
         q_hi=120, wrap=True)
 
 
+# the edges of the run-major design: slices of 64 x 64 at depth 1, whose
+# 32-row sub-blocks every tile splits; runs that start off a 16-byte
+# boundary (6 x 10 slices at depth 1: LL is 15 lanes, where the LD grids
+# replace it the run starts at lane 15)
+BAND_EDGES = {"split_64x64_d1": (2, 3, (64, 64), (64, 32), 1),
+              "runs_off_16B_d1": (5, 7, (6, 10), (6, 6), 1)}
+
+
+@pytest.mark.parametrize("grid", list(BAND_EDGES))
+def test_band_kernels_on_the_run_edges(grid, cuda):
+    ys, xs, luma, chroma, depth = BAND_EDGES[grid]
+    for kernel in (WaveletKernel.LeGall, WaveletKernel.Fidelity):
+        _check_band_kernels(np.random.default_rng(len(grid)),
+                            _slice_grid(ys, xs, luma, chroma), kernel, depth,
+                            cuda)
+
+
+def test_band_kernels_walk_many_tiles_at_8k(cuda):
+    """The 8K geometry (BASELINE config #5, -u 1 -a 2): 4536 tiles at the
+    finest level, far more than the CTAs the card holds, so every CTA
+    walks many tiles and reuses its shared memory."""
+    launches = _check_band_kernels(np.random.default_rng(8),
+                                   _slice_grid(1080, 960, (4, 8), (4, 4)),
+                                   WaveletKernel.LeGall, 2, cuda)
+    assert launches == (2 * 2, 2 * 2)
+
+
+def test_band_kernels_with_a_q_a_slice_at_1080p(cuda):
+    """The 1080p geometry with a q a slice over 0-119, half of them
+    116-119 (CBR-like), with and without the LD grids."""
+    _check_band_kernels(np.random.default_rng(119),
+                        _slice_grid(135, 240, (8, 8), (8, 4)),
+                        WaveletKernel.LeGall, 2, cuda, q_hi=120, wrap=True)
+
+
 # --- the multi-device paths (shard/, pipeline/sharded.py) -------------------
 
 def _shared_mesh(data, space):

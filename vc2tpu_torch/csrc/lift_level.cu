@@ -135,6 +135,7 @@ __device__ __forceinline__ void lift_tile(Ladder<INV, TSHIFT, S...>,
   g.rh = t.th + 2 * t.halo;
   g.ldq = (t.tw >> 1) + hc;
   g.lw = 32 - __clz(g.ldq);  // ldq is a power of 2
+  g.pitch = g.ldq;
   g.qsz = (g.rh >> 1) * g.ldq;
   g.nr = r1 - r0;
   g.nc = c1 - c0;

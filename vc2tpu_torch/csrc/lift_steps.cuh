@@ -66,13 +66,14 @@ __device__ __forceinline__ uint32_t update(uint32_t v, uint32_t acc) {
 }
 
 // The region in shared memory: parity plane (a, b) holds local sample
-// (2i + a, 2j + b) at q(a, b)[i * ldq + j]. The full region is rh rows by
-// 2^lw columns (ldq = 2^(lw - 1) <= NT / 2); this CTA's is nr x nc,
+// (2i + a, 2j + b) at q(a, b)[i * pitch + j]. The full region is rh rows
+// by 2^lw columns (ldq = 2^(lw - 1) <= NT / 2); this CTA's is nr x nc,
 // clipped to the plane. A thread's place in it follows from its index by
-// shifts and masks.
+// shifts and masks. A plane's rows are pitch >= ldq words apart (even),
+// its planes qsz words.
 struct Region {
   uint32_t* base;
-  int qsz, ldq, lw, rh, nr, nc;
+  int qsz, ldq, lw, rh, nr, nc, pitch;
   __device__ uint32_t* q(int a, int b) const {
     return base + (2 * a + b) * qsz;
   }
@@ -93,9 +94,9 @@ __device__ __forceinline__ void row_step(const Region& g,
   for (int t = 0; t < T::n; ++t) idx[t] = clampi(j + T::off(t), np - 1);
   int r = threadIdx.x >> lp;
   const int rstep = NT >> lp;  // even: the row parity stays
-  const int pstep = (rstep >> 1) * g.ldq;
-  const uint32_t* src = g.q(r & 1, 1 - PT) + (r >> 1) * g.ldq;
-  uint32_t* dst = g.q(r & 1, PT) + (r >> 1) * g.ldq + j;
+  const int pstep = (rstep >> 1) * g.pitch;
+  const uint32_t* src = g.q(r & 1, 1 - PT) + (r >> 1) * g.pitch;
+  uint32_t* dst = g.q(r & 1, PT) + (r >> 1) * g.pitch + j;
   for (; r < g.nr; r += rstep, src += pstep, dst += pstep) {
     uint32_t acc = 0;
 #pragma unroll
@@ -120,7 +121,7 @@ __device__ __forceinline__ void col_step(const Region& g,
   const int run = (np + (1 << lper) - 1) >> lper;
   int i = (threadIdx.x >> g.lw) * run;
   const int i1 = min(np, i + run);
-  const int ld = g.ldq;
+  const int ld = g.pitch;
   const uint32_t* src = g.q(1 - PT, b) + j;
   uint32_t* dst = g.q(PT, b) + j;
   uint32_t w[SPAN];
@@ -168,7 +169,7 @@ __device__ __forceinline__ void store_tile(const Region& g, int32_t* dst,
     for (int k = threadIdx.x; k < (th << lv); k += NT) {
       const int r = k >> lv, v = k & ((1 << lv) - 1);
       if (v < (tw >> 2)) {
-        const int lr = lr0 + r, off = (lr >> 1) * g.ldq + lq0 + 2 * v;
+        const int lr = lr0 + r, off = (lr >> 1) * g.pitch + lq0 + 2 * v;
         const uint2 a = *(const uint2*)(g.q(lr & 1, 0) + off);
         const uint2 b = *(const uint2*)(g.q(lr & 1, 1) + off);
         *((int4*)(dst + (long long)r * w) + v) =
@@ -182,7 +183,7 @@ __device__ __forceinline__ void store_tile(const Region& g, int32_t* dst,
     for (int k = threadIdx.x; k < (th << lp); k += NT) {
       const int r = k >> lp, j = k & (g.ldq - 1);
       if (j < (tw >> 1)) {
-        const int lr = lr0 + r, off = (lr >> 1) * g.ldq + lq0 + j;
+        const int lr = lr0 + r, off = (lr >> 1) * g.pitch + lq0 + j;
         int32_t* out = dst + (long long)r * w + 2 * j;
         out[0] = ((int32_t)(g.q(lr & 1, 0)[off] + rnd)) >> POST;
         out[1] = ((int32_t)(g.q(lr & 1, 1)[off] + rnd)) >> POST;
