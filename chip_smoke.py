@@ -130,28 +130,39 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    ms a picture of the pipelined CLI and the plain loop in ConstQ and CBR
    (and of the file's read alone), in turns;
 8. the multi-device paths on the one card, every mesh ``[cuda:0] * n``:
-   the halo lift against the unsharded lift (7 wavelets at depth 2,
-   Fidelity also at 3, over 2 and 4 bands and over the thinnest bands the
-   JAX package takes, whose margins reach two bands away; ``depth``
+   the in-place halo lift against the unsharded lift (7 wavelets at depth
+   2, Fidelity also at 3, over 2 and 4 bands and over the thinnest bands
+   the JAX package takes, whose margins reach two bands away; ``depth``
    launches each way) and one ``lift_levels`` call of 50 planes (2
-   launches); the 1080p ConstQ and CBR pictures through the encode CLI
-   over a 1x3 mesh (bytes equal to the fixtures; lift 2, hq_cbr 3,
-   hq_pack 3), the CBR one with ``-F 16384`` (equal to the single-device
-   fragments) and the LD one over ``1x2`` (equal to ``ld_1080p.vc2``;
-   lift 2, ld_rate 1, ld_pack 1), each decoded with ``Decoder(mesh=)`` to
-   the recorded SHA-256 (over 1x3: hq_unpack or ld_unpack 3, lift 2; LD
-   also over 1x2, whose 135 slice rows do not divide: ld_unpack 1 and the
-   halo inverse); 8K HQ CBR (BASELINE config #5, 1080 x 960 slices) over
-   1x4 and 2x4 meshes (two pictures) against the single-device
-   ``Encoder`` (q indices, payloads, streams) and, over 1x4, the decode
-   against ``Decoder()``; the per-band balance, the 8K times (one card,
-   the bands on one device: not a scaling figure); two processes sharing
-   the card (gloo on 127.0.0.1, a 2x1 mesh, 1080p CBR) against one
-   device; the dry run on a 2x2 mesh; then a row split over two
-   processes sharing the card (1x2 at 1080p, a band each; 1x4 at 8K, two
-   bands each, with the halo lift over the split row for every wavelet
-   at depths 1-3) against one device. It runs after the times, so that
-   what the 8K runs leave in the process does not weigh on them.
+   launches); the band form (``halo.forward_bands_local``,
+   ``inverse_bands_local``) over 2 and 4 bands of the card against the
+   single-device band route and the plain versions (the same wavelets and
+   depths, 4:2:2 and 4:2:0 grids and the thinnest bands, LD grids as band
+   0; ``depth`` launches of each kernel a band); the 1080p ConstQ and CBR
+   pictures through the encode CLI over a 1x3 mesh (bytes equal to the
+   fixtures; band_forward 6, lift_level 0, hq_cbr 3, hq_pack 3), the CBR
+   one with ``-F 16384`` (equal to the single-device fragments) and the
+   LD one over ``1x2`` (equal to ``ld_1080p.vc2``; ``LDEncoder(mesh=)``'s
+   in-place halo lift: lift_level 2, ld_rate 1, ld_pack 1), each decoded
+   with ``Decoder(mesh=)`` to the recorded SHA-256 (over 1x3: hq_unpack
+   or ld_unpack 3, band_inverse 6, lift_level 0; LD also over 1x2, whose
+   135 slice rows do not divide: ld_unpack 1 and the in-place halo
+   inverse, lift_level 2); 8K HQ CBR (BASELINE config #5, 1080 x 960
+   slices) over 1x4 and 2x4 meshes (two pictures; band_forward 2 a band)
+   against the single-device ``Encoder`` (q indices, payloads, streams)
+   and, over 1x4, the decode against ``Decoder()`` (band_inverse 8); the
+   per-band balance, the 8K times (one card, the bands on one device: not
+   a scaling figure); the band form against the mesh's in-place route
+   (``inplace_mesh_route``, first checked to the same bytes) in turns
+   (band, in-place, in-place, band): the 1080p ConstQ and CBR decodes and
+   the ConstQ encode over 1x3, the 8K CBR encode and decode over 1x4; two
+   processes sharing the card (gloo on 127.0.0.1, a 2x1 mesh, 1080p CBR)
+   against one device; the dry run on a 2x2 mesh; then a row split over
+   two processes sharing the card (1x2 at 1080p, a band each; 1x4 at 8K,
+   two bands each, with the in-place halo lift over the split row for
+   every wavelet at depths 1-3) against one device. It runs after the
+   times, so that what the 8K runs leave in the process does not weigh on
+   them.
 
 Each phase prints its time.
 
@@ -463,6 +474,117 @@ def inplace_route():
             return lanes, self.q_indices(), None
 
     return InplaceDecoder, InplaceEncoder
+
+
+def inplace_mesh_route():
+    """(ShardedEncoder, ShardedDecoder, Decoder) subclasses that take the
+    mesh's in-place route, the sharded paths' route before the band form:
+    each band's rows and halo margins widened to int32 and padded, the
+    in-place halo forward lift (``halo.forward_blocks``, one lift_level
+    launch a level for every band of a device) and plane_to_lanes to
+    encode; each band's own slices unpacked, dequantise_planes and the
+    in-place halo inverse lift (``halo.inverse_bands``) to decode (HQ).
+    Reachable from this script only, to time the two mesh routes in
+    turns."""
+    import numpy as np
+    import torch
+
+    from vc2tpu_torch.cli.decode_stream import Decoder
+    from vc2tpu_torch.pipeline import sharded
+    from vc2tpu_torch.pipeline.decoder import dequantise_planes
+    from vc2tpu_torch.shard import halo
+    from vc2tpu_torch.slices import layout
+    from vc2tpu_torch.slices.hq import SliceGeometry
+    from vc2tpu_torch.vlc import device_pack, device_unpack
+
+    class InplaceShardedEncoder(sharded.ShardedEncoder):
+        def _launch(self, pictures):
+            cfg, geo, d = self.cfg, self.geo, self.cfg.wavelet_depth
+            check(self.data == 1 and all(map(all, self.mine)),
+                  "the in-place mesh route runs 1xS meshes of one process")
+            geos = [halo.band_rows(h, self.space, halo.margin(cfg.kernel, d))
+                    for h, _w in self.padded]
+            blocks = []
+            for pic in pictures:
+                blocks += sharded.upload_blocks(pic, cfg.bytes_per_sample,
+                                                self.mesh.row(0), geos,
+                                                self.padded)
+            out = halo.forward_blocks(blocks, geos * len(pictures),
+                                      cfg.kernel, d)
+            ys_local = geo.y_slices // self.space
+            jobs = []
+            for b in range(len(pictures)):
+                row = []
+                for s, dev in enumerate(self.mesh.row(0)):
+                    lanes = [layout.plane_to_lanes(out[3 * b + c][s],
+                                                   ys_local, geo.x_slices, d)
+                             for c in range(3)]
+                    qm_y, qm_c = self._qm[dev]
+                    budgets = self._budgets.get((dev, s))
+                    scratch = None
+                    if budgets is None:
+                        q = torch.full((self.n_loc,), cfg.q_index,
+                                       dtype=torch.int32, device=dev)
+                    else:
+                        scratch = device_pack.pack_scratch(
+                            self.n_loc, lanes[0].shape[1], lanes[1].shape[1],
+                            dev)
+                        q = sharded.cbr.cbr_quant_indices(
+                            *lanes, qm_y, qm_c, budgets, cfg.slice_scalar,
+                            flags=scratch[1:2])
+                    buf, status, _ = device_pack.quant_pack_hq_queued(
+                        *lanes, q, qm_y, qm_c, cfg.slice_prefix,
+                        cfg.slice_scalar, slice_sizes=budgets,
+                        scratch=scratch)
+                    row.append((q, buf, status))
+                jobs.append(row)
+            return jobs
+
+    class InplaceShardedDecoder(sharded.ShardedDecoder):
+        def decode_payload_device(self, payload, q_idx, dstart, cbytes,
+                                  prefix=None, scalar=None, start=0):
+            geo, space = self.geo, self.space
+            (pl_h, pl_w), (pc_h, pc_w) = geo.padded_luma, geo.padded_chroma
+            local = SliceGeometry(geo.y_slices // space, geo.x_slices,
+                                  (pl_h // space, pl_w),
+                                  (pc_h // space, pc_w), geo.luma_slice,
+                                  geo.chroma_slice)
+            self._check()
+            data = np.frombuffer(payload, np.uint8)
+            dstart = np.asarray(dstart, np.int64)
+            cbytes = np.asarray(cbytes, np.int64)
+            q_idx = np.asarray(q_idx).ravel()
+            planes = []
+            for s, dev in enumerate(self.devs):
+                sl = slice(s * self.n_loc, (s + 1) * self.n_loc)
+                lo = int(dstart[0, sl.start])
+                hi = min(max(int((dstart[:, sl] + cbytes[:, sl]).max(
+                    initial=lo)), lo), data.size)
+                fields = np.concatenate([q_idx[None, sl], dstart[:, sl] - lo,
+                                         cbytes[:, sl]]).astype(np.int32)
+                pay = torch.from_numpy(data[lo:hi].copy()).to(dev)
+                f = torch.from_numpy(fields).to(dev)
+                lanes = device_unpack.unpack_hq(pay, f[1:4], f[4:7], self.ly,
+                                                self.lc)
+                planes.append(dequantise_planes(lanes, f[0], self.qmatrix,
+                                                self.depth, local))
+            out = halo.inverse_bands([[b[c] for b in planes]
+                                      for c in range(3)],
+                                     self.kernel, self.depth)
+            first = self.devs[0]
+            return tuple(torch.cat([t.to(first) for t in p]) for p in out)
+
+    class InplaceMeshDecoder(Decoder):
+        def _sharded_decoder(self, pre, geo):
+            sdec = super()._sharded_decoder(pre, geo)
+            if sdec is not None and not isinstance(sdec,
+                                                   InplaceShardedDecoder):
+                sdec = InplaceShardedDecoder(pre.wavelet_kernel, pre.depth,
+                                             geo, self.mesh)
+                self._sdec_cache[pre.wavelet_kernel, pre.depth, geo] = sdec
+            return sdec
+
+    return InplaceShardedEncoder, InplaceMeshDecoder
 
 
 def max_err(torch, a, b) -> int:
@@ -1629,13 +1751,14 @@ def check_pack(torch, np, rng, dev, enc, tlanes, qlanes, q_1080p, transform):
 
 
 def check_halo_lift(torch, np, rng, dev) -> tuple:
-    """The halo lift (``shard.halo``) over row bands of one card against
-    the unsharded lift, both ways: every wavelet at depth 2 (Fidelity also
-    at 3) over 2 and 4 bands and over 4 of the thinnest bands the JAX
-    package takes (Fidelity's reach two bands away); ``depth`` launches
-    each way. Then one ``lift_levels`` call of more planes than a launch
-    takes (two launches) against the plain version. Returns (cases, max
-    abs error)."""
+    """The in-place halo lift (``shard.halo``) over row bands of one card
+    against the unsharded lift, both ways: every wavelet at depth 2
+    (Fidelity also at 3) over 2 and 4 bands and over 4 of the thinnest
+    bands the JAX package takes (Fidelity's reach two bands away);
+    ``depth`` launches each way. Then one ``lift_levels`` call of more
+    planes than a launch takes (two launches) against the plain version,
+    and the band form (``check_band_form``). Returns (cases, max abs
+    error, ``check_band_form``'s result)."""
     from vc2tpu_torch.core.config import WaveletKernel
     from vc2tpu_torch.shard import halo
     from vc2tpu_torch.shard.mesh import make_mesh
@@ -1681,7 +1804,99 @@ def check_halo_lift(torch, np, rng, dev) -> tuple:
                                                    WaveletKernel.DD137)):
         check(torch.equal(g, w), "lift_levels of 50 planes differs from "
                                  "its plain version")
-    return cases, err
+    return cases, err, check_band_form(torch, np, rng, dev)
+
+
+def check_band_form(torch, np, rng, dev) -> tuple:
+    """The band form (``halo.forward_bands_local``, ``inverse_bands_local``)
+    over row bands of one card against the single-device band route
+    (``bands.forward_lanes`` / ``inverse_lanes``) of the whole picture and
+    against the plain versions, both ways (the inverse also with LD
+    grids): every wavelet at depth 2 (Fidelity also at 3) over 2 bands of
+    a 1088 x 1920 4:2:2 slice grid (the 1080p fixtures' 8 x 8 slices at
+    depth 2), 4 bands of a 1088 x 1920 4:2:0 one
+    and 4 of the thinnest 4:2:2 bands the JAX package takes (Fidelity's
+    margin reaching bands away); int16 samples 3 rows and columns short
+    of the grid; ``depth`` launches of each kernel a band. Returns (cases,
+    max abs error of the forward and of the inverse against the plain
+    versions)."""
+    from vc2tpu_torch.core.config import WaveletKernel
+    from vc2tpu_torch.shard import halo
+    from vc2tpu_torch.wavelet import bands, matrices
+
+    cases, err = 0, [0, 0]
+    for kernel in WaveletKernel:
+        if kernel == WaveletKernel.NullKernel:
+            continue
+        for depth in (2, 3) if kernel == WaveletKernel.Fidelity else (2,):
+            ts, thin = 1 << depth, max(1, halo.halo_width(kernel))
+            wide = (slice_grid(136, 240, (8, 8), (8, 4)) if depth == 2
+                    else slice_grid(136, 120, (8, 16), (8, 8)))
+            grids = ((wide, 2),
+                     (slice_grid(68, 120, (16, 16), (8, 8)), 4),
+                     (slice_grid(4 * thin, 6, (ts, 2 * ts), (ts, ts)), 4))
+            for geo, n in grids:
+                comps = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
+                pads = (geo.padded_luma, geo.padded_chroma,
+                        geo.padded_chroma)
+                planes = [torch.from_numpy(rng.integers(
+                    -512, 512, (h - 3, w - 3)).astype(np.int16)).to(dev)
+                    for h, w in pads]
+                lanes = [torch.from_numpy(rng.integers(
+                    -2000, 2000, (geo.n_slices, h * w)).astype(np.int32)
+                    ).to(dev) for h, w in comps]
+                q = torch.from_numpy(rng.integers(0, 60, geo.n_slices)
+                                     .astype(np.int32)).to(dev)
+                lls = [torch.from_numpy(rng.integers(
+                    -1 << 14, 1 << 14, (h >> depth, w >> depth)).astype(
+                    np.int32)).to(dev) for h, w in pads]
+                qm = matrices.quant_matrix(kernel, depth)
+                f0 = bands.forward_lanes.launches
+                i0 = bands.inverse_lanes.launches
+                got_f, got_i, got_ld = [[], [], []], [[], [], []], \
+                    [[], [], []]
+                xs, sh = geo.x_slices, [c[0] for c in comps]
+                for s, (a, _r0, _r1, b) in enumerate(
+                        halo.band_blocks(geo, n, kernel, depth)):
+                    blk = [p[a * h:b * h] for p, h in zip(planes, sh)]
+                    for c, t in enumerate(halo.forward_bands_local(
+                            blk, kernel, depth, geo, s, n)):
+                        got_f[c].append(t)
+                    sl = slice(a * xs, b * xs)
+                    for got, ll in ((got_i, None), (got_ld, [
+                            g[a * h >> depth:b * h >> depth]
+                            for g, h in zip(lls, sh)])):
+                        for c, t in enumerate(halo.inverse_bands_local(
+                                [x[sl] for x in lanes], q[sl], qm, kernel,
+                                depth, geo, s, n, ll)):
+                            got[c].append(t)
+                label = (f"band form {kernel.name} d{depth} over {n} bands "
+                         f"of {geo.y_slices} x {geo.x_slices} slices")
+                check(dev.type != "cuda"
+                      or (bands.forward_lanes.launches - f0 == depth * n
+                          and bands.inverse_lanes.launches - i0
+                          == 2 * depth * n), f"{label}: launches")
+                for way, got, route, plain in (
+                        (0, got_f, bands.forward_lanes(planes, kernel, depth,
+                                                    geo),
+                         bands.forward_lanes_plain(planes, kernel, depth,
+                                                   geo)),
+                        (1, got_i, bands.inverse_lanes(lanes, q, qm, geo,
+                                                    kernel, depth),
+                         bands.inverse_lanes_plain(lanes, q, qm, geo, kernel,
+                                                   depth)),
+                        (1, got_ld, bands.inverse_lanes(lanes, q, qm, geo,
+                                                     kernel, depth, lls),
+                         bands.inverse_lanes_plain(lanes, q, qm, geo, kernel,
+                                                   depth, lls))):
+                    for g, r, p in zip(got, route, plain):
+                        g = torch.cat(g)
+                        err[way] = max(err[way], max_err(torch, g, p))
+                        check(torch.equal(g, r) and torch.equal(g, p),
+                              f"{label} differs from the single-device band "
+                              "route or its plain version")
+                cases += 1
+    return cases, err[0], err[1]
 
 
 def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
@@ -1719,10 +1934,12 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
 
     # the 1080p fixtures: 135 slice rows over 3 bands
     out = os.path.join(work, "mesh.vc2")
-    for key, want in (("constq_1080p", {"lift_level": 2, "hq_pack": 3,
-                                        "hq_cbr": 0}),
-                      ("cbr_1080p", {"lift_level": 2, "hq_pack": 3,
-                                     "hq_cbr": 3})):
+    # the HQ paths take the band form: band_forward or band_inverse depth
+    # launches a band, no lift_level
+    for key, want in (("constq_1080p", {"lift_level": 0, "band_forward": 6,
+                                        "hq_pack": 3, "hq_cbr": 0}),
+                      ("cbr_1080p", {"lift_level": 0, "band_forward": 6,
+                                     "hq_pack": 3, "hq_cbr": 3})):
         zero_counts()
         stream = run_encode_cli(fixture_encode_args(key), src_1080p, out,
                                 mesh(1, 3))
@@ -1731,31 +1948,37 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
         check(stream == streams[key], f"{path} differs from {key}.vc2")
         check_counts(path, want)
         decode(stream, key, f"mesh_decode_{key}",
-               {"hq_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
+               {"hq_unpack": 3, "band_inverse": 6, "lift_level": 0},
+               mesh=mesh(1, 3))
     zero_counts()
     fs = run_encode_cli(fixture_encode_args("cbr_1080p")
                         + ["-F", str(FRAGMENT)], src_1080p, out, mesh(1, 3))
     paths["mesh_encode_fragments"] = counts()
     check(fs == frag_stream, "the -F mesh encode differs from one device's")
     check_counts("mesh_encode_fragments",
-                 {"lift_level": 2, "hq_cbr": 3, "hq_pack": 3})
+                 {"lift_level": 0, "band_forward": 6, "hq_cbr": 3,
+                  "hq_pack": 3})
     decode(fs, "cbr_1080p", "mesh_decode_fragments",
-           {"hq_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
-    # LD: the analysis over 2 bands (1080 rows); the decode over 3 bands,
-    # and over 2, where the 135 slice rows do not divide: the single-device
-    # unpack, then the halo inverse over the 2 bands
+           {"hq_unpack": 3, "band_inverse": 6, "lift_level": 0},
+           mesh=mesh(1, 3))
+    # LD: the analysis over 2 bands (1080 rows, the in-place halo lift);
+    # the decode over 3 bands (the band form), and over 2, where the 135
+    # slice rows do not divide: the single-device unpack, then the
+    # in-place halo inverse over the 2 bands
     zero_counts()
     ld = run_encode_cli(fixture_encode_args("ld_1080p"), src_1080p, out,
                         mesh(1, 2))
     paths["mesh_encode_ld"] = counts()
     check(ld == streams["ld_1080p"], "the LD mesh encode differs from "
                                      "ld_1080p.vc2")
-    check_counts("mesh_encode_ld", {"lift_level": 2, "ld_rate": 1,
-                                    "ld_pack": 1})
+    check_counts("mesh_encode_ld", {"lift_level": 2, "band_forward": 0,
+                                    "ld_rate": 1, "ld_pack": 1})
     decode(ld, "ld_1080p", "mesh_decode_ld",
-           {"ld_unpack": 3, "lift_level": 2}, mesh=mesh(1, 3))
+           {"ld_unpack": 3, "band_inverse": 6, "lift_level": 0},
+           mesh=mesh(1, 3))
     decode(ld, "ld_1080p", "mesh_decode_ld_1x2",
-           {"ld_unpack": 1, "lift_level": 2}, mesh=mesh(1, 2))
+           {"ld_unpack": 1, "band_inverse": 0, "lift_level": 2},
+           mesh=mesh(1, 2))
     print("mesh 1080p: ConstQ and CBR encoded over 1x3 (and -F "
           f"{FRAGMENT}), LD over 1x2, bytes equal to the fixtures; decoded "
           "over 1x3 (LD also 1x2) to the recorded SHA-256; launches "
@@ -1772,8 +1995,9 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
         got = senc.encode_batch(pics[:data])
         path = f"mesh_encode_8k_{data}x{space}"
         paths[path] = counts()
-        check_counts(path, {"lift_level": 2, "hq_cbr": data * space,
-                            "hq_pack": data * space})
+        check_counts(path, {"lift_level": 0,
+                            "band_forward": 2 * data * space,
+                            "hq_cbr": data * space, "hq_pack": data * space})
         for g, w in zip(got, want8):
             check(np.array_equal(g.q_indices, w.q_indices)
                   and np.array_equal(g.slice_totals, w.slice_totals)
@@ -1795,7 +2019,8 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
     paths["mesh_decode_8k_1x4"] = counts()
     check(got8.getvalue() == ref8.getvalue(),
           "the 8K mesh decode differs from the single-device decode")
-    check_counts("mesh_decode_8k_1x4", {"hq_unpack": 4, "lift_level": 2})
+    check_counts("mesh_decode_8k_1x4", {"hq_unpack": 4, "band_inverse": 8,
+                                        "lift_level": 0})
     senc8 = ShardedEncoder(cfg8, mesh8)
     senc8.encode_batch(pics[:1])
     for line in dryrun.balance_lines("8K 1x4", senc8,
@@ -1823,6 +2048,58 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
     timed("decode, one card, one device (Decoder)",
           sync(lambda: Decoder(sink=io.BytesIO(), device=dev).run(stream8)))
     print("8K: these are times on one card; no scaling is claimed")
+
+    # the band form against the mesh's in-place route over the same
+    # meshes, in turns, each first checked to the same bytes
+    from vc2tpu_torch.cli import encode_stream
+    from vc2tpu_torch.core.planario import PlanarReader, SampleFormat
+
+    InplaceSharded, InplaceMeshDecoder = inplace_mesh_route()
+    mesh13 = mesh(1, 3)
+    pairs = {}
+    for key in ("constq_1080p", "cbr_1080p"):
+        sink = io.BytesIO()
+        check(InplaceMeshDecoder(sink=sink, mesh=mesh13).run(streams[key])
+              == 0 and hashlib.sha256(sink.getvalue()).hexdigest()
+              == fixtures[key]["decoded_sha256"],
+              f"the in-place 1x3 decode of {key} differs")
+        pairs[f"mesh 1x3 decode {key}"] = tuple(
+            sync(lambda cls=cls, st=streams[key]: cls(
+                sink=io.BytesIO(), mesh=mesh13).run(st))
+            for cls in (Decoder, InplaceMeshDecoder))
+    cfg_q = encode_stream.config_from_args(encode_stream.build_parser()
+                                           .parse_args(fixture_encode_args(
+                                               "constq_1080p")
+                                               + [src_1080p, out]))
+    with open(src_1080p, "rb") as f:
+        pic_q = PlanarReader(f, cfg_q.geometry, SampleFormat(
+            word_width=2, bit_depth=cfg_q.luma_depth)).read_frame()
+    encoders = (ShardedEncoder(cfg_q, mesh13), InplaceSharded(cfg_q, mesh13))
+    got_b, got_i = (e.encode_batch([pic_q])[0] for e in encoders)
+    check(got_b.payload == got_i.payload
+          and np.array_equal(got_b.q_indices, got_i.q_indices),
+          "the in-place 1x3 ConstQ encode differs from the band form's")
+    pairs["mesh 1x3 encode constq_1080p"] = tuple(
+        sync(lambda e=e: e.encode_batch([pic_q])) for e in encoders)
+    report_routes_in_turns(pairs, card)
+    inplace8 = InplaceSharded(cfg8, mesh8)
+    check(inplace8.encode_batch(pics[:1])[0].payload == want8[0].payload,
+          "the in-place 1x4 8K encode differs from one device's")
+    sink = io.BytesIO()
+    check(InplaceMeshDecoder(sink=sink, mesh=mesh8).run(stream8) == 0
+          and sink.getvalue() == ref8.getvalue(),
+          "the in-place 1x4 8K decode differs from one device's")
+    report_routes_in_turns({
+        "mesh 1x4 encode 8K CBR": (
+            sync(lambda: senc8.encode_batch(pics[:1])),
+            sync(lambda: inplace8.encode_batch(pics[:1]))),
+        "mesh 1x4 decode 8K CBR": tuple(
+            sync(lambda cls=cls: cls(sink=io.BytesIO(), mesh=mesh8).run(
+                stream8)) for cls in (Decoder, InplaceMeshDecoder))},
+        card, reps=5)
+    print("mesh routes: the band form (the entry points') and the in-place "
+          "route (inplace_mesh_route) in turns over the same meshes of one "
+          "card; no gain is claimed")
 
     # two processes sharing the card, gloo on 127.0.0.1, 2x1 globally
     t0 = time.perf_counter()
@@ -2787,11 +3064,18 @@ def main(argv) -> int:
     # 8. the multi-device paths on the one card, after the times, so that
     # what the 8K runs leave in the process does not weigh on them
     dev0 = torch.device("cuda", 0)
-    halo_cases, halo_err = check_halo_lift(torch, np, rng, dev0)
-    print(f"halo lift: {halo_cases} cases (7 wavelets, 2 and 4 bands of one "
-          "card, the thinnest bands) equal to the unsharded lift, depth "
-          "launches each way; 50 planes in 2 launches")
+    halo_cases, halo_err, (band_cases, fwd_err, inv_err) = check_halo_lift(
+        torch, np, rng, dev0)
+    print(f"halo lift: {halo_cases} in-place cases (7 wavelets, 2 and 4 "
+          "bands of one card, the thinnest bands) equal to the unsharded "
+          "lift, depth launches each way, 50 planes in 2 launches; "
+          f"{band_cases} band-form cases equal to the single-device band "
+          "route and the plain versions (max |err| against the plain: "
+          f"forward {fwd_err}, inverse {inv_err}), depth launches a band "
+          "each way")
     lift_err = max(lift_err, halo_err)
+    band_forward_err = max(band_forward_err, fwd_err)
+    band_inverse_err = max(band_inverse_err, inv_err)
     sharded_paths = sharded_phase(torch, np, dev0, streams, fixtures,
                                   src_1080p, frag_stream, work.name,
                                   zero_counts, counts, card)

@@ -950,6 +950,66 @@ def test_halo_lift_matches_unsharded_on_the_card(kernel, cuda):
                            lifting.inverse_plane(want, kernel, 2))
 
 
+@pytest.mark.parametrize("kernel", KERNELS, ids=[k.name for k in KERNELS])
+def test_band_form_matches_single_device_on_the_card(kernel, cuda):
+    """``halo.forward_bands_local`` / ``inverse_bands_local`` over 2 and 4
+    bands of one card (4:2:2 at 1080p slice rows and over the thinnest
+    bands the JAX package takes, 4:2:0 over 4 bands; LD grids as band 0)
+    against the single-device band route on the card, with ``depth``
+    launches of each kernel a band; int16 samples whose last rows and
+    columns the kernel pads."""
+    from vc2tpu_torch.shard import halo
+
+    rng = np.random.default_rng(200 + int(kernel))
+    depth = 2
+    thin = max(1, halo.halo_width(kernel))
+    for geo, n in ((_slice_grid(136, 8, (8, 8), (8, 4)), 2),
+                   (_slice_grid(4 * thin, 6, (4, 8), (4, 4)), 4),
+                   (_slice_grid(16 * thin, 3, (16, 16), (8, 8)), 4)):
+        comps = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
+        pads = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
+        planes = [torch.from_numpy(rng.integers(-512, 512, (h - 3, w - 3))
+                                   .astype(np.int16)).to(cuda)
+                  for h, w in pads]
+        lanes = [torch.from_numpy(rng.integers(-2000, 2000, (
+            geo.n_slices, h * w)).astype(np.int32)).to(cuda)
+            for h, w in comps]
+        q = torch.from_numpy(rng.integers(0, 60, geo.n_slices).astype(
+            np.int32)).to(cuda)
+        grids = [torch.from_numpy(rng.integers(-1 << 14, 1 << 14, (
+            h >> depth, w >> depth)).astype(np.int32)).to(cuda)
+            for h, w in pads]
+        qm = matrices.quant_matrix(kernel, depth)
+        want_f = bands.forward_lanes(planes, kernel, depth, geo)
+        want_i = [bands.inverse_lanes(lanes, q, qm, geo, kernel, depth, ll)
+                  for ll in (None, grids)]
+        got_f, got_i = [[], [], []], [[[], [], []], [[], [], []]]
+        blocks = halo.band_blocks(geo, n, kernel, depth)
+        xs = geo.x_slices
+        f0, i0 = bands.forward_lanes.launches, bands.inverse_lanes.launches
+        for s, (a, _r0, _r1, b) in enumerate(blocks):
+            sh = [c[0] for c in comps]
+            blk = [p[a * h:b * h] for p, h in zip(planes, sh)]
+            for c, t in enumerate(halo.forward_bands_local(
+                    blk, kernel, depth, geo, s, n)):
+                got_f[c].append(t)
+            sl = slice(a * xs, b * xs)
+            for k, ll in enumerate((None, grids)):
+                g = None if ll is None else [
+                    x[a * h >> depth:b * h >> depth] for x, h in zip(ll, sh)]
+                for c, t in enumerate(halo.inverse_bands_local(
+                        [x[sl] for x in lanes], q[sl], qm, kernel, depth,
+                        geo, s, n, g)):
+                    got_i[k][c].append(t)
+        assert bands.forward_lanes.launches - f0 == depth * n
+        assert bands.inverse_lanes.launches - i0 == 2 * depth * n
+        for g, w in zip(got_f, want_f):
+            assert torch.equal(torch.cat(g), w), (geo, n)
+        for gk, wk in zip(got_i, want_i):
+            for g, w in zip(gk, wk):
+                assert torch.equal(torch.cat(g), w), (geo, n)
+
+
 def _random_1080p(cfg, seed=1):
     from vc2tpu_torch.shard import multihost
 
@@ -959,7 +1019,8 @@ def _random_1080p(cfg, seed=1):
 def test_sharded_1080p_encode_and_decode_on_one_card(cuda):
     """1080p HQ CBR over a 1x3 mesh of one card, and a 2x3 one with two
     pictures: the payloads equal the single-device Encoder's, and
-    Decoder(mesh=) decodes them as Decoder() does; the bands' launches."""
+    Decoder(mesh=) decodes them as Decoder() does; the bands' launches
+    (the band form: ``depth`` band launches a band, no ``lift_level``)."""
     from vc2tpu_torch.pipeline.encoder import Encoder
     from vc2tpu_torch.pipeline.sharded import ShardedEncoder
     from vc2tpu_torch.shard import multihost
@@ -968,11 +1029,14 @@ def test_sharded_1080p_encode_and_decode_on_one_card(cuda):
     pics = _random_1080p(cfg)
     enc = Encoder(cfg)
     want = [enc.encode_picture(p) for p in pics]
+    lifts = lifting.lift_levels.launches
     for data in (1, 2):
         mesh = _shared_mesh(data, 3)
         packs = dp.pack_hq.launches
+        forwards = bands.forward_lanes.launches
         got = ShardedEncoder(cfg, mesh).encode_batch(pics[:data])
         assert dp.pack_hq.launches - packs == 3 * data
+        assert bands.forward_lanes.launches - forwards == 2 * 3 * data
         for g, w in zip(got, want):
             assert g.payload == w.payload
             assert np.array_equal(g.q_indices, w.q_indices)
@@ -980,8 +1044,11 @@ def test_sharded_1080p_encode_and_decode_on_one_card(cuda):
     ref, out = io.BytesIO(), io.BytesIO()
     assert Decoder(sink=ref).run(stream) == 0
     unpacks = du.unpack_hq.launches
+    inverses = bands.inverse_lanes.launches
     assert Decoder(sink=out, mesh=_shared_mesh(1, 3)).run(stream) == 0
     assert du.unpack_hq.launches - unpacks == 6
+    assert bands.inverse_lanes.launches - inverses == 2 * 3 * 2
+    assert lifting.lift_levels.launches == lifts
     assert out.getvalue() == ref.getvalue()
 
 

@@ -364,8 +364,15 @@ def test_sharded_decoder_matches_single_device(space):
                 sdec.synthesise(q, *[x.numpy() for x in lanes])):
         for a, b in zip(got, ref, strict=True):
             assert torch.equal(a, b)
-    # each band's span starts at its first slice's first region
-    assert sum(sdec.spans) == payload.size - 2 * space
+    # each band's span runs from its block's first slice's first region to
+    # its block's last slice's end; the first and last blocks reach the
+    # payload's ends
+    xs, ends = geo.x_slices, dstart + cbytes
+    blocks = halo.band_blocks(geo, space, cfg.kernel, 2)
+    assert sdec.spans == [int(ends[2, b * xs - 1] - dstart[0, a * xs])
+                          for a, _r0, _r1, b in blocks]
+    assert blocks[0][0] == 0 and blocks[-1][3] == geo.y_slices
+    assert dstart[0, 0] == 2 and ends[2, -1] == payload.size
 
 
 @pytest.mark.parametrize("fragment_length", [0, 512],

@@ -14,11 +14,15 @@ words.
 
 With ``--mesh DxS`` (``Decoder(mesh=...)``) the DECODED output of each
 picture decodes over the ``space`` bands of the mesh's first row
-(``pipeline.sharded.ShardedDecoder``: one unpack launch a band, the halo
-inverse lift); the host scans stay whole-picture. Where a picture's slice
-rows do not divide over the bands it takes the single-device route on the
-mesh's first device, and says so once, as the JAX package does; an LD
-picture then still takes the halo inverse where its padded rows divide.
+(``pipeline.sharded.ShardedDecoder``: each band unpacks its block's
+slices, its own slice rows and a margin of its neighbours', in one launch,
+then the band form of the inverse DWT, one ``band_inverse`` launch a
+level, keeps its own rows); the host scans stay whole-picture. Where a
+picture's slice rows do not divide over the bands it takes the
+single-device route on the mesh's first device, and says so once, as the
+JAX package does; an LD picture then still takes the in-place halo
+inverse lift (``shard.halo.sharded_inverse_planes``) where its padded
+rows divide.
 The tap outputs always take the single-device route.
 
 An LD picture's bytes come from its preamble's slice_bytes fraction with
@@ -77,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to decode on (default: cuda)")
     p.add_argument("--mesh", metavar="DxS", default=None,
                    help="decode on a DxS device mesh (row bands over the S "
-                        "axis): each band unpacks its own slices, then the "
-                        "halo inverse lift; bit-exact with one device")
+                        "axis): each band unpacks its block's slices, then "
+                        "the band form of the inverse DWT; bit-exact with "
+                        "one device")
     return p
 
 

@@ -14,9 +14,11 @@ an error in picture k surfaces then, with the pictures before it written.
 
 ``--mesh DxS`` (Stream output only) encodes HQ over a D x S device mesh
 (``pipeline.sharded.ShardedEncoder``: pictures in batches of D over the
-``data`` axis, row bands over ``space``; with ``-F`` each band's span is
-framed as it lands), and LD with its analysis DWT over the bands
-(``LDEncoder(mesh=...)``); the bytes equal one device's. With ``--device
+``data`` axis, row bands over ``space``, each band's block of slice rows
+through the band form of the forward DWT, one ``band_forward`` launch a
+level; with ``-F`` each band's span is framed as it lands), and LD with
+its analysis DWT over the bands (``LDEncoder(mesh=...)``, the in-place
+halo lift); the bytes equal one device's. With ``--device
 cpu`` the mesh is the CPU mesh. A program may instead set ``args.mesh``
 to a ``shard.mesh.Mesh`` before ``run(args)``; ``make_mesh(1, 3,
 devices=["cuda:0"] * 3)`` runs the bands on one card. Unlike the JAX

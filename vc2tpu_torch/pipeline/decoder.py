@@ -29,7 +29,9 @@ in-process decode, and so does this port: ``dequantise_planes`` /
 into the LL sub-lattice) then ``lifting.inverse_planes`` (one
 csrc/lift_level.cu launch a level) serve the decoder's TRANSFORM and
 QUANTISED outputs, ``cli.decode_frame``, ``Encoder.decode_inprocess``
-and the mesh paths (``pipeline.sharded``, ``shard.halo``). The stages are
+and the LD mesh decode whose slice rows do not divide over the mesh
+(``shard.halo``'s in-place lift); ``pipeline.sharded`` runs the band
+route a band at a time. The stages are
 separate functions so a profiler can time each; the caller makes the one
 D2H copy of the returned bytes.
 """

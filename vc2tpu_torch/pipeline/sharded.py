@@ -3,31 +3,40 @@ stream bytes.
 
 Port of ``vc2tpu.pipeline.sharded``. Frames go over the ``data`` axis,
 row bands of each picture over ``space``; a band is a run of whole slice
-rows, so everything after the DWT is local to the band:
+rows, so everything after the DWT is local to the band. The DWT is the
+band (Mallat) form of ``shard.halo`` (``forward_bands_local``,
+``inverse_bands_local``): a band transforms a *block*, its own slice rows
+and a margin of whole slice rows of its neighbours (``halo.band_blocks``),
+whose rows past the margin are exact, so no row travels between bands:
 
-    encode, a band:  upload of the band's rows and its halo margins
-                     -> halo forward lift (``shard.halo``; one lift launch
-                        a level a device for every band it holds)
-                     -> plane_to_lanes of the band's slice rows
+    encode, a band:  upload of the block's rows of the host picture, at
+                     their read width (one copy)
+                     -> forward_bands_local: band_forward, one launch a
+                        level (the three components in each), straight
+                        into the block's lanes; the band keeps its own
+                        slices' lanes
                      -> HQ CBR: cbr_quant_indices at the band's share of
                         the slice budgets (one hq_cbr launch)
                      -> quant_pack_hq (one hq_pack launch, its own
                         scratch and flags)
-    decode, a band:  upload of the band's span of the payload (the host
-                     chain scan runs once over the picture)
-                     -> unpack_hq (one hq_unpack launch) -> dequantise
-                     -> halo inverse lift -> gathered on the mesh's first
-                        device
+    decode, a band:  upload of the span of the payload that its block's
+                     slices cover (the host chain scan runs once over the
+                     picture)
+                     -> unpack_hq (one hq_unpack launch; LD: ld_unpack,
+                        with the block's rows of the host's LL grids)
+                     -> inverse_bands_local: band_inverse, one launch a
+                        level, dequantising in its load; the band keeps
+                        its own rows -> gathered on the mesh's first device
 
 Bands on one device share its stream; each device is synchronised once a
 batch to read every pack's flags and size, and its spans come back in
 one copy. In a process of a multi-process mesh (``shard.multihost``) the
-encoder works only the positions that process holds; a row split over
-processes exchanges its halo rows over ``torch.distributed``. A band's
-slices are contiguous in raster order, so its payload is a contiguous
-span of the picture's: the host concatenates the spans into
-``EncodedPicture``s equal to ``Encoder.encode_picture``'s, or frames each
-span as fragments as it lands (``encode_batch_to_fragments``),
+encoder works only the positions that process holds; every process has
+its rows' whole pictures, so a row split over processes needs no rows of
+another. A band's slices are contiguous in raster order, so its payload
+is a contiguous span of the picture's: the host concatenates the spans
+into ``EncodedPicture``s equal to ``Encoder.encode_picture``'s, or frames
+each span as fragments as it lands (``encode_batch_to_fragments``),
 byte-identical to ``write_picture`` over the whole payload.
 
 The JAX package's ``w32``/``cap`` buckets, their retry and its host
@@ -41,8 +50,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core.config import EncoderConfig, Mode
-from vc2tpu_torch.pipeline.decoder import (dequantise_ld_planes,
-                                           dequantise_planes, qm_lanes)
+from vc2tpu_torch.pipeline.decoder import qm_lanes
 from vc2tpu_torch.pipeline.encoder import EncodedPicture, slice_geometry
 from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.shard import halo
@@ -62,13 +70,13 @@ def _pad_block(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return x.index_select(0, r).index_select(1, c)
 
 
-def upload_blocks(picture, bytes_per_sample: int, devs, geos, padded,
-                  mine=None) -> list:
-    """Each band's blocks of the picture's padded planes (rows [a, b) of
-    ``geos[c][i]``), its three planes in one copy to ``devs[i]`` at their
-    read width (int16 for up to 2 bytes a sample). Returns ``[c][i]``
-    int32 blocks; None for a band that ``mine[i]`` says another process
-    holds."""
+def upload_rows(picture, bytes_per_sample: int, devs, geos,
+                mine=None) -> list:
+    """Each band's rows [a, b) of the picture's three planes (``geos[c][i]``
+    = (a, r0, r1, b), clipped to the plane), its three planes in one copy
+    to ``devs[i]`` at their read width (int16 for up to 2 bytes a sample).
+    Returns ``[c][i]`` 2-D views of that copy; None for a band that
+    ``mine[i]`` says another process holds."""
     dt = np.int16 if bytes_per_sample <= 2 else np.int32
     planes = (picture.y, picture.c1, picture.c2)
     out = [[], [], []]
@@ -86,11 +94,20 @@ def upload_blocks(picture, bytes_per_sample: int, devs, geos, padded,
         flat = torch.from_numpy(np.concatenate(parts)).to(dev)
         at = 0
         for c, (h, w) in enumerate(shapes):
-            a, _r0, _r1, b = geos[c][i]
-            x = flat[at:at + h * w].reshape(h, w).to(torch.int32)
-            out[c].append(_pad_block(x, b - a, padded[c][1]))
+            out[c].append(flat[at:at + h * w].reshape(h, w))
             at += h * w
     return out
+
+
+def upload_blocks(picture, bytes_per_sample: int, devs, geos, padded,
+                  mine=None) -> list:
+    """``upload_rows``, each block then widened to int32 and padded by
+    edge replication to rows [a, b) of the padded planes (``padded[c]``,
+    their (h, w)): the in-place halo lift's input."""
+    rows = upload_rows(picture, bytes_per_sample, devs, geos, mine)
+    return [[None if x is None else
+             _pad_block(x.to(torch.int32), g[3] - g[0], padded[c][1])
+             for x, g in zip(rows[c], geos[c])] for c in range(3)]
 
 
 class ShardedEncoder:
@@ -99,9 +116,9 @@ class ShardedEncoder:
     d-th block) to ``EncodedPicture``s identical to
     ``Encoder.encode_picture``'s. ``y_slices`` must divide by the ``space``
     extent. With a ``rank`` the encoder works the positions that
-    ``mesh.owners`` gives that process, and the halo rows of a row split
-    over processes travel over ``torch.distributed`` (``shard.multihost``
-    drives this); without one it works every position."""
+    ``mesh.owners`` gives that process (``shard.multihost`` drives this):
+    a band's block comes from the host picture, so a row split over
+    processes exchanges nothing; without one it works every position."""
 
     def __init__(self, cfg: EncoderConfig, mesh, rank: int | None = None):
         cfg.validate()
@@ -117,15 +134,16 @@ class ShardedEncoder:
             raise ValueError("y_slices must divide by the space mesh extent")
         d = cfg.wavelet_depth
         self.n_loc = geo.n_slices // self.space
-        self.ys_local = geo.y_slices // self.space
         self.qmatrix = matrices.quant_matrix(cfg.kernel, d)
         key = tuple(int(v) for v in self.qmatrix)
         self._qm = {dev: tuple(qm_lanes(key, *sl, d, dev).to(torch.int32)
                                for sl in (geo.luma_slice, geo.chroma_slice))
                     for dev in mesh.distinct()}
         self.padded = (geo.padded_luma, geo.padded_chroma, geo.padded_chroma)
-        self.geos = [halo.band_rows(h, self.space, halo.margin(cfg.kernel, d))
-                     for h, _w in self.padded]
+        # each band's block of slice rows, in each component's rows
+        self.geos = [[tuple(r * sh for r in blk) for blk in halo.band_blocks(
+            geo, self.space, cfg.kernel, d)] for sh in (
+            geo.luma_slice[0], geo.chroma_slice[0], geo.chroma_slice[0])]
         self.mine = [[rank is None or o == rank for o in row]
                      for row in mesh.owners]
         self.slice_budgets = None
@@ -155,26 +173,20 @@ class ShardedEncoder:
         per = len(pictures) // self.data
         for h, _w in self.padded:
             halo.check_rows(h, self.space, cfg.kernel, d)
-        blocks, geos, owners = [], [], []
-        for b, pic in enumerate(pictures):
-            mine = self.mine[b // per]
-            blocks += upload_blocks(pic, cfg.bytes_per_sample,
-                                    self.mesh.row(b // per), self.geos,
-                                    self.padded, mine)
-            geos += self.geos
-            owners += [None if all(mine) else self.mesh.owners[b // per]] * 3
-        bands = halo.forward_blocks(blocks, geos, cfg.kernel, d, owners)
         n = self.n_loc
         jobs = []
-        for b in range(len(pictures)):
+        for b, pic in enumerate(pictures):
+            devs, mine = self.mesh.row(b // per), self.mine[b // per]
+            rows = upload_rows(pic, cfg.bytes_per_sample, devs, self.geos,
+                               mine)
             row = []
-            for s, dev in enumerate(self.mesh.row(b // per)):
-                if not self.mine[b // per][s]:
+            for s, dev in enumerate(devs):
+                if not mine[s]:
                     row.append(None)
                     continue
-                lanes = [layout.plane_to_lanes(bands[3 * b + c][s],
-                                               self.ys_local, geo.x_slices, d)
-                         for c in range(3)]
+                lanes = halo.forward_bands_local(
+                    [rows[c][s] for c in range(3)], cfg.kernel, d, geo, s,
+                    self.space)
                 qm_y, qm_c = self._qm[dev]
                 budgets = self._budgets.get((dev, s))
                 scratch = None
@@ -284,8 +296,10 @@ class ShardedDecoder:
     ``mesh`` (its first data row), to padded int32 planes on the mesh's
     first device, equal to the single-device decode's. The host finds the
     slices (the HQ chain scan, or the LD header scan and LL recurrence,
-    once a picture, serial as in the JAX package); each band unpacks its
-    own span of the payload on its device.
+    once a picture, serial as in the JAX package); each band unpacks the
+    slices of its block (``halo.band_blocks``: its own slice rows and a
+    margin of its neighbours') from its span of the payload on its device,
+    then ``halo.inverse_bands_local`` keeps its own rows.
 
     Both ``decode_payload`` and ``decode_payload_device`` take the device
     unpack: the JAX package's host-unpack route serves only its
@@ -301,42 +315,51 @@ class ShardedDecoder:
             raise ValueError("y_slices must divide by the space mesh extent")
         self.devs = mesh.row(0)
         self.n_loc = geo.n_slices // space
-        ys = geo.y_slices // space
-        (pl_h, pl_w), (pc_h, pc_w) = geo.padded_luma, geo.padded_chroma
-        self.local = SliceGeometry(ys, geo.x_slices, (pl_h // space, pl_w),
-                                   (pc_h // space, pc_w), geo.luma_slice,
-                                   geo.chroma_slice)
+        self.blocks = halo.band_blocks(geo, space, kernel, depth)
         self.qmatrix = matrices.quant_matrix(kernel, depth)
         self.ly = geo.luma_slice[0] * geo.luma_slice[1]
         self.lc = geo.chroma_slice[0] * geo.chroma_slice[1]
         self.spans = []           # the last picture's payload bytes a band
 
-    def _synthesise_bands(self, bands) -> tuple:
-        """bands[s] = band s's three dequantised planes -> the inverse DWT
-        over the bands, gathered whole on the first device."""
+    def _check(self) -> None:
+        """The JAX package's ValueErrors for bands this transform cannot
+        take, before any device work."""
         for rows, _w in (self.geo.padded_luma, self.geo.padded_chroma):
             halo.check_rows(rows, self.space, self.kernel, self.depth)
-        planes = halo.inverse_bands([[b[c] for b in bands] for c in range(3)],
-                                    self.kernel, self.depth)
-        first = self.devs[0]
-        return tuple(torch.cat([t.to(first) for t in p]) for p in planes)
 
-    def _slices(self, s: int) -> slice:
-        return slice(s * self.n_loc, (s + 1) * self.n_loc)
+    def _block_slices(self, s: int) -> slice:
+        a, _r0, _r1, b = self.blocks[s]
+        xs = self.geo.x_slices
+        return slice(a * xs, b * xs)
+
+    def _synthesise(self, s: int, lanes, q_idx, ll=None) -> list:
+        """Band s's own rows of the three padded planes from its block's
+        lanes and q indices (LD: its block's rows of the LL grids)."""
+        return halo.inverse_bands_local(lanes, q_idx, self.qmatrix,
+                                        self.kernel, self.depth, self.geo,
+                                        s, self.space, ll)
+
+    def _gather(self, bands) -> tuple:
+        """bands[s] = band s's rows of the three planes -> the planes,
+        whole on the first device."""
+        first = self.devs[0]
+        return tuple(torch.cat([b[c].to(first) for b in bands])
+                     for c in range(3))
 
     def synthesise(self, q_idx, ly, lu, lv) -> tuple:
         """Entropy-decoded lanes (q [N], lanes [N, L], host or device) ->
-        (y, c1, c2) padded planes: each band's rows dequantised on its
-        device, then the halo inverse."""
+        (y, c1, c2) padded planes: each band's block of the lanes on its
+        device, dequantised and inverse-transformed there."""
+        self._check()
+        q_all = np.asarray(q_idx).ravel()
         bands = []
         for s, dev in enumerate(self.devs):
-            sl = self._slices(s)
-            lanes = [torch.as_tensor(x[sl]).to(dev, torch.int32)
+            sl = self._block_slices(s)
+            lanes = [torch.as_tensor(x[sl]).to(dev, torch.int32).contiguous()
                      for x in (ly, lu, lv)]
-            q = torch.as_tensor(np.asarray(q_idx).ravel()[sl]).to(dev)
-            bands.append(dequantise_planes(lanes, q, self.qmatrix,
-                                           self.depth, self.local))
-        return self._synthesise_bands(bands)
+            q = torch.as_tensor(q_all[sl]).to(dev, torch.int32)
+            bands.append(self._synthesise(s, lanes, q))
+        return self._gather(bands)
 
     def decode_payload(self, payload, prefix: int, scalar: int,
                        start: int = 0) -> tuple:
@@ -353,17 +376,18 @@ class ShardedDecoder:
                               start: int = 0) -> tuple:
         """One picture's slice payload and its chain scan (q [N], the
         components' byte offsets and lengths [3, N]) -> (y, c1, c2) padded
-        planes. Band s uploads the bytes its slices' regions span and
-        unpacks them in one launch. ``prefix``, ``scalar`` and ``start`` are
-        taken for the JAX signature; the offsets already hold them."""
+        planes. Band s uploads the bytes its block's slices' regions span
+        and unpacks them in one launch. ``prefix``, ``scalar`` and ``start``
+        are taken for the JAX signature; the offsets already hold them."""
+        self._check()
         data = np.frombuffer(payload, np.uint8)
         dstart = np.asarray(dstart, np.int64)
         cbytes = np.asarray(cbytes, np.int64)
         q_idx = np.asarray(q_idx).ravel()
         bands, self.spans = [], []
         for s, dev in enumerate(self.devs):
-            sl = self._slices(s)
-            lo = int(dstart[0, sl.start]) if self.n_loc else 0
+            sl = self._block_slices(s)
+            lo = int(dstart[0, sl.start])
             hi = int((dstart[:, sl] + cbytes[:, sl]).max(initial=lo))
             hi = min(max(hi, lo), data.size)
             fields = np.concatenate([q_idx[None, sl], dstart[:, sl] - lo,
@@ -372,24 +396,26 @@ class ShardedDecoder:
             f = torch.from_numpy(fields).to(dev)
             lanes = device_unpack.unpack_hq(pay, f[1:4], f[4:7], self.ly,
                                             self.lc)
-            bands.append(dequantise_planes(lanes, f[0], self.qmatrix,
-                                           self.depth, self.local))
+            bands.append(self._synthesise(s, lanes, f[0]))
             self.spans.append(hi - lo)
-        return self._synthesise_bands(bands)
+        return self._gather(bands)
 
     def decode_ld_payload_device(self, payload, scan) -> tuple:
         """One LD picture's slice payload and its host scan
         (``slices.ld.ld_scan``: q, bit fields, LL grids) -> (q indices,
-        (y, c1, c2) padded planes). Band s uploads its slices' bytes, its
-        fields and its rows of the LL grids, and unpacks in one launch."""
+        (y, c1, c2) padded planes). Band s uploads its block's slices'
+        bytes, their fields and the block's rows of the LL grids, and
+        unpacks in one launch."""
+        self._check()
         data = np.frombuffer(payload, np.uint8)
         f_all = np.asarray(scan.fields, np.int64)
         ts = 1 << self.depth
         bands, self.spans = [], []
         for s, dev in enumerate(self.devs):
-            sl = self._slices(s)
+            sl = self._block_slices(s)
+            a, _r0, _r1, b = self.blocks[s]
             f = f_all[:, sl].copy()
-            lo = int(f[0, 0]) // 8 if self.n_loc else 0
+            lo = int(f[0, 0]) // 8
             end = f[0] + 7 + f[1] + f[2] + f[3]
             hi = min(max(-(-int(end.max(initial=0)) // 8), lo), data.size)
             f[0] -= 8 * lo
@@ -399,16 +425,12 @@ class ShardedDecoder:
             fields = torch.from_numpy(host).to(dev)
             lanes = device_unpack.unpack_ld(pay, fields[1:], self.ly,
                                             self.lc)
-            grids = []
-            for grid, (sh, _sw) in zip(scan.grids,
-                                       (self.geo.luma_slice,
-                                        self.geo.chroma_slice,
-                                        self.geo.chroma_slice)):
-                rows = self.local.y_slices * sh // ts
-                grids.append(torch.from_numpy(np.ascontiguousarray(
-                    grid[s * rows:(s + 1) * rows])).to(dev))
-            bands.append(dequantise_ld_planes(lanes, fields[0], grids,
-                                              self.qmatrix, self.depth,
-                                              self.local))
+            grids = [torch.from_numpy(np.ascontiguousarray(
+                grid[a * sh // ts:b * sh // ts])).to(dev)
+                for grid, (sh, _sw) in zip(scan.grids,
+                                           (self.geo.luma_slice,
+                                            self.geo.chroma_slice,
+                                            self.geo.chroma_slice))]
+            bands.append(self._synthesise(s, lanes, fields[0], grids))
             self.spans.append(hi - lo)
-        return scan.q, self._synthesise_bands(bands)
+        return scan.q, self._gather(bands)

@@ -8,13 +8,14 @@ Twin of the JAX package's ``dryrun_multichip``. On an n-device mesh
    fragments;
 2. ``ShardedDecoder.decode_payload`` equals the single-device decode;
 3. ``Decoder(mesh=)`` decodes both streams byte-identically;
-4. the halo inverse lift undoes the unsharded forward (the LD mesh
-   synthesis);
+4. the in-place halo inverse lift undoes the unsharded forward (the LD
+   mesh synthesis where slice rows do not divide over the mesh);
 5. unless ``fast``: 1080p HQ CBR over a (n/2) x 2 mesh, encode and the
    fragmented stream's mesh decode against one device.
 
 Each leg prints the per-band balance: slices, payload bytes and the bytes
-each band's unpack reads.
+each band's unpack reads (its block's slices: its own and the margin
+slices of its neighbours).
 
     python -m vc2tpu_torch.shard.dryrun --device cpu --count 8
     python -m vc2tpu_torch.shard.dryrun --device cuda:0 --count 4 --fast
@@ -53,7 +54,8 @@ def _check(cond: bool, msg: str) -> None:
 def balance_lines(label: str, senc: ShardedEncoder, sdec=None) -> list:
     """Lines of the per-band balance of the last batch: each band's slices
     and payload bytes (the first picture), and the bytes its unpack read
-    in ``sdec``'s last decode."""
+    in ``sdec``'s last decode, which include the margin slices of its
+    block (``halo.band_blocks``)."""
     pay = senc.balance[0]
     lines = [f"{label} balance: {senc.n_loc} slices a band; payload bytes "
              f"a band {pay} (max/mean "
@@ -131,7 +133,8 @@ def dryrun_multichip(devices, fast: bool = False, out=print) -> None:
         _check(got_out == want_out and dec.frames_out == data,
                f"mesh stream decode differs (fragment length {frag})")
 
-    # 4. the LD mesh synthesis: the halo inverse of a forward transform
+    # 4. the indivisible LD mesh synthesis: the in-place halo inverse of a
+    # forward transform
     rng = np.random.default_rng(0)
     plane = torch.from_numpy(rng.integers(-512, 512, (H, W)).astype(np.int32))
     t = lifting.forward_plane(plane.to(first), cfg.kernel, cfg.wavelet_depth)

@@ -37,6 +37,22 @@ raises the JAX package's errors where it raises them: a band that is not
 a multiple of ``2**depth`` rows, and a band whose deepest parity plane has
 fewer rows than the JAX ``halo_width``. Thinner bands than that are within
 the port's reach but are refused all the same.
+
+The band (Mallat) form, ``forward_bands_local`` and
+``inverse_bands_local`` (the JAX package's names), is what the mesh's HQ
+encode and decode and its divisible LD decode run (``pipeline.sharded``).
+A band works a *block* of whole slice rows: its own and ``band_margin``
+more on each side, clipped to the picture, and runs the single-device
+band route (``wavelet.bands``: one csrc/band_lift.cu launch a level, its
+three components together) over the block's slice geometry. The rows
+past the margin are exact without any exchange between levels (the
+bound is derived at ``band_margin``), so a band keeps its own slice rows
+and nothing travels between bands: the decode's bands unpack their
+block's slices from the picture's payload, and the encode's bands upload
+their block's rows from the host picture. The in-place functions above
+stay for what the JAX package runs in its in-place form:
+``LDEncoder(mesh=)``, the LD decode whose slice rows do not divide over
+the mesh, and ``sharded_forward_plane(s)`` / ``sharded_inverse_plane(s)``.
 """
 
 from __future__ import annotations
@@ -46,7 +62,8 @@ import torch
 import torch.distributed as dist
 
 from vc2tpu_torch.core.config import WaveletKernel
-from vc2tpu_torch.wavelet import lifting
+from vc2tpu_torch.slices.hq import SliceGeometry
+from vc2tpu_torch.wavelet import bands, lifting
 
 
 def halo_width(kernel: WaveletKernel) -> int:
@@ -220,18 +237,14 @@ def _extend(xch, planes, geos) -> list:
     return blocks
 
 
-def forward_blocks(blocks, geos, kernel: WaveletKernel, depth: int,
-                   owners=None) -> list:
+def forward_blocks(blocks, geos, kernel: WaveletKernel, depth: int) -> list:
     """Forward DWT of row-band-sharded planes given as blocks:
     ``blocks[p][i]`` holds rows [a, b) of plane p's band i (``geos[p][i]``
     = (a, r0, r1, b) from ``band_rows(rows, n, margin(kernel, depth))``),
     int32 and contiguous on the band's device. Returns ``out[p][i]``, the
     band's rows [r0, r1) of the transform (views of new blocks). One
-    ``lift_levels`` call a level a device. ``owners[p]``, where given and
-    not None, is the process of each band of plane p: a band of another
-    process is None in ``blocks`` and in the result, and its rows travel
-    over ``torch.distributed``."""
-    return _forward(_Exchange(owners), blocks, geos, kernel, depth)
+    ``lift_levels`` call a level a device."""
+    return _forward(_Exchange(), blocks, geos, kernel, depth)
 
 
 def _forward(xch, blocks, geos, kernel, depth: int) -> list:
@@ -270,8 +283,10 @@ def forward_bands(planes, kernel: WaveletKernel, depth: int,
     """Forward DWT of row-band-sharded planes: ``planes[p][i]`` is band i
     of plane p, its own rows on its device (every band of a plane the same
     height, a multiple of ``2**depth``). Returns the bands of the
-    transform, in the same shape. ``owners`` as ``forward_blocks``'s.
-    These bands are a mesh's bands of rows, in-place layout; the subbands
+    transform, in the same shape. ``owners[p]``, where given and not
+    None, is the process of each band of plane p: a band of another
+    process is None in ``planes`` and in the result, and its rows travel
+    over ``torch.distributed``. These bands are a mesh's bands of rows, in-place layout; the subbands
     of the Mallat form are ``wavelet.lifting.forward_bands``'s."""
     planes = [[None if t is None else t.to(torch.int32) for t in bands]
               for bands in planes]
@@ -289,7 +304,7 @@ def inverse_bands(planes, kernel: WaveletKernel, depth: int,
     ``forward_bands``'s result): one ``lift_levels`` call a level a device,
     coarsest first, each level's compact result the overlay of the next
     after its margins are refreshed from the neighbours'. ``owners`` as
-    ``forward_blocks``'s. Row bands, as ``forward_bands``; the Mallat
+    ``forward_bands``'s. Row bands, as ``forward_bands``; the Mallat
     form's subbands go through ``wavelet.lifting.inverse_bands``."""
     planes = [[None if t is None else t.to(torch.int32) for t in bands]
               for bands in planes]
@@ -329,6 +344,92 @@ def inverse_bands(planes, kernel: WaveletKernel, depth: int,
     return [[None if t is None else t[g[1] - c0:g[2] - c0]
              for (t, c0), g in zip(coarse[p], geos[p])]
             for p in range(len(planes))]
+
+
+# --- the band (Mallat) form: a band's block of slice rows ---------------------
+
+def band_margin(kernel: WaveletKernel, depth: int, geo) -> int:
+    """Slice rows a band's block holds beyond its own on each side: the
+    band form's reach ``lifting.halo(kernel) * (2**depth - 1)`` rows,
+    rounded up to whole slice rows of each component, the largest.
+
+    The bound. Within a block the band kernels clamp their taps at the
+    block's edges; where that edge is not the picture's, a clamped tap
+    reads a wrong row. A block's edges lie on slice rows, multiples of
+    ``2**depth`` rows, so at every level the edge falls between whole
+    parity pairs, where ``lifting.halo`` (even) bounds how far one
+    ladder carries wrong values. Inverse: the coarsest level's rows within
+    ``halo`` of the edge go wrong (in that level's rows, ``2**(depth-1)``
+    plane rows each); a finer level doubles the wrong rows of the coarser
+    LL it interleaves and adds ``halo``: 3, 7, ... ``2**depth - 1`` halos,
+    which is ``halo * (2**depth - 1)`` plane rows. Forward: the wrong LL
+    rows ``b`` of a level feed the next, whose ladder spreads them to
+    ``b + halo`` rows, one more when ``b`` is odd; the subband rows they
+    touch cover at most ``halo * (2**depth - 1) + 2**depth - 2`` plane
+    rows, in whole blocks of ``2**depth``, hence within that reach rounded
+    up to ``2**depth`` rows. Slice heights are multiples of ``2**depth``,
+    so whole slice rows of the reach cover both."""
+    reach = lifting.halo(kernel) * ((1 << depth) - 1)
+    return max(-(-reach // sh) for sh in (geo.luma_slice[0],
+                                          geo.chroma_slice[0]))
+
+
+def band_blocks(geo, n: int, kernel: WaveletKernel, depth: int) -> list:
+    """(a, r0, r1, b) in slice rows of each of ``n`` bands of the slice
+    geometry ``geo``: the band owns slice rows [r0, r1) and its block holds
+    [a, b), ``band_margin`` more on each side clipped to the picture."""
+    return band_rows(geo.y_slices, n, band_margin(kernel, depth, geo))
+
+
+def block_geometry(geo, a: int, b: int) -> SliceGeometry:
+    """The slice geometry of slice rows [a, b) of ``geo``."""
+    ys = b - a
+    (lh, _lw), (ch, _cw) = geo.luma_slice, geo.chroma_slice
+    return SliceGeometry(ys, geo.x_slices, (ys * lh, geo.padded_luma[1]),
+                         (ys * ch, geo.padded_chroma[1]), geo.luma_slice,
+                         geo.chroma_slice)
+
+
+def forward_bands_local(planes, kernel: WaveletKernel, depth: int, geo,
+                        band: int, n: int) -> list:
+    """The forward DWT of band ``band`` of ``n`` of a picture of slice
+    geometry ``geo``, into its lanes. ``planes`` is the band's block of
+    the three planes (rows [a * sh, b * sh) of each, ``band_blocks``),
+    int16 or int32 with contiguous rows on the band's device; the block
+    that ends the picture may stop at the picture's last row, and every
+    block at its width: the kernel's clamped reads pad them, as
+    ``wavelet_pad`` pads the picture. Returns the band's own slice rows of
+    the (y, u, v) lanes, int32 [ys_local * xs, L] (views of the block's
+    lanes): ``bands_to_lanes`` of the JAX package's ``forward_bands_local``.
+    One ``band_forward`` launch a level (``bands.forward_lanes``); at depth
+    0 the lanes are the samples (``forward_lanes_plain``)."""
+    a, r0, r1, b = band_blocks(geo, n, kernel, depth)[band]
+    bgeo = block_geometry(geo, a, b)
+    lanes = (bands.forward_lanes if depth else bands.forward_lanes_plain)(
+        planes, kernel, depth, bgeo)
+    xs = geo.x_slices
+    return [t[(r0 - a) * xs:(r1 - a) * xs] for t in lanes]
+
+
+def inverse_bands_local(lanes, q_idx: torch.Tensor, qmatrix,
+                        kernel: WaveletKernel, depth: int, geo, band: int,
+                        n: int, ll=None) -> list:
+    """The dequantise and inverse DWT of band ``band`` of ``n`` of a
+    picture of slice geometry ``geo``: ``lanes`` the (y, u, v) int32
+    lanes of the band's block's slices (``band_blocks``), ``q_idx`` their
+    q indices, ``ll`` (LD) the block's rows of the three LL grids, band 0.
+    Returns the band's own rows of the three padded int32 planes (views):
+    the JAX package's ``inverse_bands_local`` after ``scale_banded`` and
+    ``lanes_to_bands``. One ``band_inverse`` launch a level
+    (``bands.inverse_lanes``); at depth 0 the dequantised lanes (LD: the
+    grids) are the planes (``inverse_lanes_plain``)."""
+    a, r0, r1, b = band_blocks(geo, n, kernel, depth)[band]
+    bgeo = block_geometry(geo, a, b)
+    planes = (bands.inverse_lanes if depth else bands.inverse_lanes_plain)(
+        lanes, q_idx, qmatrix, bgeo, kernel, depth, ll)
+    return [p[(r0 - a) * sh:(r1 - a) * sh]
+            for p, sh in zip(planes, (geo.luma_slice[0], geo.chroma_slice[0],
+                                      geo.chroma_slice[0]))]
 
 
 def _axis_devices(mesh, axis_name: str) -> list:

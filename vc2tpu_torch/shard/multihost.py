@@ -7,9 +7,11 @@ devices in process order, reshaped to (data, space), as the JAX package
 reshapes ``jax.devices()``: a process holds whole rows when its devices
 cover them, and a ``space`` row may span processes. Each process encodes
 the pictures of the rows it holds positions in, on its own positions
-(``pipeline.sharded``); the halo rows of a row split over processes go
-point-to-point over ``torch.distributed`` (``shard.halo``). What else
-crosses processes is host bytes: each band's flags, q indices, slice sizes
+(``pipeline.sharded``): a band's block of slice rows comes from the
+row's whole host picture (the band form of ``shard.halo``), so a row
+split over processes sends no rows (the in-place halo lift's exchange,
+point-to-point over ``torch.distributed``, serves ``--halo-check``).
+What crosses processes is host bytes: each band's flags, q indices, slice sizes
 and payload span, keyed by (picture, band) and gathered on the gloo
 backend (sizes first, then padded uint8 tensors), so every process
 assembles the same stream (and raises the same first error) and process
