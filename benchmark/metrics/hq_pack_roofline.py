@@ -1,0 +1,9 @@
+"""hq_pack_roofline (%; the kernels): hq_pack's roofline bound over its device
+time in the traced window (kernels/hq_pack.py counts its bytes and
+operations; integer operations against the float32 peak)."""
+
+SPANS = {}
+
+
+def read(run):
+    return run.roofline(["hq_pack"])
