@@ -25,6 +25,12 @@ inverse lift (``shard.halo.sharded_inverse_planes``) where its padded
 rows divide.
 The tap outputs always take the single-device route.
 
+Under a torch profiler the picture decode is traced (``core.trace``): the
+host scan (``dec.scan``), the device work's issue (``dec.issue``, around
+the stages of ``pipeline.decoder``), an output's wait in the FIFO
+(``dec.fifo``), its copy back (``dec.copy_back``) and its conversion to
+bytes (``dec.to_bytes``), each with the picture number.
+
 An LD picture's bytes come from its preamble's slice_bytes fraction with
 no second halving when interlaced: the JAX package's deliberate deviation
 from the reference decoder (``vc2tpu/cli/decode_stream.py``,
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.config import DecOutput, PictureGeometry, chroma_dims
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.core.planario import SampleFormat, write_picture
@@ -145,7 +152,8 @@ class Decoder:
         self.frame = 0
         self.frags: dict[int, _FragState] = {}
         self.frames_out = 0
-        self._pending: list[torch.Tensor] = []   # output bytes in flight
+        # output bytes in flight: (words, picture number, trace.stamp())
+        self._pending: list[tuple] = []
         self._depth = 3               # pictures in flight before blocking
         self._first_words = None      # formatted first field (interlace)
         self._first_picnum = None     # picture number of the buffered field
@@ -161,8 +169,13 @@ class Decoder:
 
     def _flush(self, keep: int = 0):
         while len(self._pending) > keep:
-            words = self._pending.pop(0)
-            self.sink.write(words.cpu().numpy().tobytes())
+            words, picnum, queued = self._pending.pop(0)
+            trace.wait("dec.fifo", picnum, queued)
+            with trace.span("dec.copy_back", picnum):
+                host = words.cpu()
+            with trace.span("dec.to_bytes", picnum):
+                data = host.numpy().tobytes()
+            self.sink.write(data)
             self.frames_out += 1
 
     def _emit_words(self, words: torch.Tensor):
@@ -214,7 +227,7 @@ class Decoder:
                 off += n
             words = torch.cat(parts)
         self._flush(keep=self._depth - 1)
-        self._pending.append(words)
+        self._pending.append((words, self._cur_picnum, trace.stamp()))
         self.frame += 1
 
     # --- picture decode ---
@@ -255,9 +268,10 @@ class Decoder:
         if self.mesh is not None and self.output == DecOutput.DECODED:
             self._check_mesh(pre, geo, hq)
         if hq:
-            q_idx, dstart, cbytes, end = scan_hq_slice_offsets(
-                data, geo.n_slices, pre.slice_prefix, pre.slice_size_scalar,
-                start)
+            with trace.span("dec.scan", picnum):
+                q_idx, dstart, cbytes, end = scan_hq_slice_offsets(
+                    data, geo.n_slices, pre.slice_prefix,
+                    pre.slice_size_scalar, start)
             # the data up to the slice chain's end: all the device needs
             payload = np.frombuffer(data, dtype=np.uint8, count=end)
             return end, LocatedPicture(picnum, pre, geo, pic_h, payload,
@@ -272,9 +286,10 @@ class Decoder:
         end = start + int(sizes.sum())
         if whole and end > len(data):
             raise ValueError("LD slice payload runs past the window")
-        scan = ld_scan(data, sizes, geo, depth,
-                       matrices.quant_matrix(pre.wavelet_kernel, depth),
-                       start)
+        with trace.span("dec.scan", picnum):
+            scan = ld_scan(data, sizes, geo, depth,
+                           matrices.quant_matrix(pre.wavelet_kernel, depth),
+                           start)
         payload = np.frombuffer(data, dtype=np.uint8,
                                 count=min(end, len(data)))
         return end, LocatedPicture(picnum, pre, geo, pic_h, payload, start,
@@ -293,20 +308,22 @@ class Decoder:
             self._write_tap(job, qmatrix)
             return
         out_geom = PictureGeometry.of(job.pic_h, hdr.width, hdr.chroma_format)
-        planes = None if self.mesh is None else self._mesh_planes(job,
-                                                                  qmatrix)
-        if planes is not None:
-            words = format_planes(planes, out_geom, hdr.bitdepth)
-        elif job.ld is not None:
-            words = synthesise_ld_payload_to_words(
-                job.payload, job.ld, qmatrix, pre.wavelet_kernel, pre.depth,
-                job.geo, out_geom, hdr.bitdepth, device=self.device)
-        else:
-            words = synthesise_payload_to_words(
-                job.payload, job.q_idx, job.cbytes, qmatrix,
-                pre.wavelet_kernel, pre.depth, job.geo, out_geom,
-                hdr.bitdepth, pre.slice_prefix, start=job.start,
-                device=self.device)
+        with trace.span("dec.issue", job.picnum):
+            planes = None if self.mesh is None else self._mesh_planes(
+                job, qmatrix)
+            if planes is not None:
+                words = format_planes(planes, out_geom, hdr.bitdepth)
+            elif job.ld is not None:
+                words = synthesise_ld_payload_to_words(
+                    job.payload, job.ld, qmatrix, pre.wavelet_kernel,
+                    pre.depth, job.geo, out_geom, hdr.bitdepth,
+                    device=self.device)
+            else:
+                words = synthesise_payload_to_words(
+                    job.payload, job.q_idx, job.cbytes, qmatrix,
+                    pre.wavelet_kernel, pre.depth, job.geo, out_geom,
+                    hdr.bitdepth, pre.slice_prefix, start=job.start,
+                    device=self.device)
         self._cur_picnum = job.picnum
         self._emit_words(words)
 
@@ -476,7 +493,6 @@ class Decoder:
         (src/DecodeStream/DecodeStream.cpp:205)."""
         window = bytearray()
         eof = False
-        self.max_window = 0           # high-water mark
 
         def fill(n=None) -> bool:
             """Grow the window to >= n bytes (or by one chunk). Returns
@@ -489,7 +505,6 @@ class Decoder:
                     eof = True
                 else:
                     window.extend(b)
-                    self.max_window = max(self.max_window, len(window))
                 if n is None:
                     break
             return n is None or len(window) >= n

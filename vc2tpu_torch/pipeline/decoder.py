@@ -32,8 +32,9 @@ QUANTISED outputs, ``cli.decode_frame``, ``Encoder.decode_inprocess``
 and the LD mesh decode whose slice rows do not divide over the mesh
 (``shard.halo``'s in-place lift); ``pipeline.sharded`` runs the band
 route a band at a time. The stages are
-separate functions so a profiler can time each; the caller makes the one
-D2H copy of the returned bytes.
+separate functions, each a span of ``core.trace`` (``dec.upload``,
+``dec.unpack``, ``dec.inverse``, ``dec.format``) that a profiler's trace
+shows; the caller makes the one D2H copy of the returned bytes.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.config import PictureGeometry, WaveletKernel
 from vc2tpu_torch.core.planario import SampleFormat, encode_plane
 from vc2tpu_torch.quant.quantiser import adjust_quant_index, scale
@@ -71,10 +73,11 @@ def upload(payload: np.ndarray, q_indices, cbytes, device: torch.device):
     """The picture's host data to the device: payload bytes (uint8 [P]) and
     the chain scan's fields as int32 [4, N] (q, then the three component
     byte lengths), one copy each."""
-    fields = np.concatenate([np.asarray(q_indices)[None],
-                             np.asarray(cbytes)]).astype(np.int32)
-    pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
-    return pay.to(device), torch.from_numpy(fields).to(device)
+    with trace.span("dec.upload"):
+        fields = np.concatenate([np.asarray(q_indices)[None],
+                                 np.asarray(cbytes)]).astype(np.int32)
+        pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
+        return pay.to(device), torch.from_numpy(fields).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -108,9 +111,10 @@ def format_planes(planes, out_geometry: PictureGeometry,
     fmt = _make_fmt(bitdepth)
     g = out_geometry
     y, c1, c2 = planes
-    return torch.cat([fmt(y[:g.luma_height, :g.luma_width]),
-                      fmt(c1[:g.chroma_height, :g.chroma_width]),
-                      fmt(c2[:g.chroma_height, :g.chroma_width])])
+    with trace.span("dec.format"):
+        return torch.cat([fmt(y[:g.luma_height, :g.luma_width]),
+                          fmt(c1[:g.chroma_height, :g.chroma_width]),
+                          fmt(c2[:g.chroma_height, :g.chroma_width])])
 
 
 def unpack_payload(payload: np.ndarray, q_indices, cbytes,
@@ -122,11 +126,12 @@ def unpack_payload(payload: np.ndarray, q_indices, cbytes,
     arguments are ``synthesise_payload_to_words``'s."""
     dev = devices.resolve(device)
     pay, fields = upload(payload, q_indices, cbytes, dev)
-    clen = fields[1:]
-    dstart = device_unpack.hq_component_offsets(clen, prefix, start)
-    ly = geo.luma_slice[0] * geo.luma_slice[1]
-    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-    return device_unpack.unpack_hq(pay, dstart, clen, ly, lc), fields[0]
+    with trace.span("dec.unpack"):
+        clen = fields[1:]
+        dstart = device_unpack.hq_component_offsets(clen, prefix, start)
+        ly = geo.luma_slice[0] * geo.luma_slice[1]
+        lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+        return device_unpack.unpack_hq(pay, dstart, clen, ly, lc), fields[0]
 
 
 def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
@@ -153,25 +158,28 @@ def synthesise_lanes(lanes, q_idx: torch.Tensor, qmatrix,
     indices: ``bands.inverse_lanes`` (LD: ``grids`` as band 0). At depth 0
     there is no transform, and the dequantised lanes (LD: the grids) are
     the planes."""
-    if depth == 0:
-        if grids is not None:
-            return list(grids)
-        return dequantise_planes(lanes, q_idx, qmatrix, 0, geo)
-    return bands.inverse_lanes(lanes, q_idx, qmatrix, geo, kernel, depth,
-                               grids)
+    with trace.span("dec.inverse"):
+        if depth == 0:
+            if grids is not None:
+                return list(grids)
+            return dequantise_planes(lanes, q_idx, qmatrix, 0, geo)
+        return bands.inverse_lanes(lanes, q_idx, qmatrix, geo, kernel, depth,
+                                   grids)
 
 
 def upload_ld(payload: np.ndarray, scan: LDScan, device: torch.device):
     """An LD picture's host data to the device, one copy each: the payload
     bytes (uint8 [P]), the scan's fields as int32 [5, N] (q, s_bits,
     len_bits, y_bits, uv_bits) and its three LL grids (int32)."""
-    fields = np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
-    flat = np.concatenate([g.ravel() for g in scan.grids]).astype(np.int32)
-    pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
-    grids = torch.from_numpy(flat).to(device).split(
-        [g.size for g in scan.grids])
-    return (pay.to(device), torch.from_numpy(fields).to(device),
-            [t.view(g.shape) for t, g in zip(grids, scan.grids)])
+    with trace.span("dec.upload"):
+        fields = np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
+        flat = np.concatenate([g.ravel() for g in scan.grids]).astype(
+            np.int32)
+        pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
+        grids = torch.from_numpy(flat).to(device).split(
+            [g.size for g in scan.grids])
+        return (pay.to(device), torch.from_numpy(fields).to(device),
+                [t.view(g.shape) for t, g in zip(grids, scan.grids)])
 
 
 def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
@@ -181,9 +189,11 @@ def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
     LL grids) on ``device`` (default the card), without synchronising."""
     dev = devices.resolve(device)
     pay, fields, grids = upload_ld(payload, scan, dev)
-    ly = geo.luma_slice[0] * geo.luma_slice[1]
-    lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-    return device_unpack.unpack_ld(pay, fields[1:], ly, lc), fields[0], grids
+    with trace.span("dec.unpack"):
+        ly = geo.luma_slice[0] * geo.luma_slice[1]
+        lc = geo.chroma_slice[0] * geo.chroma_slice[1]
+        return (device_unpack.unpack_ld(pay, fields[1:], ly, lc), fields[0],
+                grids)
 
 
 def dequantise_ld_planes(lanes, q_idx: torch.Tensor, grids, qmatrix,
