@@ -25,11 +25,19 @@ inverse lift (``shard.halo.sharded_inverse_planes``) where its padded
 rows divide.
 The tap outputs always take the single-device route.
 
+The DECODED output leaves the card through a ring of pinned host slots:
+when a picture's bytes are queued in the output FIFO their D2H starts at
+once, on a copy stream of the decoder's own; when the FIFO hands the
+picture on, the host waits for that copy's event (long complete, as a
+rule) and copies the slot once into a fresh buffer, which the sink gets
+as a ``memoryview``, so the slot is free for the next picture. On the CPU
+the sink gets a view of the decoded bytes themselves.
+
 Under a torch profiler the picture decode is traced (``core.trace``): the
 host scan (``dec.scan``), the device work's issue (``dec.issue``, around
 the stages of ``pipeline.decoder``), an output's wait in the FIFO
-(``dec.fifo``), its copy back (``dec.copy_back``) and its conversion to
-bytes (``dec.to_bytes``), each with the picture number.
+(``dec.fifo``), the wait for its copy back (``dec.copy_back``) and its
+copy out of the slot (``dec.to_bytes``), each with the picture number.
 
 An LD picture's bytes come from its preamble's slice_bytes fraction with
 no second halving when interlaced: the JAX package's deliberate deviation
@@ -152,9 +160,17 @@ class Decoder:
         self.frame = 0
         self.frags: dict[int, _FragState] = {}
         self.frames_out = 0
-        # output bytes in flight: (words, picture number, trace.stamp())
+        # output bytes in flight: (pinned slot, the CUDA event behind its
+        # D2H, picture number, trace.stamp()); on the CPU (words, None, ...)
         self._pending: list[tuple] = []
         self._depth = 3               # pictures in flight before blocking
+        self._slots: list[torch.Tensor] = []    # pinned slots free to fill
+        self._copy_streams: dict = {}           # device -> D2H stream
+        # the copy back's counts: pictures through the ring, pinned slots
+        # allocated, and copy backs not yet complete when the FIFO took them
+        self.copy_back_ring = 0
+        self.copy_back_slots = 0
+        self.copy_back_waited = 0
         self._first_words = None      # formatted first field (interlace)
         self._first_picnum = None     # picture number of the buffered field
         self._field_parity = None     # picnum parity of FIRST fields
@@ -164,17 +180,58 @@ class Decoder:
         if self.verbose:
             print(msg, file=sys.stderr)
 
-    # --- pipelined output: the D2H copy of a frame waits until later frames
-    # are queued on the device; byte order is kept by the FIFO ---
+    # --- pipelined output: a frame's D2H starts when it is queued, and the
+    # host takes it only once later frames are queued on the device; byte
+    # order is kept by the FIFO ---
+
+    def _copy_back_async(self, words: torch.Tensor) -> tuple:
+        """Start the copy of one output's bytes to the host. On a card, a
+        DMA into a free pinned slot of ``words``' size (a new slot where
+        none of that size is free: with the FIFO's ``_depth`` outputs at
+        most, the ring never holds more slots), on the decoder's copy
+        stream of ``words.device`` behind the work queued on its current
+        stream; returns (slot, the event recorded behind the copy). On the
+        CPU, (``words``, None)."""
+        if words.device.type != "cuda":
+            return words, None
+        self._slots = [s for s in self._slots
+                       if s.shape == words.shape and s.dtype == words.dtype]
+        if self._slots:
+            slot = self._slots.pop()
+        else:
+            slot = torch.empty(words.shape, dtype=words.dtype,
+                               pin_memory=True)
+            self.copy_back_slots += 1
+        dev = words.device
+        stream = self._copy_streams.get(dev)
+        if stream is None:
+            stream = self._copy_streams[dev] = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            slot.copy_(words, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        words.record_stream(stream)
+        self.copy_back_ring += 1
+        return slot, done
 
     def _flush(self, keep: int = 0):
         while len(self._pending) > keep:
-            words, picnum, queued = self._pending.pop(0)
+            src, done, picnum, queued = self._pending.pop(0)
             trace.wait("dec.fifo", picnum, queued)
             with trace.span("dec.copy_back", picnum):
-                host = words.cpu()
+                if done is not None and not done.query():
+                    self.copy_back_waited += 1
+                    done.synchronize()
             with trace.span("dec.to_bytes", picnum):
-                data = host.numpy().tobytes()
+                if done is None:
+                    out = src.contiguous()
+                else:
+                    # the sink may keep what it gets: never hand it a slot
+                    out = torch.empty(src.shape, dtype=src.dtype)
+                    out.copy_(src)
+                    self._slots.append(src)
+                data = memoryview(out.numpy())
             self.sink.write(data)
             self.frames_out += 1
 
@@ -227,7 +284,8 @@ class Decoder:
                 off += n
             words = torch.cat(parts)
         self._flush(keep=self._depth - 1)
-        self._pending.append((words, self._cur_picnum, trace.stamp()))
+        self._pending.append((*self._copy_back_async(words),
+                              self._cur_picnum, trace.stamp()))
         self.frame += 1
 
     # --- picture decode ---
