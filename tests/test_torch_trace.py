@@ -20,6 +20,11 @@ CASES = ["cbr_legall_d2", "ld_legall_d2"]
 STAGES = ("dec.upload", "dec.unpack", "dec.inverse", "dec.format")
 ONCE = ("dec.scan", "dec.issue", *STAGES, "dec.fifo", "dec.copy_back",
         "dec.to_bytes")
+LD_SCAN = ("dec.ld_read", "dec.ld_dc")     # the LD scan's two phases
+
+
+def _once(case):
+    return ONCE + (LD_SCAN if case.startswith("ld") else ())
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 
@@ -60,7 +65,7 @@ def test_profiled_decode_spans_each_picture(case):
     got = _since(t0)
     pictures = sorted({r.picture for r in got})
     assert len(pictures) == 2 and None not in pictures
-    for name in ONCE:
+    for name in _once(case):
         assert sorted(r.picture for r in got if r.name == name) == pictures
     at = {(r.name, r.picture): r for r in got}
     for p in pictures:
@@ -81,11 +86,14 @@ def test_profiled_decode_spans_each_picture(case):
         if e.name().startswith(trace.PREFIX):
             marks.setdefault(e.name()[len(trace.PREFIX):], []).append(
                 (e.start_ns(), e.start_ns() + e.duration_ns()))
-    assert sorted(marks) == sorted(n for n in ONCE if n != "dec.fifo")
+    assert sorted(marks) == sorted(n for n in _once(case) if n != "dec.fifo")
     assert all(len(v) == len(pictures) for v in marks.values())
     for name in STAGES:
         for a, b in marks[name]:
             assert any(lo <= a and b <= hi for lo, hi in marks["dec.issue"])
+    for name in set(LD_SCAN) & set(marks):
+        for a, b in marks[name]:
+            assert any(lo <= a and b <= hi for lo, hi in marks["dec.scan"])
 
 
 def test_records_stay_bounded():

@@ -1,5 +1,5 @@
-// LD slice header scan and LL DC-prediction dequantise on the host, in one
-// pass: the twin of the JAX package's vc2tpu/slices/ld.py::ld_header_fields
+// LD slice header scan and LL DC-prediction dequantise on the host, in two
+// phases: the twin of the JAX package's vc2tpu/slices/ld.py::ld_header_fields
 // and vc2tpu/pipeline/decoder.py::ld_ll_grids, whose recurrence is
 // vc2tpu/_native/vc2host.cpp:1859-1876 (ld_ll_dequantise_grid, with
 // predict_dc, c_scale and adjust_q). The port loads no library of the JAX
@@ -11,22 +11,24 @@
 // y_bits, 0) bits. The luma bound is not clamped to the slice (neither is
 // the JAX package's). Reads past the payload give 1-bits (its 0xFF pad).
 //
-// The LL band of every slice is the first nll codes of its luma region
-// and the first 2 nllc codes of its interleaved U/V region: they are
-// decoded here (the bounded exp-Golomb rule of golomb_decode.cuh, codes of
-// more than 31 data bits clamped), scattered into the compact LL grids,
-// and dequantised by the strictly sequential raster recurrence of the
-// reference's inverse_quantise_LLSubband (Quantisation.cpp:287-306):
-// each LL value is c_scale(code, adjusted q) plus the mean of its left,
-// above and above-left neighbours' values (a truncating division by 3).
-// The int32 arithmetic wraps, as the reference's does on x86.
+// ld_read, the first phase, walks the slices: the header fields, the q
+// indices, and the LL band of every slice, the first nll codes of its luma
+// region and the first 2 nllc codes of its interleaved U/V region, decoded
+// (the bounded exp-Golomb rule of golomb_decode.cuh, codes of more than 31
+// data bits clamped) and scattered into the compact LL grids.
 //
-// It stays on the host: the recurrence is serial over the whole grid, and
+// ld_dequantise_grid, the second, runs on one grid of LL codes, in place,
+// the strictly sequential raster recurrence of the reference's
+// inverse_quantise_LLSubband (Quantisation.cpp:287-306): each LL value is
+// c_scale(code, adjusted q) plus the mean of its left, above and above-left
+// neighbours' values (a truncating division by 3). The int32 arithmetic
+// wraps, as the reference's does on x86. The decoder runs it once a grid
+// after ld_read; the encoder's Decoded and PSNR outputs run it on the
+// quantised LL band (the JAX package's vc2host.cpp ld_dequantise_plane, LL
+// part).
+//
+// Both stay on the host: the recurrence is serial over the whole grid, and
 // the grids are 1/4^depth of the picture (0.26 M values at 1080p depth 2).
-//
-// ld_dequantise_grid is the recurrence alone, on a grid of LL codes: the
-// encoder's Decoded and PSNR outputs run it on the quantised LL band (the
-// JAX package's vc2host.cpp ld_dequantise_plane, LL part).
 
 #include <cstdint>
 
@@ -150,22 +152,22 @@ void dequantise_grid(int32_t* grid, int64_t llh, int64_t llw, int64_t ys,
 
 // One component's LL geometry: the slice block (sh x sw), its nll LL
 // codes' offsets in a slice's LL block of the grid (row-major at the grid
-// width llw), the slice block's quant matrix entries (row-major), and the
-// grid (llh x llw).
+// width llw), and the grid (llh x llw).
 struct LLGrid {
   int64_t sh, sw, nll, llh, llw;
   const int64_t* offset;
-  const int32_t* qm_block;
 };
 
+// The slice walk: q [n], fields [4, n] (s_bits, len_bits, y_bits,
+// uv_bits) and the LL codes of every slice into the grids gy, gu, gv
+// (slices xs a row, transform depth log2(ts); each grid zeroed first).
 // Returns the byte offset just past the last slice; -1 when a slice's bit
-// fields leave the int32 range, -2 when an LL code lands outside its grid
-// (a geometry no encoder writes).
-extern "C" int64_t ld_scan(const uint8_t* payload, int64_t paylen, int64_t n,
-                           int64_t start, const int32_t* sizes, int64_t ys,
-                           int64_t xs, int64_t ts, const LLGrid* luma,
-                           const LLGrid* chroma, const int32_t* qf,
-                           const int32_t* qo, int32_t* q, int32_t* fields,
+// fields leave the int32 range (at once), -2 when an LL code lands outside
+// its grid (a geometry no encoder writes; after the walk).
+extern "C" int64_t ld_read(const uint8_t* payload, int64_t paylen, int64_t n,
+                           int64_t start, const int32_t* sizes, int64_t xs,
+                           int64_t ts, const LLGrid* luma,
+                           const LLGrid* chroma, int32_t* q, int32_t* fields,
                            int32_t* gy, int32_t* gu, int32_t* gv) {
   const int64_t grid_y = luma->llh * luma->llw;
   const int64_t grid_c = chroma->llh * chroma->llw;
@@ -209,15 +211,7 @@ extern "C" int64_t ld_scan(const uint8_t* payload, int64_t paylen, int64_t n,
                  });
     pos += size;
   }
-  if (outside) return -2;
-  const Tables t{qf, qo};
-  dequantise_grid(gy, luma->llh, luma->llw, ys, xs, ts, luma->sh, luma->sw,
-                  luma->qm_block, q, t);
-  dequantise_grid(gu, chroma->llh, chroma->llw, ys, xs, ts, chroma->sh,
-                  chroma->sw, chroma->qm_block, q, t);
-  dequantise_grid(gv, chroma->llh, chroma->llw, ys, xs, ts, chroma->sh,
-                  chroma->sw, chroma->qm_block, q, t);
-  return pos;
+  return outside ? -2 : pos;
 }
 
 // The LL DC-prediction recurrence alone, in place on a grid (llh x llw) of

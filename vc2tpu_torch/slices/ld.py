@@ -10,10 +10,12 @@ the sizes. Reads past the payload give 1-bits (the JAX package's 0xFF
 pad, the reference's at-EOF rule).
 
 ``ld_scan`` is the host half of the device LD decode, in native code
-(``csrc/ld_scan.cpp``, built with the host C++ compiler at first use): the
-header fields of every slice, and the LL band's codes dequantised with DC
-prediction (a strict raster recurrence, reference Quantisation.cpp:
-287-306) into three compact grids. ``ld_scan_plain`` is the same from
+(``csrc/ld_scan.cpp``, built with the host C++ compiler at first use), in
+two phases, each a span of the decode path (``core/trace``): the slice
+walk (``dec.ld_read``: the header fields of every slice, and the LL band's
+codes into three compact grids), then the DC prediction (``dec.ld_dc``: a
+strict raster recurrence, reference Quantisation.cpp:287-306, that
+dequantises each grid in place). ``ld_scan_plain`` is the same from
 ``ld_header_fields``, the plain bit reader and a Python loop of the
 recurrence: the reference the tests hold the native scan against.
 ``dequantise_ll`` runs the recurrence alone on a grid of LL codes
@@ -35,6 +37,7 @@ import torch
 
 from vc2tpu_torch.core import build
 from vc2tpu_torch.core import device as devices
+from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import MAX_QINDEX, QUANT_FACTORS_I32, \
     QUANT_OFFSETS
@@ -162,17 +165,16 @@ def scan_source() -> build.Source:
 class _LLGrid(ctypes.Structure):
     _fields_ = [("sh", ctypes.c_int64), ("sw", ctypes.c_int64),
                 ("nll", ctypes.c_int64), ("llh", ctypes.c_int64),
-                ("llw", ctypes.c_int64), ("offset", ctypes.c_void_p),
-                ("qm_block", ctypes.c_void_p)]
+                ("llw", ctypes.c_int64), ("offset", ctypes.c_void_p)]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load(scan_source())
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.ld_scan.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, p, p, p,
-                            p, p, p, p, p]
-    lib.ld_scan.restype = i64
+    lib.ld_read.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, p, p, p, p,
+                            p]
+    lib.ld_read.restype = i64
     lib.ld_dequantise_grid.argtypes = [p, i64, i64, i64, i64, i64, i64, i64,
                                        p, p, p, p]
     lib.ld_dequantise_grid.restype = None
@@ -193,41 +195,46 @@ def _geometries(geo, depth: int):
 def ld_scan(payload, slice_sizes, geo, depth: int, qmatrix,
             start: int = 0) -> LDScan:
     """Scan an LD picture's slices in native code (``csrc/ld_scan.cpp``):
-    the header fields, and the LL grids dequantised with DC prediction.
-    ``payload`` is bytes, a bytearray, a memoryview or a uint8 array whose
-    slices begin at byte ``start``; ``geo`` a ``SliceGeometry``. Raises
-    ValueError on a corrupt geometry or fields."""
-    data = np.frombuffer(payload, np.uint8)
-    sizes = np.ascontiguousarray(np.asarray(slice_sizes).ravel(), np.int32)
-    n = sizes.size
-    gl, gc = _geometries(geo, depth)
-    keep = []
-
-    def grid_arg(g: LLGeometry, sh, sw):
-        off = np.ascontiguousarray(g.offset, np.int64)
-        qm = qm_block(sh, sw, depth, qmatrix)
-        keep.extend((off, qm))
-        return _LLGrid(g.sh, g.sw, g.nll, g.llh, g.llw, off.ctypes.data,
-                       qm.ctypes.data)
-
-    luma = grid_arg(gl, *geo.luma_slice)
-    chroma = grid_arg(gc, *geo.chroma_slice)
-    q = np.zeros(n, np.int32)
-    fields = np.zeros((4, n), np.int32)
-    gy = np.zeros((gl.llh, gl.llw), np.int32)
-    gu = np.zeros((gc.llh, gc.llw), np.int32)
-    gv = np.zeros((gc.llh, gc.llw), np.int32)
-    end = _lib().ld_scan(
-        data.ctypes.data, data.size, n, start, sizes.ctypes.data,
-        geo.y_slices, geo.x_slices, 1 << depth, ctypes.byref(luma),
-        ctypes.byref(chroma), _QF.ctypes.data, _QO.ctypes.data,
-        q.ctypes.data, fields.ctypes.data, gy.ctypes.data, gu.ctypes.data,
-        gv.ctypes.data)
+    the header fields and the LL codes (``ld_read``, span ``dec.ld_read``),
+    then the LL grids dequantised with DC prediction (``ld_dequantise_grid``
+    a grid, span ``dec.ld_dc``). ``payload`` is bytes, a bytearray, a
+    memoryview or a uint8 array whose slices begin at byte ``start``;
+    ``geo`` a ``SliceGeometry``. Raises ValueError on a corrupt geometry or
+    fields, before any recurrence runs."""
+    lib = _lib()
+    ts = 1 << depth
+    slices = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
+    with trace.span("dec.ld_read"):
+        data = np.frombuffer(payload, np.uint8)
+        sizes = np.ascontiguousarray(np.asarray(slice_sizes).ravel(),
+                                     np.int32)
+        n = sizes.size
+        gl, gc = _geometries(geo, depth)
+        offsets = [np.ascontiguousarray(g.offset, np.int64) for g in (gl, gc)]
+        luma, chroma = (_LLGrid(g.sh, g.sw, g.nll, g.llh, g.llw,
+                                off.ctypes.data)
+                        for g, off in zip((gl, gc), offsets))
+        q = np.zeros(n, np.int32)
+        fields = np.zeros((4, n), np.int32)
+        grids = tuple(np.zeros((g.llh, g.llw), np.int32)
+                      for g in (gl, gc, gc))
+        end = lib.ld_read(
+            data.ctypes.data, data.size, n, start, sizes.ctypes.data,
+            geo.x_slices, ts, ctypes.byref(luma), ctypes.byref(chroma),
+            q.ctypes.data, fields.ctypes.data,
+            *(g.ctypes.data for g in grids))
     if end == -1:
         raise ValueError("LD slice fields exceed the int32 range")
     if end < 0:
         raise ValueError(_LL_OUTSIDE)
-    return LDScan(q, fields, (gy, gu, gv), int(end))
+    with trace.span("dec.ld_dc"):
+        qy, qc = (qm_block(sh, sw, depth, qmatrix) for sh, sw in slices[:2])
+        for grid, (sh, sw), qm in zip(grids, slices, (qy, qc, qc)):
+            lib.ld_dequantise_grid(
+                grid.ctypes.data, *grid.shape, geo.y_slices, geo.x_slices,
+                ts, sh, sw, qm.ctypes.data, q.ctypes.data, _QF.ctypes.data,
+                _QO.ctypes.data)
+    return LDScan(q, fields, grids, int(end))
 
 
 def dequantise_ll(grid: np.ndarray, ys: int, xs: int, ts: int, sh: int,
