@@ -88,9 +88,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
    package's decode; band_inverse 2 launches a picture, unpack 1,
    lift_level 0); decode the 1080p LD fixture (SHA-256 against the JAX
-   package's decode; ld_unpack 1, band_inverse 2, lift_level 0, hq_unpack
-   0); encode the 1080p ConstQ input (``make_1080p.make_input``) with the
-   encode CLI (bytes equal to ``constq_1080p.vc2``, its decode at the
+   package's decode; ld_unpack 1, ld_dc 1, band_inverse 2, lift_level 0,
+   hq_unpack 0); encode the 1080p ConstQ input
+   (``make_1080p.make_input``) with the encode CLI (bytes equal to
+   ``constq_1080p.vc2``, its decode at the
    recorded SHA-256; band_forward 2, lift_level 0, pack 1); encode the
    same input as HQ CBR (bytes equal to ``cbr_1080p.vc2``; band_forward 2,
    cbr 1, pack 1), and again with ``-F 16384``, whose fragments
@@ -114,8 +115,11 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    decodes and the ConstQ encode; the per-stage breakdown of one 1080p
    picture each way on both routes (a "cbr search" stage in the CBR
    encode, a "rate control" stage in the LD encode; the LD decode's host
-   "ld scan + LL recurrence"), the device's idle share, each kernel's time
-   beside its bound and its plain version's time, and the LD rate control's
+   header walk, and the host scan with its LL recurrence that the mesh
+   route keeps), the device's idle share, each kernel's time beside its
+   bound and its plain version's time (the LD DC prediction's beside its
+   chain bound: the grid's anti-diagonals at DC_CELL_CHAIN dependent
+   instructions of INT_LATENCY cycles), and the LD rate control's
    dependent step (the kernel on one row and on one column of the
    picture's slices), its bound by the dependent chain (the steps times
    the deepest LL block's cells at LL_CELL_CHAIN dependent instructions
@@ -145,11 +149,12 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    LD one over ``1x2`` (equal to ``ld_1080p.vc2``; ``LDEncoder(mesh=)``'s
    in-place halo lift: lift_level 2, ld_rate 1, ld_pack 1), each decoded
    with ``Decoder(mesh=)`` to the recorded SHA-256 (over 1x3: hq_unpack
-   or ld_unpack 3, band_inverse 6, lift_level 0; LD also over 1x2, whose
-   135 slice rows do not divide: ld_unpack 1 and the in-place halo
-   inverse, lift_level 2); 8K HQ CBR (BASELINE config #5, 1080 x 960
-   slices) over 1x4 and 2x4 meshes (two pictures; band_forward 2 a band)
-   against the single-device ``Encoder`` (q indices, payloads, streams)
+   or ld_unpack 3, band_inverse 6, lift_level 0, ld_dc 0 (the host
+   scan's grids); LD also over 1x2, whose 135 slice rows do not divide:
+   ld_unpack 1, ld_dc 1 and the in-place halo inverse, lift_level 2); 8K
+   HQ CBR (BASELINE config #5, 1080 x 960 slices) over 1x4 and 2x4
+   meshes (two pictures; band_forward 2 a band) against the
+   single-device ``Encoder`` (q indices, payloads, streams)
    and, over 1x4, the decode against ``Decoder()`` (band_inverse 8); the
    per-band balance, the 8K times (one card, the bands on one device: not
    a scaling figure); the band form against the mesh's in-place route
@@ -216,6 +221,9 @@ SPLIT_ROWS = (("1080p", 2), ("8k", 4))
 # and its correction 12, the sign 2, the rescale 11, the sum 1), and the
 # least latency between two dependent integer instructions on Hopper
 LL_CELL_CHAIN = 34
+# csrc/ld_dc.cu's dependent instructions a cell: the sum of three, the
+# rounding's sign, the division by 3 (multiply-high, shift, sign), the term
+DC_CELL_CHAIN = 7
 INT_LATENCY = 4           # cycles
 
 
@@ -447,7 +455,8 @@ def inplace_route():
             qm = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
             if job.ld is not None:
                 lanes, q, grids = pipe.unpack_ld_payload(
-                    job.payload, job.ld, geo, device=self.device)
+                    job.payload, job.ld, geo, qm, pre.depth,
+                    device=self.device)
                 planes = pipe.dequantise_ld_planes(lanes, q, grids, qm,
                                                    pre.depth, geo)
             else:
@@ -917,7 +926,7 @@ def check_unpack(torch, np, rng, dev, streams):
 def ld_picture_of(stream: bytes, device):
     """(decoder, byte offset, located picture) of the first LD picture of a
     stream, via the Decoder's host half (``locate_picture``, which runs the
-    native LD scan)."""
+    native header walk)."""
     from vc2tpu_torch.cli.decode_stream import Decoder
     from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 
@@ -965,8 +974,11 @@ def ld_random_fields(np, rng, n: int, nbytes: int, far: bool = False,
 
 
 def check_ld(torch, np, rng, dev, stream: bytes):
-    """The LD unpack kernel against its plain version (integer ==) and the
-    native LD scan against its Python twin. Returns the max |err|."""
+    """The LD unpack kernel against its plain version (integer ==), the
+    native header walk and LD scan against the scan's Python twin, and the
+    LL grids the DC kernel computes from the fixture's lanes against the
+    twin's. Returns the max |err| of the unpack and of the DC kernel."""
+    from vc2tpu_torch.quant import ld_dc
     from vc2tpu_torch.slices import layout
     from vc2tpu_torch.slices import ld as slices_ld
     from vc2tpu_torch.vlc import device_unpack as du
@@ -979,22 +991,33 @@ def check_ld(torch, np, rng, dev, stream: bytes):
         pre.slice_bytes_numerator * geo.n_slices
         // pre.slice_bytes_denominator, 1).ravel()
     qm = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
-    # job.ld is the native scan's, from locate_picture
+    # job.ld is the native header walk's, from locate_picture
     plain = slices_ld.ld_scan_plain(stream[offset:], sizes, geo, pre.depth,
                                     qm, job.start)
-    check(np.array_equal(plain.q, job.ld.q)
-          and np.array_equal(plain.fields, job.ld.fields)
-          and plain.end == job.ld.end
+    native = slices_ld.ld_scan(stream[offset:], sizes, geo, pre.depth, qm,
+                               job.start)
+    check(all(np.array_equal(plain.q, s.q)
+              and np.array_equal(plain.fields, s.fields)
+              and plain.end == s.end for s in (job.ld, native))
           and all(np.array_equal(a, b)
-                  for a, b in zip(plain.grids, job.ld.grids)),
-          "the native LD scan differs from its Python twin")
-    print(f"native LD scan == Python twin on the 1080p LD fixture "
-          f"({job.geo.n_slices} slices, LL grids "
-          f"{[g.shape for g in job.ld.grids]})")
+                  for a, b in zip(plain.grids, native.grids)),
+          "the native header walk or LD scan differs from its Python twin")
+    print(f"native header walk and LD scan == Python twin on the 1080p LD "
+          f"fixture ({job.geo.n_slices} slices, LL grids "
+          f"{[g.shape for g in plain.grids]})")
     ly = geo.luma_slice[0] * geo.luma_slice[1]
     lc = geo.chroma_slice[0] * geo.chroma_slice[1]
     pay = torch.as_tensor(np.array(job.payload), device=dev)
     fields = torch.as_tensor(job.ld.fields, device=dev)
+    grids = ld_dc.ll_grids(
+        du.unpack_ld(pay, fields, ly, lc),
+        torch.as_tensor(job.ld.q, device=dev),
+        ld_dc.plan(geo, pre.depth, tuple(int(v) for v in qm), pay.device))
+    dc_err = max(max_err(torch, g, torch.as_tensor(w, device=dev))
+                 for g, w in zip(grids, plain.grids))
+    check(dc_err == 0, f"ld_dc on the 1080p LD fixture: max |err| {dc_err}")
+    print(f"ld_dc kernel == Python twin's LL grids on the 1080p LD fixture, "
+          f"max |err| {dc_err}")
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -1041,7 +1064,7 @@ def check_ld(torch, np, rng, dev, stream: bytes):
           "the LD unpack cases miss a branch: the window staged or read "
           "from device memory, the lanes in the tile or not")
     print(f"ld_unpack kernel == plain: {len(cases)} cases, max |err| {err}")
-    return err
+    return err, dc_err
 
 
 def fixture_lanes(dev, picture, key: str):
@@ -1974,10 +1997,10 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
     check_counts("mesh_encode_ld", {"lift_level": 2, "band_forward": 0,
                                     "ld_rate": 1, "ld_pack": 1})
     decode(ld, "ld_1080p", "mesh_decode_ld",
-           {"ld_unpack": 3, "band_inverse": 6, "lift_level": 0},
+           {"ld_unpack": 3, "ld_dc": 0, "band_inverse": 6, "lift_level": 0},
            mesh=mesh(1, 3))
     decode(ld, "ld_1080p", "mesh_decode_ld_1x2",
-           {"ld_unpack": 1, "band_inverse": 0, "lift_level": 2},
+           {"ld_unpack": 1, "ld_dc": 1, "band_inverse": 0, "lift_level": 2},
            mesh=mesh(1, 2))
     print("mesh 1080p: ConstQ and CBR encoded over 1x3 (and -F "
           f"{FRAGMENT}), LD over 1x2, bytes equal to the fixtures; decoded "
@@ -2335,6 +2358,7 @@ def main(argv) -> int:
     from vc2tpu_torch.pipeline import decoder as pipe
     from vc2tpu_torch.core.config import DecOutput
     from vc2tpu_torch.pipeline import encoder as enc_mod
+    from vc2tpu_torch.quant import ld_dc
     from vc2tpu_torch.rdo import cbr
     from vc2tpu_torch.rdo import ld as rdo_ld
     from vc2tpu_torch.slices import hq as slices_hq
@@ -2362,8 +2386,8 @@ def main(argv) -> int:
                        du.kernel_source(),
                        dp.kernel_source(), cbr.kernel_source(),
                        du.ld_kernel_source(), rdo_ld.kernel_source(),
-                       dp.ld_kernel_source(), slices_hq.scan_source(),
-                       slices_ld.scan_source())
+                       dp.ld_kernel_source(), ld_dc.kernel_source(),
+                       slices_hq.scan_source(), slices_ld.scan_source())
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.basename(p) for p in libs]}")
     t_last = [t0]
@@ -2391,7 +2415,7 @@ def main(argv) -> int:
             streams[key] = f.read()
     hq_streams = {k: v for k, v in streams.items() if not k.startswith("ld")}
     unpack_err, unpack_cases = check_unpack(torch, np, rng, dev, hq_streams)
-    ld_err = check_ld(torch, np, rng, dev, streams["ld_1080p"])
+    ld_err, ld_dc_err = check_ld(torch, np, rng, dev, streams["ld_1080p"])
     phase_done("3 unpack")
 
     # 4. pack kernel against its plain version, quant on the card
@@ -2435,6 +2459,7 @@ def main(argv) -> int:
         dp.pack_hq.launches = 0
         cbr.cbr_quant_indices.launches = 0
         du.unpack_ld.launches = 0
+        ld_dc.ll_grids.launches = 0
         rdo_ld.ld_rate_control.launches = 0
         dp.quant_pack_ld.launches = 0
 
@@ -2446,6 +2471,7 @@ def main(argv) -> int:
                 "hq_pack": dp.pack_hq.launches,
                 "hq_cbr": cbr.cbr_quant_indices.launches,
                 "ld_unpack": du.unpack_ld.launches,
+                "ld_dc": ld_dc.ll_grids.launches,
                 "ld_rate": rdo_ld.ld_rate_control.launches,
                 "ld_pack": dp.quant_pack_ld.launches}
 
@@ -2481,8 +2507,8 @@ def main(argv) -> int:
           f"package's {fixtures['ld_1080p']['decoded_sha256']}")
     print("main path LD decode: the 1080p LD picture, SHA-256 equal to the "
           f"JAX package's decode; launches {ld_launches}")
-    for k, want in (("ld_unpack", 1), ("band_inverse", 2), ("lift_level", 0),
-                    ("hq_unpack", 0)):
+    for k, want in (("ld_unpack", 1), ("ld_dc", 1), ("band_inverse", 2),
+                    ("lift_level", 0), ("hq_unpack", 0)):
         check(ld_launches[k] == want, f"{k} launched {ld_launches[k]} times "
                                       f"in the LD decode, expected {want}")
 
@@ -2819,7 +2845,11 @@ def main(argv) -> int:
         // lpre.slice_bytes_denominator, 1).ravel()
     ld_unit = ld_stream[ld_offset:]
     ld_scan_args = (ld_sizes, lgeo, lpre.depth, lqm, ld_job.start)
-    stages["LD decode host: ld scan + LL recurrence (native)"] = time_host(
+    stages["LD decode host: header walk (native, the main path)"] = \
+        time_host(lambda: slices_ld.ld_fields(
+            ld_unit, ld_sizes, lgeo, lpre.depth, ld_job.start))
+    stages["LD decode host: ld scan + LL recurrence (native, the divisible "
+           "mesh route)"] = time_host(
         lambda: slices_ld.ld_scan(ld_unit, *ld_scan_args))
     stages["LD decode host: ld scan + LL recurrence (Python twin, the "
            "reference)"] = time_host(
@@ -2828,12 +2858,16 @@ def main(argv) -> int:
                                 ld_dec.hdr.chroma_format)
     lly = lgeo.luma_slice[0] * lgeo.luma_slice[1]
     llc = lgeo.chroma_slice[0] * lgeo.chroma_slice[1]
+    ld_plan = ld_dc.plan(lgeo, lpre.depth, tuple(int(v) for v in lqm),
+                         torch.device("cuda", torch.cuda.current_device()))
 
     def ld_decode_stages(mark, route):
-        pay, fields, grids = pipe.upload_ld(ld_job.payload, ld_job.ld, dev)
-        mark("LD decode device: H2D (payload + fields + LL grids)")
+        pay, fields = pipe.upload_ld(ld_job.payload, ld_job.ld, dev)
+        mark("LD decode device: H2D (payload + fields)")
         lanes = du.unpack_ld(pay, fields[1:], lly, llc)
         mark("LD decode device: ld_unpack kernel")
+        grids = ld_dc.ll_grids(lanes, fields[0], ld_plan)
+        mark("LD decode device: ld_dc kernel (the LL grids)")
         if route == routes[0]:
             planes = bands.inverse_lanes(lanes, fields[0], lqm, lgeo,
                                          lpre.wavelet_kernel, lpre.depth,
@@ -3021,6 +3055,19 @@ def main(argv) -> int:
         int(torch.floor(torch.log2(t.abs().double() + 1)).sum().item())
         for t in ld_lanes)
     ld_bound, ld_by = bound_ms(ld_bytes, 20 * ld_n_lanes + 3 * ld_ndata)
+    # the LD DC prediction: the LL codes gathered from the lanes, their
+    # lane map, the q indices and the row and column tables read once, the
+    # grids written once; ~40 operations a cell (c_scale and the
+    # prediction). Its chain: llh + llw - 1 anti-diagonals of the largest
+    # grid, DC_CELL_CHAIN dependent instructions of INT_LATENCY cycles each
+    # (at most MAX_THREADS rows a band: one band at 1080p), at the card's
+    # highest clock
+    src_y, src_c = slices_ld.ll_sources(lgeo, lpre.depth)
+    dc_cells = src_y.size + 2 * src_c.size
+    ld_dc_bound, ld_dc_by = bound_ms(4 * 3 * dc_cells + 4 * lgeo.n_slices,
+                                     40 * dc_cells)
+    dc_steps = max(h + w - 1 for h, w in (src_y.shape, src_c.shape))
+    ld_dc_chain = 1e3 * dc_steps * DC_CELL_CHAIN * INT_LATENCY / max_sm_hz()
 
     # the LD rate control: the transform lanes, the budgets and the quant
     # matrix tables read once, the q indices and the LL lanes written once.
@@ -3167,6 +3214,17 @@ def main(argv) -> int:
          "device_ms": times["ld_unpack_device_ms"],
          "plain_ms": times["ld_unpack_plain_ms"],
          "bound_ms": ld_bound, "bound_by": ld_by, "library_ms": None},
+        {"name": "ld_dc", "route": "cuda",
+         "source": "vc2tpu_torch/csrc/ld_dc.cu",
+         "replaces": "vc2tpu_torch/csrc/ld_scan.cpp ld_dequantise_grid "
+                     "(vc2tpu/pipeline/decoder.py ld_ll_grids)",
+         "launches": launches("ld_dc"),
+         "launches_by_path": by_path("ld_dc"),
+         "max_abs_err": ld_dc_err,
+         "ms": times["ld_dc_ms"], "device_ms": times["ld_dc_device_ms"],
+         "plain_ms": times["ld_dc_plain_ms"],
+         "bound_ms": ld_dc_bound, "bound_by": ld_dc_by,
+         "chain_bound_ms": ld_dc_chain, "library_ms": None},
         {"name": "ld_rate", "route": "cuda",
          "source": "vc2tpu_torch/csrc/ld_rate.cu",
          "replaces": "vc2tpu/rdo/ld.py:233",
@@ -3208,6 +3266,10 @@ def main(argv) -> int:
           f"{steps * times['ld_rate_col_us'] / 1e3:.4f} ms, device_ms / that "
           f"{times['ld_rate_device_ms'] / (steps * times['ld_rate_col_us'] / 1e3):.3f} "
           f"({card})")
+    print(f"ld_dc chain bound {ld_dc_chain:.4f} ms ({dc_steps} steps x "
+          f"{DC_CELL_CHAIN} instructions x {INT_LATENCY} cycles at "
+          f"{max_sm_hz() / 1e6:.0f} MHz); device_ms / that "
+          f"{times['ld_dc_device_ms'] / ld_dc_chain:.2f} ({card})")
     for k in kernels:
         if k["name"] == "band_inverse":
             print(f"kernel band_inverse on the CBR fixture's lanes "
@@ -3359,11 +3421,14 @@ def band_times(torch, jobs: dict, dev, samples, enc) -> dict:
 
 
 def ld_times(torch, np, job, dev) -> dict:
-    """Times of the LD unpack on the 1080p LD picture: ``ld_unpack_ms`` as
-    the host issues 10 launches back to back, ``ld_unpack_device_ms``
-    queued (the device's time alone), ``ld_unpack_plain_ms`` of the plain
-    version on the card."""
+    """Times of the LD unpack and the DC prediction on the 1080p LD
+    picture: ``*_ms`` as the host issues 10 launches back to back,
+    ``*_device_ms`` queued (the device's time alone), ``*_plain_ms`` of the
+    plain version (the unpack's on the card; the DC prediction's, the host
+    recurrence over the codes gathered from the lanes, on the host)."""
+    from vc2tpu_torch.quant import ld_dc
     from vc2tpu_torch.vlc import device_unpack as du
+    from vc2tpu_torch.wavelet import matrices
 
     geo = job.geo
     ly = geo.luma_slice[0] * geo.luma_slice[1]
@@ -3374,12 +3439,27 @@ def ld_times(torch, np, job, dev) -> dict:
     def unpack():
         return du.unpack_ld(pay, fields, ly, lc)
 
+    lanes = unpack()
+    q = torch.as_tensor(job.ld.q, device=dev)
+    qm = tuple(int(v) for v in matrices.quant_matrix(job.pre.wavelet_kernel,
+                                                      job.pre.depth))
+    plan = ld_dc.plan(geo, job.pre.depth, qm, q.device)
+    host_plan = ld_dc.plan(geo, job.pre.depth, qm, torch.device("cpu"))
+    host_lanes = [t.cpu() for t in lanes]
+
+    def dc():
+        return ld_dc.ll_grids(lanes, q, plan)
+
     return {
         "ld_unpack_ms": time_device(torch, unpack, 10),
         "ld_unpack_device_ms": time_device(torch, unpack, KERNEL_INNER,
                                            queued=True),
         "ld_unpack_plain_ms": time_device(
             torch, lambda: du.unpack_ld_plain(pay, fields, ly, lc)),
+        "ld_dc_ms": time_device(torch, dc, 10),
+        "ld_dc_device_ms": time_device(torch, dc, KERNEL_INNER, queued=True),
+        "ld_dc_plain_ms": time_host(
+            lambda: ld_dc.ll_grids(host_lanes, q.cpu(), host_plan)),
     }
 
 

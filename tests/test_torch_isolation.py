@@ -23,9 +23,10 @@ from vc2tpu_torch.core.config import (ColourFormat, EncoderConfig, Mode,
                                       WaveletKernel)
 from vc2tpu_torch.pipeline.encoder import Encoder
 from vc2tpu_torch.pipeline.ld import LDEncoder
+from vc2tpu_torch.quant import ld_dc
 from vc2tpu_torch.rdo import cbr
 from vc2tpu_torch.rdo import ld as rdo_ld
-from vc2tpu_torch.slices import hq
+from vc2tpu_torch.slices import hq, ld
 from vc2tpu_torch.vlc import device_pack, device_unpack
 from vc2tpu_torch.wavelet import bands, lifting
 
@@ -283,6 +284,15 @@ def test_encode_libraries_are_keyed_by_their_shared_header():
         assert header in build.included_headers(src.path), src.name
 
 
+def test_dc_libraries_are_keyed_by_their_shared_header():
+    """The DC prediction's arithmetic, csrc/dc_predict.cuh, is included by
+    the host recurrence and the card's wavefront, so it is hashed into
+    both libraries' names."""
+    header = os.path.join(build.CSRC, "dc_predict.cuh")
+    for src in (ld.scan_source(), ld_dc.kernel_source()):
+        assert header in build.included_headers(src.path), src.name
+
+
 @pytest.mark.parametrize("case", ["sources", "generated_header",
                                   "host_source", "cbr_header"])
 def test_libraries_are_keyed_by_source_hash(case):
@@ -417,7 +427,8 @@ def test_every_kernel_launch_goes_to_its_tensors_card():
             if not inside:
                 bad.append(f"{path}:{line}")
     assert not bad, bad
-    assert found == 10   # lift, band x2, hq/ld unpack, hq/ld pack, cbr, ld x2
+    # lift, band x2, hq/ld unpack, hq/ld pack, cbr, ld x2, ld dc
+    assert found == 11
 
 
 def test_guard_is_the_tensors_card():

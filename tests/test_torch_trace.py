@@ -18,13 +18,20 @@ from vc2tpu_torch.core import trace
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CASES = ["cbr_legall_d2", "ld_legall_d2"]
 STAGES = ("dec.upload", "dec.unpack", "dec.inverse", "dec.format")
-ONCE = ("dec.scan", "dec.issue", *STAGES, "dec.fifo", "dec.copy_back",
-        "dec.to_bytes")
-LD_SCAN = ("dec.ld_read", "dec.ld_dc")     # the LD scan's two phases
+# an LD picture's: its LL grids from the lanes between unpack and inverse
+LD_STAGES = ("dec.upload", "dec.unpack", "dec.ld_dc", "dec.inverse",
+             "dec.format")
+LD_SCAN = ("dec.ld_read",)     # the LD header walk, inside the scan
+
+
+def _stages(case):
+    return LD_STAGES if case.startswith("ld") else STAGES
 
 
 def _once(case):
-    return ONCE + (LD_SCAN if case.startswith("ld") else ())
+    return ("dec.scan", "dec.issue", *_stages(case), "dec.fifo",
+            "dec.copy_back", "dec.to_bytes") + (
+        LD_SCAN if case.startswith("ld") else ())
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 
@@ -70,7 +77,7 @@ def test_profiled_decode_spans_each_picture(case):
     at = {(r.name, r.picture): r for r in got}
     for p in pictures:
         scan, issue = at["dec.scan", p], at["dec.issue", p]
-        stages = [at[name, p] for name in STAGES]
+        stages = [at[name, p] for name in _stages(case)]
         assert scan.end <= issue.start <= stages[0].start
         for a, b in zip(stages, stages[1:]):
             assert a.end <= b.start
@@ -88,7 +95,7 @@ def test_profiled_decode_spans_each_picture(case):
                 (e.start_ns(), e.start_ns() + e.duration_ns()))
     assert sorted(marks) == sorted(n for n in _once(case) if n != "dec.fifo")
     assert all(len(v) == len(pictures) for v in marks.values())
-    for name in STAGES:
+    for name in _stages(case):
         for a, b in marks[name]:
             assert any(lo <= a and b <= hi for lo, hi in marks["dec.issue"])
     for name in set(LD_SCAN) & set(marks):

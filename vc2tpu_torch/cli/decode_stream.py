@@ -5,7 +5,8 @@ Data-unit dispatch loop mirroring the reference decoder
 HQ and LD pictures and fragments (reassembled into pictures), aux/padding
 skip, interlaced field pairing and signal clip. Each picture decodes on
 the device (``pipeline.decoder.synthesise_payload_to_words``, or
-``synthesise_ld_payload_to_words`` after the host's LD scan) for the
+``synthesise_ld_payload_to_words`` after the host's LD header walk, the
+LL band's DC prediction on the device) for the
 DECODED output; the tap outputs write, one picture at a time and with no
 field pairing, the q indices (INDICES), the unpacked lanes in transform
 layout (QUANTISED; for LD the LL residuals as coded) or the dequantised
@@ -22,7 +23,12 @@ picture's slice rows do not divide over the bands it takes the
 single-device route on the mesh's first device, and says so once, as the
 JAX package does; an LD picture then still takes the in-place halo
 inverse lift (``shard.halo.sharded_inverse_planes``) where its padded
-rows divide.
+rows divide. An LD picture whose slice rows divide over the bands keeps
+the host's LD scan (``slices.ld.ld_scan``: its LL grids dequantised on
+the host, each band taking its rows of them); every other LD picture has
+its LL grids computed on the decode device from the unpacked lanes
+(``quant.ld_dc``). ``ld_host_dc`` and ``ld_card_dc`` count the pictures
+of each.
 The tap outputs always take the single-device route.
 
 The DECODED output leaves the card through a ring of pinned host slots:
@@ -77,7 +83,7 @@ from vc2tpu_torch.shard import halo
 from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
-from vc2tpu_torch.slices.ld import LDScan, ld_scan
+from vc2tpu_torch.slices.ld import LDScan, ld_fields, ld_scan
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.wavelet import lifting, matrices
 
@@ -106,8 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
 class LocatedPicture:
     """One picture located by the host: everything the device decode
     needs. HQ: the chain scan's q indices and component byte lengths
-    (``synthesise_payload_to_words`` arguments); LD: the LD scan
-    (``ld``, for ``synthesise_ld_payload_to_words``)."""
+    (``synthesise_payload_to_words`` arguments); LD: the header walk
+    (``ld``, for ``synthesise_ld_payload_to_words``), or the host scan
+    with its LL grids for the divisible mesh route."""
 
     picnum: int
     pre: object
@@ -171,6 +178,11 @@ class Decoder:
         self.copy_back_ring = 0
         self.copy_back_slots = 0
         self.copy_back_waited = 0
+        # LD pictures whose LL grids the decode device computed from the
+        # lanes (quant.ld_dc), and those that took the host's recurrence
+        # (the mesh route whose slice rows divide)
+        self.ld_card_dc = 0
+        self.ld_host_dc = 0
         self._first_words = None      # formatted first field (interlace)
         self._first_picnum = None     # picture number of the buffered field
         self._field_parity = None     # picnum parity of FIRST fields
@@ -345,9 +357,12 @@ class Decoder:
         if whole and end > len(data):
             raise ValueError("LD slice payload runs past the window")
         with trace.span("dec.scan", picnum):
-            scan = ld_scan(data, sizes, geo, depth,
-                           matrices.quant_matrix(pre.wavelet_kernel, depth),
-                           start)
+            if self._host_dc(pre, geo):
+                scan = ld_scan(data, sizes, geo, depth,
+                               matrices.quant_matrix(pre.wavelet_kernel,
+                                                     depth), start)
+            else:
+                scan = ld_fields(data, sizes, geo, depth, start)
         payload = np.frombuffer(data, dtype=np.uint8,
                                 count=min(end, len(data)))
         return end, LocatedPicture(picnum, pre, geo, pic_h, payload, start,
@@ -376,6 +391,7 @@ class Decoder:
                     job.payload, job.ld, qmatrix, pre.wavelet_kernel,
                     pre.depth, job.geo, out_geom, hdr.bitdepth,
                     device=self.device)
+                self.ld_card_dc += 1
             else:
                 words = synthesise_payload_to_words(
                     job.payload, job.q_idx, job.cbytes, qmatrix,
@@ -409,6 +425,14 @@ class Decoder:
                       file=sys.stderr)
             self._sdec_cache[key] = sdec
         return self._sdec_cache[key]
+
+    def _host_dc(self, pre, geo) -> bool:
+        """Whether an LD picture of this geometry takes the host's LL
+        recurrence: the DECODED output over a mesh whose ``space`` axis
+        divides its slice rows (``ShardedDecoder`` cuts the host's grids
+        into bands)."""
+        return (self.mesh is not None and self.output == DecOutput.DECODED
+                and self._sharded_decoder(pre, geo) is not None)
 
     def sharded_decoders(self) -> list:
         """The ShardedDecoders the mesh route has used, one a picture
@@ -445,13 +469,13 @@ class Decoder:
             return sdec.decode_payload_device(job.payload, job.q_idx,
                                               job.dstart, job.cbytes)
         if sdec is not None:
+            self.ld_host_dc += 1
             return sdec.decode_ld_payload_device(job.payload, job.ld)[1]
         if job.ld is None:
             return None
         # an LD picture whose slice rows do not divide: unpack on one
         # device, then the halo inverse where the padded planes divide
-        lanes, q_idx, grids = unpack_ld_payload(job.payload, job.ld, geo,
-                                                device=self.device)
+        lanes, q_idx, grids = self._unpack_ld(job, qmatrix)
         planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix,
                                       pre.depth, geo)
         rows = self._indivisible(geo, pre.depth)
@@ -465,6 +489,13 @@ class Decoder:
         return halo.sharded_inverse_planes(planes, self.mesh,
                                            pre.wavelet_kernel, pre.depth)
 
+    def _unpack_ld(self, job: LocatedPicture, qmatrix):
+        """``unpack_ld_payload`` of a located LD picture on the decode
+        device: its lanes, q indices and LL grids."""
+        self.ld_card_dc += 1
+        return unpack_ld_payload(job.payload, job.ld, job.geo, qmatrix,
+                                 job.pre.depth, device=self.device)
+
     def _write_tap(self, job: LocatedPicture, qmatrix):
         """One picture's INDICES, QUANTISED or TRANSFORM output
         (DecodeStream.cpp's taps; the JAX package's ``_finish_picture``):
@@ -476,8 +507,7 @@ class Decoder:
             return
         pre, geo = job.pre, job.geo
         if job.ld is not None:
-            lanes, q_idx, grids = unpack_ld_payload(job.payload, job.ld, geo,
-                                                    device=self.device)
+            lanes, q_idx, grids = self._unpack_ld(job, qmatrix)
         else:
             lanes, q_idx = unpack_payload(job.payload, job.q_idx, job.cbytes,
                                           geo, pre.slice_prefix,

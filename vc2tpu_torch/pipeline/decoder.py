@@ -12,13 +12,14 @@ reference decoder (src/DecodeStream/DecodeStream.cpp:451-609):
        in its load)
     -> crop -> clip, offset, MSB-justify, big-endian bytes (uint8)
 
-and its LD picture tail (:289-450), after the host scan
-(``slices.ld.ld_scan``: the header fields and the LL band dequantised with
-DC prediction):
+and its LD picture tail (:289-450), after the host's header walk
+(``slices.ld.ld_fields``: the q indices and bit fields):
 
-    upload (one H2D each of the payload, the fields and the LL grids)
+    upload (one H2D each of the payload and the fields)
     -> LD unpack kernel                          (``unpack_ld_payload``)
-    -> bands.inverse_lanes with the host's LL grids as band 0
+    -> the LL grids dequantised with DC prediction from the lanes
+       (``quant.ld_dc``, csrc/ld_dc.cu)
+    -> bands.inverse_lanes with the LL grids as band 0
     -> crop and format, as for HQ
 
 That is the JAX package's band route (``_lanes_words_tail``: scale_banded,
@@ -33,7 +34,8 @@ and the LD mesh decode whose slice rows do not divide over the mesh
 (``shard.halo``'s in-place lift); ``pipeline.sharded`` runs the band
 route a band at a time. The stages are
 separate functions, each a span of ``core.trace`` (``dec.upload``,
-``dec.unpack``, ``dec.inverse``, ``dec.format``) that a profiler's trace
+``dec.unpack``, ``dec.ld_dc``, ``dec.inverse``, ``dec.format``) that a
+profiler's trace
 shows; the caller makes the one D2H copy of the returned bytes.
 """
 
@@ -48,6 +50,7 @@ from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.config import PictureGeometry, WaveletKernel
 from vc2tpu_torch.core.planario import SampleFormat, encode_plane
+from vc2tpu_torch.quant import ld_dc
 from vc2tpu_torch.quant.quantiser import adjust_quant_index, scale
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry
@@ -169,38 +172,39 @@ def synthesise_lanes(lanes, q_idx: torch.Tensor, qmatrix,
 
 def upload_ld(payload: np.ndarray, scan: LDScan, device: torch.device):
     """An LD picture's host data to the device, one copy each: the payload
-    bytes (uint8 [P]), the scan's fields as int32 [5, N] (q, s_bits,
-    len_bits, y_bits, uv_bits) and its three LL grids (int32)."""
+    bytes (uint8 [P]) and the scan's fields as int32 [5, N] (q, s_bits,
+    len_bits, y_bits, uv_bits)."""
     with trace.span("dec.upload"):
         fields = np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
-        flat = np.concatenate([g.ravel() for g in scan.grids]).astype(
-            np.int32)
         pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
-        grids = torch.from_numpy(flat).to(device).split(
-            [g.size for g in scan.grids])
-        return (pay.to(device), torch.from_numpy(fields).to(device),
-                [t.view(g.shape) for t, g in zip(grids, scan.grids)])
+        return pay.to(device), torch.from_numpy(fields).to(device)
 
 
 def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
-                      device=None):
-    """The unpack half of an LD picture's decode: upload and the LD unpack
-    kernel. Returns ((y, u, v) int32 lanes, q indices int32 [N], the three
-    LL grids) on ``device`` (default the card), without synchronising."""
+                      qmatrix, depth: int, device=None):
+    """The unpack half of an LD picture's decode: upload, the LD unpack
+    kernel, then the LL grids from its lanes (``quant.ld_dc.ll_grids``,
+    span ``dec.ld_dc``; ``scan`` needs only its q indices and fields).
+    Returns ((y, u, v) int32 lanes, q indices int32 [N], the three LL
+    grids) on ``device`` (default the card), without synchronising."""
     dev = devices.resolve(device)
-    pay, fields, grids = upload_ld(payload, scan, dev)
+    pay, fields = upload_ld(payload, scan, dev)
     with trace.span("dec.unpack"):
         ly = geo.luma_slice[0] * geo.luma_slice[1]
         lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-        return (device_unpack.unpack_ld(pay, fields[1:], ly, lc), fields[0],
-                grids)
+        lanes = device_unpack.unpack_ld(pay, fields[1:], ly, lc)
+    with trace.span("dec.ld_dc"):
+        plan = ld_dc.plan(geo, depth, tuple(int(v) for v in qmatrix),
+                          fields.device)
+        grids = ld_dc.ll_grids(lanes, fields[0], plan)
+    return lanes, fields[0], grids
 
 
 def dequantise_ld_planes(lanes, q_idx: torch.Tensor, grids, qmatrix,
                          depth: int, geo: SliceGeometry):
     """``dequantise_planes``, then every plane's LL samples (the
     ``(::2^depth, ::2^depth)`` sub-lattice, where the reference's
-    ``ld_ll_dequantise`` writes them) replaced by the host's grids, which
+    ``ld_ll_dequantise`` writes them) replaced by the LL grids, which
     carry the DC prediction the lanes lack."""
     planes = dequantise_planes(lanes, q_idx, qmatrix, depth, geo)
     ts = 1 << depth
@@ -215,10 +219,11 @@ def synthesise_ld_payload_to_words(payload: np.ndarray, scan: LDScan,
                                    out_geometry: PictureGeometry,
                                    bitdepth: int, device=None) -> torch.Tensor:
     """Full device decode of one LD picture from its compressed payload and
-    its host scan (``slices.ld.ld_scan``, whose bit offsets index
+    its host header walk (``slices.ld.ld_fields``, whose bit offsets index
     ``payload``). Returns the output bytes as a uint8 tensor on ``device``
     (default the card), without synchronising."""
-    lanes, q_idx, grids = unpack_ld_payload(payload, scan, geo, device)
+    lanes, q_idx, grids = unpack_ld_payload(payload, scan, geo, qmatrix,
+                                            depth, device)
     planes = synthesise_lanes(lanes, q_idx, qmatrix, kernel, depth, geo,
                               grids)
     return format_planes(planes, out_geometry, bitdepth)

@@ -9,18 +9,25 @@ bounded interleaved-U,V region. Slices are fixed-size (``layout
 the sizes. Reads past the payload give 1-bits (the JAX package's 0xFF
 pad, the reference's at-EOF rule).
 
-``ld_scan`` is the host half of the device LD decode, in native code
-(``csrc/ld_scan.cpp``, built with the host C++ compiler at first use), in
-two phases, each a span of the decode path (``core/trace``): the slice
-walk (``dec.ld_read``: the header fields of every slice, and the LL band's
-codes into three compact grids), then the DC prediction (``dec.ld_dc``: a
-strict raster recurrence, reference Quantisation.cpp:287-306, that
-dequantises each grid in place). ``ld_scan_plain`` is the same from
+``ld_fields`` is the host half of the single-device LD decode, in native
+code (``csrc/ld_scan.cpp``, built with the host C++ compiler at first
+use): the header fields of every slice (span ``dec.ld_read``), whose LL
+codes the unpack kernel decodes with the rest of each region and whose
+DC prediction runs on the card (``quant.ld_dc``). ``ll_sources`` says,
+once a geometry, which lane holds each LL grid cell's code.
+
+``ld_scan`` is the host scan that keeps the LL band on the host, for the
+LD mesh decode whose slice rows divide over its bands, in two phases: the
+slice walk (``dec.ld_read``: the header fields, and the LL band's codes
+into three compact grids), then the DC prediction (``dec.ld_dc``: a strict
+raster recurrence, reference Quantisation.cpp:287-306, that dequantises
+each grid in place). ``ld_scan_plain`` is the same from
 ``ld_header_fields``, the plain bit reader and a Python loop of the
-recurrence: the reference the tests hold the native scan against.
-``dequantise_ll`` runs the recurrence alone on a grid of LL codes
-(``ld_dequantise_grid`` of the same library), for the encoder's Decoded
-and PSNR outputs; ``dequantise_ll_plain`` is its twin.
+recurrence: the reference the tests hold both native scans and the card's
+DC prediction against. ``dequantise_ll`` runs the recurrence alone on a
+grid of LL codes (``ld_dequantise_grid`` of the same library), for the
+encoder's Decoded and PSNR outputs and the CPU form of ``quant.ld_dc``;
+``dequantise_ll_plain`` is its twin.
 
 ``encode_ld_slices`` packs a whole picture's slices on the host from
 quantised lanes, through ``device_pack.pack_ld_plain``.
@@ -149,12 +156,13 @@ class LLGeometry:
 class LDScan:
     """The host half of an LD picture's decode: the q indices (int32 [N]),
     the bit fields (int32 [4, N]: s_bits, len_bits, y_bits, uv_bits), the
-    three dequantised LL grids (int32, luma then U and V) and the offset
+    three dequantised LL grids (int32, luma then U and V; None from
+    ``ld_fields``, whose grids the decode device computes) and the offset
     just past the last slice."""
 
     q: np.ndarray
     fields: np.ndarray
-    grids: tuple
+    grids: tuple | None
     end: int
 
 
@@ -175,6 +183,8 @@ def _lib():
     lib.ld_read.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, p, p, p, p,
                             p]
     lib.ld_read.restype = i64
+    lib.ld_fields.argtypes = [p, i64, i64, i64, p, p, p]
+    lib.ld_fields.restype = i64
     lib.ld_dequantise_grid.argtypes = [p, i64, i64, i64, i64, i64, i64, i64,
                                        p, p, p, p]
     lib.ld_dequantise_grid.restype = None
@@ -192,6 +202,58 @@ def _geometries(geo, depth: int):
             LLGeometry.of(*geo.chroma_slice, depth, ys, xs))
 
 
+def _sizes(slice_sizes) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(slice_sizes).ravel(), np.int32)
+
+
+def ld_fields(payload, slice_sizes, geo, depth: int,
+              start: int = 0) -> LDScan:
+    """The header walk of an LD picture's slices in native code
+    (``ld_fields`` of ``csrc/ld_scan.cpp``, span ``dec.ld_read``): the q
+    indices and bit fields that ``ld_scan`` gives, and no LL grids.
+    ``payload`` is bytes, a bytearray, a memoryview or a uint8 array whose
+    slices begin at byte ``start``; ``geo`` a ``SliceGeometry``. Raises
+    ValueError when the fields leave the int32 range, and (once a geometry,
+    ``ll_sources``) when an LL code would land outside its grid."""
+    with trace.span("dec.ld_read"):
+        data = np.frombuffer(payload, np.uint8)
+        sizes = _sizes(slice_sizes)
+        n = sizes.size
+        q = np.empty(n, np.int32)
+        fields = np.empty((4, n), np.int32)
+        end = _lib().ld_fields(data.ctypes.data, data.size, n, start,
+                               sizes.ctypes.data, q.ctypes.data,
+                               fields.ctypes.data)
+    if end < 0:
+        raise ValueError("LD slice fields exceed the int32 range")
+    ll_sources(geo, depth)
+    return LDScan(q, fields, None, int(end))
+
+
+@functools.lru_cache(maxsize=16)
+def ll_sources(geo, depth: int) -> tuple:
+    """The lane of every LL grid cell's code, luma then chroma (U and V
+    alike): int32 [llh, llw], the flat index ``slice * lanes + k`` of the
+    unpack's lanes [N, lanes] (a slice's LL codes are the first ``nll``
+    lanes of its region, ``LLGeometry``), -1 where no code lands (the code
+    0). Raises ValueError where an LL code lands outside its grid (a
+    geometry no encoder writes; ``ld_read``'s -2). Once a geometry."""
+    ys, xs, ts = geo.y_slices, geo.x_slices, 1 << depth
+    out = []
+    for g in _geometries(geo, depth):
+        at = g.origins(ys, xs, ts)[:, None] + g.offset[None, :]
+        if at.size and (at.min() < 0 or at.max() >= g.llh * g.llw):
+            raise ValueError(_LL_OUTSIDE)
+        lanes = g.sh * g.sw
+        if ys * xs * lanes > 2**31 - 1:
+            raise ValueError("LD lanes exceed the int32 index range")
+        src = np.full(g.llh * g.llw, -1, np.int32)
+        src[at.ravel()] = (np.arange(ys * xs, dtype=np.int64)[:, None] * lanes
+                           + np.arange(g.nll)).ravel()
+        out.append(src.reshape(g.llh, g.llw))
+    return tuple(out)
+
+
 def ld_scan(payload, slice_sizes, geo, depth: int, qmatrix,
             start: int = 0) -> LDScan:
     """Scan an LD picture's slices in native code (``csrc/ld_scan.cpp``):
@@ -206,8 +268,7 @@ def ld_scan(payload, slice_sizes, geo, depth: int, qmatrix,
     slices = (geo.luma_slice, geo.chroma_slice, geo.chroma_slice)
     with trace.span("dec.ld_read"):
         data = np.frombuffer(payload, np.uint8)
-        sizes = np.ascontiguousarray(np.asarray(slice_sizes).ravel(),
-                                     np.int32)
+        sizes = _sizes(slice_sizes)
         n = sizes.size
         gl, gc = _geometries(geo, depth)
         offsets = [np.ascontiguousarray(g.offset, np.int64) for g in (gl, gc)]

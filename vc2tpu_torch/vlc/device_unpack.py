@@ -392,8 +392,8 @@ def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
     payload: uint8 [P] (the bytes the bit offsets index; bits past its end
     read as 1).
     fields: int32 [4, N]: each slice's s_bits (absolute first bit),
-    len_bits, y_bits and uv_bits, from the host header scan
-    (``slices.ld.ld_scan``).
+    len_bits, y_bits and uv_bits, from the host header walk
+    (``slices.ld.ld_fields``).
     staged: as for ``unpack_hq`` (CTAs of ``ld_unpack_plan``).
     Returns (qy [N, ly], qu [N, lc], qv [N, lc]) int32 in lane order. A CUDA
     payload goes through the kernel of csrc/ld_unpack.cu; a CPU payload
