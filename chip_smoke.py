@@ -149,9 +149,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    LD one over ``1x2`` (equal to ``ld_1080p.vc2``; ``LDEncoder(mesh=)``'s
    in-place halo lift: lift_level 2, ld_rate 1, ld_pack 1), each decoded
    with ``Decoder(mesh=)`` to the recorded SHA-256 (over 1x3: hq_unpack
-   or ld_unpack 3, band_inverse 6, lift_level 0, ld_dc 0 (the host
-   scan's grids); LD also over 1x2, whose 135 slice rows do not divide:
-   ld_unpack 1, ld_dc 1 and the in-place halo inverse, lift_level 2); 8K
+   3 a picture, or LD's one unpack on the first device, ld_unpack 1 and
+   ld_dc 1; band_inverse 6, lift_level 0; LD also over 1x2, whose 135
+   slice rows do not divide: ld_unpack 1, ld_dc 1 and the in-place halo
+   inverse, lift_level 2); 8K
    HQ CBR (BASELINE config #5, 1080 x 960 slices) over 1x4 and 2x4
    meshes (two pictures; band_forward 2 a band) against the
    single-device ``Encoder`` (q indices, payloads, streams)
@@ -1985,9 +1986,9 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
            {"hq_unpack": 3, "band_inverse": 6, "lift_level": 0},
            mesh=mesh(1, 3))
     # LD: the analysis over 2 bands (1080 rows, the in-place halo lift);
-    # the decode over 3 bands (the band form), and over 2, where the 135
-    # slice rows do not divide: the single-device unpack, then the
-    # in-place halo inverse over the 2 bands
+    # the decode, the unpack and LL grids on the first device, then over 3
+    # bands (the band form), and over 2, where the 135 slice rows do not
+    # divide: the in-place halo inverse over the 2 bands
     zero_counts()
     ld = run_encode_cli(fixture_encode_args("ld_1080p"), src_1080p, out,
                         mesh(1, 2))
@@ -1997,7 +1998,7 @@ def sharded_phase(torch, np, dev, streams, fixtures, src_1080p, frag_stream,
     check_counts("mesh_encode_ld", {"lift_level": 2, "band_forward": 0,
                                     "ld_rate": 1, "ld_pack": 1})
     decode(ld, "ld_1080p", "mesh_decode_ld",
-           {"ld_unpack": 3, "ld_dc": 0, "band_inverse": 6, "lift_level": 0},
+           {"ld_unpack": 1, "ld_dc": 1, "band_inverse": 6, "lift_level": 0},
            mesh=mesh(1, 3))
     decode(ld, "ld_1080p", "mesh_decode_ld_1x2",
            {"ld_unpack": 1, "ld_dc": 1, "band_inverse": 0, "lift_level": 2},
@@ -2848,8 +2849,8 @@ def main(argv) -> int:
     stages["LD decode host: header walk (native, the main path)"] = \
         time_host(lambda: slices_ld.ld_fields(
             ld_unit, ld_sizes, lgeo, lpre.depth, ld_job.start))
-    stages["LD decode host: ld scan + LL recurrence (native, the divisible "
-           "mesh route)"] = time_host(
+    stages["LD decode host: ld scan + LL recurrence (native, a reference "
+           "timing: no route runs it)"] = time_host(
         lambda: slices_ld.ld_scan(ld_unit, *ld_scan_args))
     stages["LD decode host: ld scan + LL recurrence (Python twin, the "
            "reference)"] = time_host(

@@ -22,12 +22,13 @@ Under ``torch.profiler`` each picture of an LD decode gives one
 the host recurrence (the 1080p LD fixture; random codes up to the int32
 wrap, q indices 0-127 and adjusted ones clamped at 0; 1x1 LL blocks, a
 non-square grid, a grid taller than a CTA), ``ld_unpack`` and ``ld_dc``
-once a picture, ``ld_card_dc`` every picture. The file imports neither
-jax nor vc2tpu."""
+once a picture, also over a 1x3 mesh of the card, ``ld_card_dc`` every
+picture. The file imports neither jax nor vc2tpu."""
 
 import dataclasses
 import hashlib
 import io
+import json
 import os
 import time
 
@@ -40,6 +41,7 @@ from vc2tpu_torch.cli.decode_stream import Decoder
 from vc2tpu_torch.core import config as tcfg
 from vc2tpu_torch.core import trace
 from vc2tpu_torch.quant import ld_dc
+from vc2tpu_torch.shard.mesh import make_mesh
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices import ld as tld
 from vc2tpu_torch.slices.hq import SliceGeometry
@@ -48,6 +50,8 @@ from vc2tpu_torch.vlc import device_unpack as du
 from vc2tpu_torch.wavelet import matrices
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+TESTDATA = os.path.join(os.path.dirname(__file__), "..", "vc2tpu_torch",
+                        "testdata")
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 # name: (y slices, x slices, luma slice, chroma slice, depth, picture bytes)
@@ -422,16 +426,21 @@ def _transform(case, device):
 
 def _transform_by_host_scan(case, device, monkeypatch):
     """The TRANSFORM tap with each picture's LL grids from the host scan
-    (``ld_scan``, the mesh route's) in place of those from its lanes."""
+    (``ld_scan`` over the slices the header walk found) in place of those
+    from its lanes."""
     real = decode_stream.unpack_ld_payload
 
-    def host_grids(payload, scan, *args, **kwargs):
-        lanes, q, _grids = real(payload, scan, *args, **kwargs)
+    def host_grids(payload, scan, geo, qmatrix, depth, **kwargs):
+        lanes, q, _grids = real(payload, scan, geo, qmatrix, depth, **kwargs)
+        starts = scan.fields[0].astype(np.int64) // 8
+        sizes = np.diff(np.append(starts, scan.end))
+        host = tld.ld_scan(payload, sizes, geo, depth, qmatrix,
+                           int(starts[0]))
+        assert np.array_equal(host.q, scan.q)
         return lanes, q, [torch.from_numpy(g).to(q.device)
-                          for g in scan.grids]
+                          for g in host.grids]
 
     with monkeypatch.context() as m:
-        m.setattr(Decoder, "_host_dc", lambda self, pre, geo: True)
         m.setattr(decode_stream, "unpack_ld_payload", host_grids)
         return _transform(case, device)
 
@@ -444,25 +453,44 @@ def test_transform_tap_equals_the_host_scan_route(case, monkeypatch):
 
 # --- on the card ------------------------------------------------------------
 
+MESH_1X3 = "ld_1080p_mesh1x3"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["ld_legall_d2", "ld_midsize",
-                                  "ld_interlaced"])
+                                  "ld_interlaced", MESH_1X3])
 def test_ld_dc_launches_once_a_picture(case, cuda):
+    """The LD goldens on one device; the 1080p fixture's 135 slice rows
+    over a 1x3 mesh of the one card (the route whose slice rows divide),
+    to the fixture's recorded SHA-256."""
+    mesh = None
+    if case == MESH_1X3:
+        mesh = make_mesh(1, 3, devices=[cuda] * 3)
+        with open(os.path.join(TESTDATA, "fixtures_1080p.json")) as f:
+            fixture = json.load(f)["streams"]["ld_1080p"]
+        with open(os.path.join(TESTDATA, fixture["stream"]), "rb") as f:
+            data = f.read()
+    else:
+        data, want = _stream(case)
     dec_before = ld_dc.ll_grids.launches
-    data, want = _stream(case)
     sink = io.BytesIO()
-    dec = Decoder(sink=sink, device=None)
-    assert dec.run(data) == 0 and sink.getvalue() == want
+    dec = Decoder(sink=sink, device=None, mesh=mesh)
+    assert dec.run(data) == 0
+    if mesh is None:
+        assert sink.getvalue() == want
+    else:
+        assert (hashlib.sha256(sink.getvalue()).hexdigest()
+                == fixture["decoded_sha256"])
+        assert len(dec.sharded_decoders()) == 1
     units = _ld_units(data)
     assert units > 0 and ld_dc.ll_grids.launches - dec_before == units
-    assert dec.ld_card_dc == units and dec.ld_host_dc == 0
+    assert dec.ld_card_dc == units
 
 
 @pytest.mark.cuda
 def test_ld_dc_kernel_on_the_1080p_fixture(cuda):
     """The card's grids from the fixture's lanes against ``ld_scan``'s."""
-    path = os.path.join(os.path.dirname(GOLDEN), "..", "vc2tpu_torch",
-                        "testdata", "ld_1080p.vc2")
+    path = os.path.join(TESTDATA, "ld_1080p.vc2")
     with open(path, "rb") as f:
         data = f.read()
     dec = Decoder(sink=io.BytesIO(), device=None)

@@ -35,9 +35,7 @@ from vc2tpu_torch.pipeline.ld import LDEncoder
 from vc2tpu_torch.pipeline.sharded import ShardedDecoder, ShardedEncoder
 from vc2tpu_torch.shard import halo
 from vc2tpu_torch.shard.mesh import make_mesh
-from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
-from vc2tpu_torch.slices.ld import ld_scan
 from vc2tpu_torch.stream.dataunit import PicturePreamble, StreamWriter
 from vc2tpu_torch.stream.headers import SequenceHeader
 from vc2tpu_torch.wavelet import lifting, matrices
@@ -398,10 +396,10 @@ def test_mesh_decode_matches_single_device(fragment_length):
 @pytest.mark.parametrize("case", ["ld_legall_d2", "ld_midsize",
                                   "ld_fragmented", "ld_interlaced"])
 def test_mesh_decode_ld_goldens(case):
-    """LD over a 1x4 mesh: each band's slices unpacked on its own, the LL
-    grids' rows a band (the host's recurrence, every picture), the halo
-    inverse; ld_interlaced's 4 slice rows divide, its fields' 16 rows
-    too."""
+    """LD over a 1x4 mesh: the picture unpacked on one device with its LL
+    grids from the lanes (every picture), each band's block of the lanes
+    and the grids' rows, the band inverse; ld_interlaced's 4 slice rows
+    divide, its fields' 16 rows too."""
     with open(os.path.join(GOLDEN, f"{case}.vc2"), "rb") as f:
         stream = f.read()
     with open(os.path.join(GOLDEN, f"{case}.dec.16p2"), "rb") as f:
@@ -412,12 +410,13 @@ def test_mesh_decode_ld_goldens(case):
     assert sink.getvalue() == want
     assert all(s is not None for s in dec._sdec_cache.values())
     pictures = dec.frames_out * (2 if dec.hdr.interlace else 1)
-    assert dec.ld_host_dc == pictures > 0 and dec.ld_card_dc == 0
+    assert dec.ld_card_dc == pictures > 0
 
 
 def test_sharded_ld_decode_matches_single_device():
-    """decode_ld_payload_device against the single-device LD unpack,
-    dequantise and inverse on the midsize golden's picture."""
+    """synthesise with the LL grids (tensors, then host arrays), over 4
+    bands, against the single-device LD unpack, dequantise and inverse on
+    the midsize golden's picture."""
     from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 
     with open(os.path.join(GOLDEN, "ld_midsize.vc2"), "rb") as f:
@@ -437,21 +436,16 @@ def test_sharded_ld_decode_matches_single_device():
     qm = matrices.quant_matrix(pre.wavelet_kernel, pre.depth)
     lanes, q, grids = pipe.unpack_ld_payload(job.payload, job.ld, geo, qm,
                                              pre.depth, device="cpu")
-    # the mesh route's host scan, with its LL grids
-    sizes = layout.slice_bytes_map(
-        geo.y_slices, geo.x_slices,
-        pre.slice_bytes_numerator * geo.n_slices
-        // pre.slice_bytes_denominator, 1).ravel()
-    scan = ld_scan(job.payload, sizes, geo, pre.depth, qm, job.start)
     ref = lifting.inverse_planes(
         pipe.dequantise_ld_planes(lanes, q, grids, qm, pre.depth, geo),
         pre.wavelet_kernel, pre.depth)
     sdec = ShardedDecoder(pre.wavelet_kernel, pre.depth, geo,
                           _cpu_mesh(1, 4))
-    q_got, got = sdec.decode_ld_payload_device(job.payload, scan)
-    assert np.array_equal(q_got, job.ld.q)
-    for a, b in zip(got, ref, strict=True):
-        assert torch.equal(a, b)
+    for got in (sdec.synthesise(q, *lanes, grids=grids),
+                sdec.synthesise(q.numpy(), *[x.numpy() for x in lanes],
+                                grids=[g.numpy() for g in grids])):
+        for a, b in zip(got, ref, strict=True):
+            assert torch.equal(a, b)
 
 
 # --- LDEncoder(mesh=) -------------------------------------------------------
@@ -544,7 +538,7 @@ def test_mesh_decode_ld_whose_slice_rows_do_not_divide(capsys, monkeypatch):
     assert dec.run(stream) == 0
     assert sink.getvalue() == want
     assert calls == [96, 96]
-    assert dec.ld_card_dc == dec.frames_out > 0 and dec.ld_host_dc == 0
+    assert dec.ld_card_dc == dec.frames_out > 0
     assert capsys.readouterr().err == (
         "mesh decode: 16 slice rows do not divide over 32 shards; using the "
         "single-chip route\n")

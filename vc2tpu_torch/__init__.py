@@ -6,8 +6,8 @@ and CBR) and LD pictures from planar samples to stream bytes:
 
 * the host walks the stream syntax and, in native code (``csrc/hq_scan.cpp``
   and ``csrc/ld_scan.cpp``, built with the host C++ compiler), the HQ
-  slice chain and the LD slice headers (and, for the LD mesh decode whose
-  slice rows divide and the encoder's Decoded output, the LL recurrence);
+  slice chain and the LD slice headers (and, for the encoder's Decoded
+  output and a decode on the CPU, the LL recurrence);
 * a picture's compressed payload, or its samples, go to the device in one
   copy; its output bytes come back in one;
 * the exp-Golomb unpacks, the slice packs, the HQ CBR and LD rate controls,

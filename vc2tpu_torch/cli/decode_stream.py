@@ -15,20 +15,19 @@ words.
 
 With ``--mesh DxS`` (``Decoder(mesh=...)``) the DECODED output of each
 picture decodes over the ``space`` bands of the mesh's first row
-(``pipeline.sharded.ShardedDecoder``: each band unpacks its block's
-slices, its own slice rows and a margin of its neighbours', in one launch,
-then the band form of the inverse DWT, one ``band_inverse`` launch a
-level, keeps its own rows); the host scans stay whole-picture. Where a
-picture's slice rows do not divide over the bands it takes the
-single-device route on the mesh's first device, and says so once, as the
-JAX package does; an LD picture then still takes the in-place halo
-inverse lift (``shard.halo.sharded_inverse_planes``) where its padded
-rows divide. An LD picture whose slice rows divide over the bands keeps
-the host's LD scan (``slices.ld.ld_scan``: its LL grids dequantised on
-the host, each band taking its rows of them); every other LD picture has
-its LL grids computed on the decode device from the unpacked lanes
-(``quant.ld_dc``). ``ld_host_dc`` and ``ld_card_dc`` count the pictures
-of each.
+(``pipeline.sharded.ShardedDecoder``: the band form of the inverse DWT,
+one ``band_inverse`` launch a level, each band keeping its own rows); the
+host scans stay whole-picture. An HQ picture's bands each unpack their
+block's slices, their own slice rows and a margin of their neighbours', in
+one launch. An LD picture unpacks on the mesh's first device, its LL grids
+computed there from the lanes (``quant.ld_dc``), and each band takes its
+block's rows of the lanes and the grids. Where a picture's slice rows do
+not divide over the bands it takes the single-device route on the mesh's
+first device, and says so once, as the JAX package does; an LD picture
+then still takes the in-place halo inverse lift
+(``shard.halo.sharded_inverse_planes``) where its padded rows divide.
+``ld_card_dc`` counts the LD pictures whose LL grids the decode device
+computed: every one.
 The tap outputs always take the single-device route.
 
 The DECODED output leaves the card through a ring of pinned host slots:
@@ -83,7 +82,9 @@ from vc2tpu_torch.shard import halo
 from vc2tpu_torch.shard.mesh import from_spec
 from vc2tpu_torch.slices import layout
 from vc2tpu_torch.slices.hq import SliceGeometry, scan_hq_slice_offsets
-from vc2tpu_torch.slices.ld import LDScan, ld_fields, ld_scan
+# ld_scan is not called here: the benchmark's decode.host_scan_ms wraps
+# this module's name until that metric is retired
+from vc2tpu_torch.slices.ld import LDScan, ld_fields, ld_scan  # noqa: F401
 from vc2tpu_torch.stream.dataunit import DataUnitType, StreamReader
 from vc2tpu_torch.wavelet import lifting, matrices
 
@@ -102,9 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to decode on (default: cuda)")
     p.add_argument("--mesh", metavar="DxS", default=None,
                    help="decode on a DxS device mesh (row bands over the S "
-                        "axis): each band unpacks its block's slices, then "
-                        "the band form of the inverse DWT; bit-exact with "
-                        "one device")
+                        "axis): the band form of the inverse DWT over each "
+                        "band's block of slices; bit-exact with one device")
     return p
 
 
@@ -113,8 +113,7 @@ class LocatedPicture:
     """One picture located by the host: everything the device decode
     needs. HQ: the chain scan's q indices and component byte lengths
     (``synthesise_payload_to_words`` arguments); LD: the header walk
-    (``ld``, for ``synthesise_ld_payload_to_words``), or the host scan
-    with its LL grids for the divisible mesh route."""
+    (``ld``, for ``synthesise_ld_payload_to_words``)."""
 
     picnum: int
     pre: object
@@ -179,10 +178,8 @@ class Decoder:
         self.copy_back_slots = 0
         self.copy_back_waited = 0
         # LD pictures whose LL grids the decode device computed from the
-        # lanes (quant.ld_dc), and those that took the host's recurrence
-        # (the mesh route whose slice rows divide)
+        # lanes (quant.ld_dc)
         self.ld_card_dc = 0
-        self.ld_host_dc = 0
         self._first_words = None      # formatted first field (interlace)
         self._first_picnum = None     # picture number of the buffered field
         self._field_parity = None     # picnum parity of FIRST fields
@@ -357,12 +354,7 @@ class Decoder:
         if whole and end > len(data):
             raise ValueError("LD slice payload runs past the window")
         with trace.span("dec.scan", picnum):
-            if self._host_dc(pre, geo):
-                scan = ld_scan(data, sizes, geo, depth,
-                               matrices.quant_matrix(pre.wavelet_kernel,
-                                                     depth), start)
-            else:
-                scan = ld_fields(data, sizes, geo, depth, start)
+            scan = ld_fields(data, sizes, geo, depth, start)
         payload = np.frombuffer(data, dtype=np.uint8,
                                 count=min(end, len(data)))
         return end, LocatedPicture(picnum, pre, geo, pic_h, payload, start,
@@ -426,14 +418,6 @@ class Decoder:
             self._sdec_cache[key] = sdec
         return self._sdec_cache[key]
 
-    def _host_dc(self, pre, geo) -> bool:
-        """Whether an LD picture of this geometry takes the host's LL
-        recurrence: the DECODED output over a mesh whose ``space`` axis
-        divides its slice rows (``ShardedDecoder`` cuts the host's grids
-        into bands)."""
-        return (self.mesh is not None and self.output == DecOutput.DECODED
-                and self._sharded_decoder(pre, geo) is not None)
-
     def sharded_decoders(self) -> list:
         """The ShardedDecoders the mesh route has used, one a picture
         geometry, in first use."""
@@ -465,17 +449,15 @@ class Decoder:
         route."""
         pre, geo = job.pre, job.geo
         sdec = self._sharded_decoder(pre, geo)
-        if sdec is not None and job.ld is None:
-            return sdec.decode_payload_device(job.payload, job.q_idx,
-                                              job.dstart, job.cbytes)
-        if sdec is not None:
-            self.ld_host_dc += 1
-            return sdec.decode_ld_payload_device(job.payload, job.ld)[1]
         if job.ld is None:
-            return None
-        # an LD picture whose slice rows do not divide: unpack on one
-        # device, then the halo inverse where the padded planes divide
+            return None if sdec is None else sdec.decode_payload_device(
+                job.payload, job.q_idx, job.dstart, job.cbytes)
+        # an LD picture unpacks on one device, its LL grids from the lanes
         lanes, q_idx, grids = self._unpack_ld(job, qmatrix)
+        if sdec is not None:
+            return sdec.synthesise(q_idx, *lanes, grids=grids)
+        # slice rows that do not divide: the halo inverse where the padded
+        # planes divide
         planes = dequantise_ld_planes(lanes, q_idx, grids, qmatrix,
                                       pre.depth, geo)
         rows = self._indivisible(geo, pre.depth)

@@ -26,12 +26,12 @@
 // LL codes, in place, the strictly sequential raster recurrence of the
 // reference's inverse_quantise_LLSubband (Quantisation.cpp:287-306): each
 // LL value is c_scale(code, adjusted q) plus the mean of its left, above
-// and above-left neighbours' values (a truncating division by 3). Both
-// stay on the host for the LD mesh decode whose slice rows divide over its
-// bands (each band takes its rows of the host's grids), and the
-// recurrence for the encoder's Decoded and PSNR outputs (the quantised LL
-// band; the JAX package's vc2host.cpp ld_dequantise_plane, LL part) and
-// for a decode on the CPU.
+// and above-left neighbours' values (a truncating division by 3). No
+// decode route runs ld_read: with the recurrence it is the native
+// reference the tests hold the card's grids (ld_dc.cu) to. The recurrence
+// alone serves the encoder's Decoded and PSNR outputs (the quantised LL
+// band; the JAX package's vc2host.cpp ld_dequantise_plane, LL part) and a
+// decode on the CPU.
 
 #include <cstdint>
 #include <cstring>

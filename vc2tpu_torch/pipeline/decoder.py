@@ -32,7 +32,8 @@ csrc/lift_level.cu launch a level) serve the decoder's TRANSFORM and
 QUANTISED outputs, ``cli.decode_frame``, ``Encoder.decode_inprocess``
 and the LD mesh decode whose slice rows do not divide over the mesh
 (``shard.halo``'s in-place lift); ``pipeline.sharded`` runs the band
-route a band at a time. The stages are
+route a band at a time, an LD picture's lanes and LL grids coming from
+``unpack_ld_payload`` on the mesh's first device. The stages are
 separate functions, each a span of ``core.trace`` (``dec.upload``,
 ``dec.unpack``, ``dec.ld_dc``, ``dec.inverse``, ``dec.format``) that a
 profiler's trace

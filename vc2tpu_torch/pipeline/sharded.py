@@ -19,11 +19,12 @@ whose rows past the margin are exact, so no row travels between bands:
                         the slice budgets (one hq_cbr launch)
                      -> quant_pack_hq (one hq_pack launch, its own
                         scratch and flags)
-    decode, a band:  upload of the span of the payload that its block's
-                     slices cover (the host chain scan runs once over the
-                     picture)
-                     -> unpack_hq (one hq_unpack launch; LD: ld_unpack,
-                        with the block's rows of the host's LL grids)
+    decode, a band:  HQ: upload of the span of the payload that its
+                     block's slices cover (the host chain scan runs once
+                     over the picture) -> unpack_hq (one hq_unpack
+                     launch); LD: its block's rows of the lanes and of the
+                     LL grids, which one ld_unpack and one ld_dc launch
+                     made on the first device
                      -> inverse_bands_local: band_inverse, one launch a
                         level, dequantising in its load; the band keeps
                         its own rows -> gathered on the mesh's first device
@@ -294,12 +295,16 @@ class ShardedEncoder:
 class ShardedDecoder:
     """Decode of one picture's slice payload over the ``space`` axis of
     ``mesh`` (its first data row), to padded int32 planes on the mesh's
-    first device, equal to the single-device decode's. The host finds the
-    slices (the HQ chain scan, or the LD header scan and LL recurrence,
-    once a picture, serial as in the JAX package); each band unpacks the
-    slices of its block (``halo.band_blocks``: its own slice rows and a
-    margin of its neighbours') from its span of the payload on its device,
-    then ``halo.inverse_bands_local`` keeps its own rows.
+    first device, equal to the single-device decode's. HQ: the host finds
+    the slices (the chain scan, once a picture, serial as in the JAX
+    package); each band unpacks the slices of its block
+    (``halo.band_blocks``: its own slice rows and a margin of its
+    neighbours') from its span of the payload on its device
+    (``decode_payload_device``). LD: the picture unpacks on one device,
+    with its LL grids (``pipeline.decoder.unpack_ld_payload``), and each
+    band takes its block's rows of the lanes and the grids
+    (``synthesise``). Then ``halo.inverse_bands_local`` keeps each band's
+    own rows.
 
     Both ``decode_payload`` and ``decode_payload_device`` take the device
     unpack: the JAX package's host-unpack route serves only its
@@ -319,7 +324,7 @@ class ShardedDecoder:
         self.qmatrix = matrices.quant_matrix(kernel, depth)
         self.ly = geo.luma_slice[0] * geo.luma_slice[1]
         self.lc = geo.chroma_slice[0] * geo.chroma_slice[1]
-        self.spans = []           # the last picture's payload bytes a band
+        self.spans = []           # the last HQ picture's payload bytes a band
 
     def _check(self) -> None:
         """The JAX package's ValueErrors for bands this transform cannot
@@ -346,19 +351,30 @@ class ShardedDecoder:
         return tuple(torch.cat([b[c].to(first) for b in bands])
                      for c in range(3))
 
-    def synthesise(self, q_idx, ly, lu, lv) -> tuple:
+    def synthesise(self, q_idx, ly, lu, lv, grids=None) -> tuple:
         """Entropy-decoded lanes (q [N], lanes [N, L], host or device) ->
         (y, c1, c2) padded planes: each band's block of the lanes on its
-        device, dequantised and inverse-transformed there."""
+        device, dequantised and inverse-transformed there. LD: ``grids``
+        are the three LL grids with their DC prediction (int32, host or
+        device), each band taking its block's rows of them."""
         self._check()
-        q_all = np.asarray(q_idx).ravel()
+        q_all = torch.as_tensor(q_idx).ravel()
+        ts = 1 << self.depth
         bands = []
         for s, dev in enumerate(self.devs):
             sl = self._block_slices(s)
             lanes = [torch.as_tensor(x[sl]).to(dev, torch.int32).contiguous()
                      for x in (ly, lu, lv)]
-            q = torch.as_tensor(q_all[sl]).to(dev, torch.int32)
-            bands.append(self._synthesise(s, lanes, q))
+            q = q_all[sl].to(dev, torch.int32)
+            ll = None
+            if grids is not None:
+                a, _r0, _r1, b = self.blocks[s]
+                ll = [torch.as_tensor(g[a * sh // ts:b * sh // ts]).to(
+                    dev, torch.int32).contiguous()
+                    for g, sh in zip(grids, (self.geo.luma_slice[0],
+                                             self.geo.chroma_slice[0],
+                                             self.geo.chroma_slice[0]))]
+            bands.append(self._synthesise(s, lanes, q, ll))
         return self._gather(bands)
 
     def decode_payload(self, payload, prefix: int, scalar: int,
@@ -399,38 +415,3 @@ class ShardedDecoder:
             bands.append(self._synthesise(s, lanes, f[0]))
             self.spans.append(hi - lo)
         return self._gather(bands)
-
-    def decode_ld_payload_device(self, payload, scan) -> tuple:
-        """One LD picture's slice payload and its host scan
-        (``slices.ld.ld_scan``: q, bit fields, LL grids) -> (q indices,
-        (y, c1, c2) padded planes). Band s uploads its block's slices'
-        bytes, their fields and the block's rows of the LL grids, and
-        unpacks in one launch."""
-        self._check()
-        data = np.frombuffer(payload, np.uint8)
-        f_all = np.asarray(scan.fields, np.int64)
-        ts = 1 << self.depth
-        bands, self.spans = [], []
-        for s, dev in enumerate(self.devs):
-            sl = self._block_slices(s)
-            a, _r0, _r1, b = self.blocks[s]
-            f = f_all[:, sl].copy()
-            lo = int(f[0, 0]) // 8
-            end = f[0] + 7 + f[1] + f[2] + f[3]
-            hi = min(max(-(-int(end.max(initial=0)) // 8), lo), data.size)
-            f[0] -= 8 * lo
-            host = np.concatenate([np.asarray(scan.q)[None, sl], f]).astype(
-                np.int32)
-            pay = torch.from_numpy(data[lo:hi].copy()).to(dev)
-            fields = torch.from_numpy(host).to(dev)
-            lanes = device_unpack.unpack_ld(pay, fields[1:], self.ly,
-                                            self.lc)
-            grids = [torch.from_numpy(np.ascontiguousarray(
-                grid[a * sh // ts:b * sh // ts])).to(dev)
-                for grid, (sh, _sw) in zip(scan.grids,
-                                           (self.geo.luma_slice,
-                                            self.geo.chroma_slice,
-                                            self.geo.chroma_slice))]
-            bands.append(self._synthesise(s, lanes, fields[0], grids))
-            self.spans.append(hi - lo)
-        return scan.q, self._gather(bands)

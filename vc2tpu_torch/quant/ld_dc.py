@@ -14,7 +14,9 @@ the CPU the host
 recurrence (``slices.ld.dequantise_ll``, native) over the codes gathered
 from the lanes, which is also the reference the card tests hold the
 kernel to. Either way the grids are bit for bit those of
-``slices.ld.ld_scan``.
+``slices.ld.ld_scan``. Every LD picture decode takes its grids from here:
+on one device, the taps, and both mesh routes (each band of the mesh
+whose slice rows divide takes its rows of them).
 
 ``Plan`` holds what the grids need of a geometry: the lane of each cell's
 code (``slices.ld.ll_sources``), the quant matrix block, and for the

@@ -16,12 +16,14 @@ codes the unpack kernel decodes with the rest of each region and whose
 DC prediction runs on the card (``quant.ld_dc``). ``ll_sources`` says,
 once a geometry, which lane holds each LL grid cell's code.
 
-``ld_scan`` is the host scan that keeps the LL band on the host, for the
-LD mesh decode whose slice rows divide over its bands, in two phases: the
-slice walk (``dec.ld_read``: the header fields, and the LL band's codes
-into three compact grids), then the DC prediction (``dec.ld_dc``: a strict
-raster recurrence, reference Quantisation.cpp:287-306, that dequantises
-each grid in place). ``ld_scan_plain`` is the same from
+``ld_scan`` is the host scan that keeps the LL band on the host, in two
+phases: the slice walk (``ld_read``, span ``dec.ld_read``: the header
+fields, and the LL band's codes into three compact grids), then the DC
+prediction (``dec.ld_dc``: a strict raster recurrence, reference
+Quantisation.cpp:287-306, that dequantises each grid in place). No decode
+route calls it: it is the native reference that the tests hold the card's
+LL grids to, on inputs too large for the plain one. ``ld_scan_plain`` is
+the same from
 ``ld_header_fields``, the plain bit reader and a Python loop of the
 recurrence: the reference the tests hold both native scans and the card's
 DC prediction against. ``dequantise_ll`` runs the recurrence alone on a
