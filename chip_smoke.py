@@ -84,12 +84,16 @@ Phases (any failure exits non-zero, and the last line is then not printed):
    and long codes), and with guard bytes after its payload that must stay
    untouched;
 5. the main paths, each with the launch counters zeroed just before it and
-   read just after: decode the committed 1080p HQ fixtures
-   (``vc2tpu_torch/testdata``) with ``Decoder()`` (SHA-256 against the JAX
-   package's decode; band_inverse 2 launches a picture, unpack 1,
-   lift_level 0); decode the 1080p LD fixture (SHA-256 against the JAX
-   package's decode; ld_unpack 1, ld_dc 1, band_inverse 2, lift_level 0,
-   hq_unpack 0); encode the 1080p ConstQ input
+   read just after: decode each committed 1080p HQ fixture
+   (``vc2tpu_torch/testdata``) ``REPEAT`` times over in one stream with
+   one ``Decoder()``, so that the first picture decodes eagerly, the
+   second is captured in a CUDA graph and the rest replay it (every
+   picture's SHA-256 against the JAX package's decode; one capture,
+   ``REPEAT - 1`` replays; band_inverse 2 launches a picture, unpack 1,
+   lift_level 0, by the counters, and by the kernels in the profiler's
+   device trace, where the chain's run before its capture adds one
+   picture's launches); decode the 1080p LD fixture likewise (ld_unpack
+   1, ld_dc 1, band_inverse 2, lift_level 0, hq_unpack 0); encode the 1080p ConstQ input
    (``make_1080p.make_input``) with the encode CLI (bytes equal to
    ``constq_1080p.vc2``, its decode at the
    recorded SHA-256; band_forward 2, lift_level 0, pack 1); encode the
@@ -188,6 +192,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -212,6 +217,10 @@ RANDOM_ROWS = 64800       # slices of the random-bytes unpack check (1080p)
 TESTDATA = os.path.join(ROOT, "vc2tpu_torch", "testdata")
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 FRAGMENT = 16384          # -F of the fragmented 1080p CBR encode
+REPEAT = 4                # pictures of each main-path decode's stream
+# the decode's kernels, counted in the profiler's device trace
+TRACED = ("hq_unpack_kernel", "ld_unpack_kernel", "ld_dc_kernel",
+          "band_level_kernel")
 SEQ_PICTURES = 16         # distinct pictures of the encode pipeline's input
 PIPE_REPS = 5             # timed runs of each encode over that input
 # (harness size, bands) of the rows split over two processes on the card
@@ -625,6 +634,51 @@ def pictures_of(stream: bytes, device):
             break
         pos += next_off
     return out
+
+
+def decode_repeated(torch, data: bytes, digest: str, zero_counts, counts,
+                    label: str) -> tuple:
+    """``data``, a one-picture stream, ``REPEAT`` times over through one
+    ``Decoder()``, under torch.profiler: every picture at SHA-256
+    ``digest``, one graph captured and ``REPEAT - 1`` pictures replayed
+    (``pipeline.replay``). Returns (the launch counters, zeroed just
+    before the decode and read just after; {kernel of ``TRACED``: its
+    launches in the profiler's device trace, the chain's run before the
+    capture among them})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vc2tpu_torch.cli.decode_stream import Decoder
+
+    class Digests:
+        def __init__(self):
+            self.got = []
+
+        def write(self, b):
+            self.got.append(hashlib.sha256(bytes(b)).hexdigest())
+            return len(b)
+
+    sink = Digests()
+    dec = Decoder(sink=sink)
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rc = dec.run(data * REPEAT)
+        torch.cuda.synchronize()
+    launched = counts()
+    check(rc == 0, f"decode {label} failed")
+    check(sink.got == [digest] * REPEAT,
+          f"{label}: decoded SHA-256s {sink.got} differ from the JAX "
+          f"package's {digest}")
+    check((dec.graph_captures, dec.graph_replays) == (1, REPEAT - 1),
+          f"{label}: {dec.graph_captures} graphs captured and "
+          f"{dec.graph_replays} pictures replayed, expected 1 and "
+          f"{REPEAT - 1}")
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    traced = {k: sum(bool(re.search(rf"(^|\W){k}[(<]", n)) for n in names)
+              for k in TRACED}
+    return launched, traced
 
 
 def fragments_of(stream: bytes) -> int:
@@ -2476,42 +2530,59 @@ def main(argv) -> int:
                 "ld_rate": rdo_ld.ld_rate_control.launches,
                 "ld_pack": dp.quant_pack_ld.launches}
 
-    n_pictures = sum(len(pictures_of(d, dev)) for d in hq_streams.values())
-    zero_counts()
+    # each fixture's picture REPEAT times over through one Decoder(): the
+    # first decodes eagerly, the second is captured in a CUDA graph and
+    # replayed, the rest replay, the main path's own route
+    decode_launches = dict.fromkeys(counts(), 0)
+    decode_traced = dict.fromkeys(TRACED, 0)
+    n_pictures = 0
     for key, data in hq_streams.items():
-        sink = io.BytesIO()
-        check(Decoder(sink=sink).run(data) == 0, f"decode {key} failed")
-        digest = hashlib.sha256(sink.getvalue()).hexdigest()
-        check(digest == fixtures[key]["decoded_sha256"],
-              f"{key}: decoded SHA-256 {digest} differs from the JAX "
-              f"package's {fixtures[key]['decoded_sha256']}")
-    decode_launches = counts()
-    print(f"main path decode: {n_pictures} 1080p pictures, SHA-256 equal to "
-          f"the JAX package's decode; launches {decode_launches}")
-    check(decode_launches["band_inverse"] == 2 * n_pictures,
-          f"band_inverse launched {decode_launches['band_inverse']} times in "
-          f"the decode, expected {2 * n_pictures}")
+        launched, traced = decode_repeated(
+            torch, data, fixtures[key]["decoded_sha256"], zero_counts,
+            counts, key)
+        n_pictures += REPEAT
+        for k in decode_launches:
+            decode_launches[k] += launched[k]
+        for k in decode_traced:
+            decode_traced[k] += traced[k]
+    print(f"main path decode: {n_pictures} 1080p pictures ({REPEAT} of each "
+          f"fixture, one Decoder a fixture: 1 eager, 1 captured, "
+          f"{REPEAT - 1} replays), SHA-256 equal to the JAX package's "
+          f"decode; launches {decode_launches}; in the device trace "
+          f"{decode_traced}")
+    # the device runs each fixture's chain once more than the counters
+    # count: as it is, before its capture
+    n_runs = n_pictures + len(hq_streams)
+    check(decode_launches["band_inverse"] == 2 * n_pictures
+          and decode_traced["band_level_kernel"] == 2 * n_runs,
+          f"band_inverse launched {decode_launches['band_inverse']} times "
+          f"({decode_traced['band_level_kernel']} in the device trace) in "
+          f"the decode, expected {2 * n_pictures} ({2 * n_runs})")
     check(decode_launches["hq_unpack"] == n_pictures
+          and decode_traced["hq_unpack_kernel"] == n_runs
           and decode_launches["ld_unpack"] == 0
-          and decode_launches["lift_level"] == 0,
-          f"the HQ decode launched {decode_launches}")
+          and decode_launches["lift_level"] == 0
+          and decode_traced["ld_unpack_kernel"] == 0,
+          f"the HQ decode launched {decode_launches} ({decode_traced} in "
+          "the device trace)")
 
-    # the slice's main path: the 1080p LD decode
-    zero_counts()
-    sink = io.BytesIO()
-    check(Decoder(sink=sink).run(streams["ld_1080p"]) == 0,
-          "decode ld_1080p failed")
-    ld_launches = counts()
-    digest = hashlib.sha256(sink.getvalue()).hexdigest()
-    check(digest == fixtures["ld_1080p"]["decoded_sha256"],
-          f"ld_1080p: decoded SHA-256 {digest} differs from the JAX "
-          f"package's {fixtures['ld_1080p']['decoded_sha256']}")
-    print("main path LD decode: the 1080p LD picture, SHA-256 equal to the "
-          f"JAX package's decode; launches {ld_launches}")
-    for k, want in (("ld_unpack", 1), ("ld_dc", 1), ("band_inverse", 2),
-                    ("lift_level", 0), ("hq_unpack", 0)):
-        check(ld_launches[k] == want, f"{k} launched {ld_launches[k]} times "
-                                      f"in the LD decode, expected {want}")
+    # the slice's main path: the 1080p LD decode, likewise
+    ld_launches, ld_traced = decode_repeated(
+        torch, streams["ld_1080p"], fixtures["ld_1080p"]["decoded_sha256"],
+        zero_counts, counts, "ld_1080p")
+    print(f"main path LD decode: the 1080p LD picture {REPEAT} times, "
+          f"SHA-256 equal to the JAX package's decode; launches "
+          f"{ld_launches}; in the device trace {ld_traced}")
+    for k, kernel, want in (("ld_unpack", "ld_unpack_kernel", 1),
+                            ("ld_dc", "ld_dc_kernel", 1),
+                            ("band_inverse", "band_level_kernel", 2),
+                            ("lift_level", None, 0),
+                            ("hq_unpack", "hq_unpack_kernel", 0)):
+        check(ld_launches[k] == want * REPEAT and (
+            kernel is None or ld_traced[kernel] == want * (REPEAT + 1)),
+            f"{k} launched {ld_launches[k]} times (in the device trace "
+            f"{ld_traced}) in the LD decode, expected {want * REPEAT} "
+            f"({want * (REPEAT + 1)})")
 
     out_1080p = os.path.join(work.name, "constq_1080p.vc2")
     zero_counts()

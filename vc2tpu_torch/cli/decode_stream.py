@@ -30,6 +30,15 @@ then still takes the in-place halo inverse lift
 computed: every one.
 The tap outputs always take the single-device route.
 
+On one card, a progressive picture's DECODED output is one replay of a
+CUDA graph once its key has repeated (``pipeline.replay``: the route,
+geometry, coding parameters and the payload's exact length): the first
+picture of a key decodes eagerly, the second is captured and replayed,
+and the later ones replay, each after the upload of its payload and
+slice fields into the graph's inputs. ``graph_captures`` and
+``graph_replays`` count them. The mesh route, the taps, interlaced
+fields and the CPU always decode eagerly.
+
 The DECODED output leaves the card through a ring of pinned host slots:
 when a picture's bytes are queued in the output FIFO their D2H starts at
 once, on a copy stream of the decoder's own; when the FIFO hands the
@@ -40,7 +49,8 @@ the sink gets a view of the decoded bytes themselves.
 
 Under a torch profiler the picture decode is traced (``core.trace``): the
 host scan (``dec.scan``), the device work's issue (``dec.issue``, around
-the stages of ``pipeline.decoder``), an output's wait in the FIFO
+the stages of ``pipeline.decoder``, or around the upload and a graph's
+``dec.replay``), an output's wait in the FIFO
 (``dec.fifo``), the wait for its copy back (``dec.copy_back``) and its
 copy out of the slot (``dec.to_bytes``), each with the picture number.
 
@@ -72,8 +82,11 @@ from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.config import DecOutput, PictureGeometry, chroma_dims
 from vc2tpu_torch.core.picture import Picture
 from vc2tpu_torch.core.planario import SampleFormat, write_picture
+from vc2tpu_torch.pipeline import replay
 from vc2tpu_torch.pipeline.decoder import (dequantise_ld_planes,
                                            dequantise_planes, format_planes,
+                                           hq_field_rows, hq_words,
+                                           ld_field_rows, ld_words,
                                            synthesise_ld_payload_to_words,
                                            synthesise_payload_to_words,
                                            unpack_ld_payload, unpack_payload)
@@ -180,6 +193,8 @@ class Decoder:
         # LD pictures whose LL grids the decode device computed from the
         # lanes (quant.ld_dc)
         self.ld_card_dc = 0
+        # the single-device picture decode's graphs (pipeline.replay)
+        self._graphs = replay.PictureGraphs()
         self._first_words = None      # formatted first field (interlace)
         self._first_picnum = None     # picture number of the buffered field
         self._field_parity = None     # picnum parity of FIRST fields
@@ -244,9 +259,21 @@ class Decoder:
             self.sink.write(data)
             self.frames_out += 1
 
+    @property
+    def graph_captures(self) -> int:
+        """Picture decodes captured in a CUDA graph."""
+        return self._graphs.captures
+
+    @property
+    def graph_replays(self) -> int:
+        """Pictures decoded by a replay of a captured graph."""
+        return self._graphs.replays
+
     def _emit_words(self, words: torch.Tensor):
         """``words`` are the output bytes of one progressive frame or one
-        field, on the device."""
+        field, on the device. Returns the event behind the copy back that
+        reads them (None on the CPU, or for a first field, which is held
+        to pair with the second)."""
         hdr = self.hdr
         if hdr.interlace:
             # Field pairing is by picture number, not arrival order: losing
@@ -267,11 +294,11 @@ class Decoder:
                 if (picnum & 1) != self._field_parity:
                     self.log(f"Dropping second field {picnum} whose first "
                              "field was not decoded")
-                    return
+                    return None
                 self._first_words = words
                 self._first_picnum = picnum
                 self.pic = 1
-                return
+                return None
             self.pic = 0
             first, second = self._first_words, words
             self._first_words = None
@@ -293,9 +320,10 @@ class Decoder:
                 off += n
             words = torch.cat(parts)
         self._flush(keep=self._depth - 1)
-        self._pending.append((*self._copy_back_async(words),
-                              self._cur_picnum, trace.stamp()))
+        slot, done = self._copy_back_async(words)
+        self._pending.append((slot, done, self._cur_picnum, trace.stamp()))
         self.frame += 1
+        return done
 
     # --- picture decode ---
 
@@ -378,20 +406,42 @@ class Decoder:
                 job, qmatrix)
             if planes is not None:
                 words = format_planes(planes, out_geom, hdr.bitdepth)
-            elif job.ld is not None:
-                words = synthesise_ld_payload_to_words(
-                    job.payload, job.ld, qmatrix, pre.wavelet_kernel,
-                    pre.depth, job.geo, out_geom, hdr.bitdepth,
-                    device=self.device)
-                self.ld_card_dc += 1
             else:
-                words = synthesise_payload_to_words(
-                    job.payload, job.q_idx, job.cbytes, qmatrix,
-                    pre.wavelet_kernel, pre.depth, job.geo, out_geom,
-                    hdr.bitdepth, pre.slice_prefix, start=job.start,
-                    device=self.device)
+                words = self._single_device(job, qmatrix, out_geom)
         self._cur_picnum = job.picnum
-        self._emit_words(words)
+        self._graphs.read(words, self._emit_words(words))
+
+    def _single_device(self, job: LocatedPicture, qmatrix,
+                       out_geom: PictureGeometry) -> torch.Tensor:
+        """A located picture's output bytes on the decode device: one
+        replay of a CUDA graph where the picture may replay
+        (``replay.eligible``) and its key has repeated, else the library's
+        decode, ``synthesise_payload_to_words`` or
+        ``synthesise_ld_payload_to_words``."""
+        hdr, pre, ld = self.hdr, job.pre, job.ld
+        args = (qmatrix, pre.wavelet_kernel, pre.depth, job.geo, out_geom,
+                hdr.bitdepth)
+        if ld is not None:
+            self.ld_card_dc += 1
+        if not replay.eligible(self.device, self.mesh, self.output,
+                               hdr.interlace):
+            if ld is not None:
+                return synthesise_ld_payload_to_words(
+                    job.payload, ld, *args, device=self.device)
+            return synthesise_payload_to_words(
+                job.payload, job.q_idx, job.cbytes, *args, pre.slice_prefix,
+                start=job.start, device=self.device)
+        if ld is not None:
+            words, fields = ld_words, ld_field_rows(ld)
+        else:
+            words, fields = hq_words, hq_field_rows(job.q_idx, job.cbytes)
+            args += (pre.slice_prefix, job.start)
+        key = (ld is None, self.device, job.geo, pre.depth,
+               int(pre.wavelet_kernel), tuple(int(v) for v in qmatrix),
+               hdr.bitdepth, out_geom, pre.slice_prefix, job.start,
+               job.payload.size)
+        return self._graphs.run(key, words, args, job.payload, fields,
+                                self.device)
 
     # --- the mesh route (--mesh) ---
 

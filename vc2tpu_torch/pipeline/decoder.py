@@ -38,15 +38,22 @@ separate functions, each a span of ``core.trace`` (``dec.upload``,
 ``dec.unpack``, ``dec.ld_dc``, ``dec.inverse``, ``dec.format``) that a
 profiler's trace
 shows; the caller makes the one D2H copy of the returned bytes.
+
+Each picture decode is its host half, the upload (``upload_rows`` of the
+payload and the slice fields, ``hq_field_rows`` / ``ld_field_rows``),
+then its device half (``hq_words`` / ``ld_words``), which reads nothing
+from the host and does not synchronise: the decode CLI captures that
+half in a CUDA graph (``pipeline.replay``). The cached device tables
+the kernels read by address come from ``core.capture.device_cache``
+functions, so a capture holds the ones it read.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core import trace
 from vc2tpu_torch.core.config import PictureGeometry, WaveletKernel
@@ -73,18 +80,43 @@ def _make_fmt(bitdepth: int):
     return run
 
 
+def hq_field_rows(q_indices, cbytes) -> np.ndarray:
+    """An HQ picture's slice fields as ``upload`` sends them: int32 [4, N],
+    the q indices, then the chain scan's three component byte lengths."""
+    return np.concatenate([np.asarray(q_indices)[None],
+                           np.asarray(cbytes)]).astype(np.int32)
+
+
+def ld_field_rows(scan: LDScan) -> np.ndarray:
+    """An LD picture's slice fields as ``upload_ld`` sends them: int32
+    [5, N], q, s_bits, len_bits, y_bits, uv_bits."""
+    return np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
+
+
+def upload_rows(payload: np.ndarray, fields: np.ndarray,
+                device: torch.device, into: tuple | None = None) -> tuple:
+    """A picture's host data to the device, one copy each: its payload
+    bytes (uint8 [P]) and its slice fields (int32 [R, N]). Into ``into``,
+    a (payload, fields) pair of device tensors of those shapes, where
+    given; else into new tensors. Returns the pair."""
+    with trace.span("dec.upload"):
+        pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
+        rows = torch.from_numpy(fields)
+        if into is None:
+            return pay.to(device), rows.to(device)
+        into[0].copy_(pay)
+        into[1].copy_(rows)
+        return into
+
+
 def upload(payload: np.ndarray, q_indices, cbytes, device: torch.device):
     """The picture's host data to the device: payload bytes (uint8 [P]) and
-    the chain scan's fields as int32 [4, N] (q, then the three component
-    byte lengths), one copy each."""
-    with trace.span("dec.upload"):
-        fields = np.concatenate([np.asarray(q_indices)[None],
-                                 np.asarray(cbytes)]).astype(np.int32)
-        pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
-        return pay.to(device), torch.from_numpy(fields).to(device)
+    the chain scan's fields as int32 [4, N] (``hq_field_rows``), one copy
+    each."""
+    return upload_rows(payload, hq_field_rows(q_indices, cbytes), device)
 
 
-@functools.lru_cache(maxsize=64)
+@capture.device_cache(maxsize=64)
 def qm_lanes(qmatrix_key: tuple, slice_h: int, slice_w: int, depth: int,
               device: torch.device) -> torch.Tensor:
     """Quant matrix entry of every lane of a slice block, int64 [L]."""
@@ -128,8 +160,12 @@ def unpack_payload(payload: np.ndarray, q_indices, cbytes,
     and the unpack kernel. Returns ((y, u, v) int32 lanes, q indices int32
     [N]) on ``device`` (default the card), without synchronising; the
     arguments are ``synthesise_payload_to_words``'s."""
-    dev = devices.resolve(device)
-    pay, fields = upload(payload, q_indices, cbytes, dev)
+    pay, fields = upload(payload, q_indices, cbytes, devices.resolve(device))
+    return _unpack_hq(pay, fields, geo, prefix, start)
+
+
+def _unpack_hq(pay: torch.Tensor, fields: torch.Tensor, geo: SliceGeometry,
+               prefix: int, start: int):
     with trace.span("dec.unpack"):
         clen = fields[1:]
         dstart = device_unpack.hq_component_offsets(clen, prefix, start)
@@ -149,8 +185,19 @@ def synthesise_payload_to_words(payload: np.ndarray, q_indices, cbytes,
     first slice; ``q_indices``/``cbytes`` come from the host chain scan.
     Returns the output bytes as a uint8 tensor on ``device`` (default the
     card), without synchronising."""
-    lanes, q_idx = unpack_payload(payload, q_indices, cbytes, geo, prefix,
-                                  start, device)
+    pay, fields = upload(payload, q_indices, cbytes, devices.resolve(device))
+    return hq_words(pay, fields, qmatrix, kernel, depth, geo, out_geometry,
+                    bitdepth, prefix, start)
+
+
+def hq_words(pay: torch.Tensor, fields: torch.Tensor, qmatrix,
+             kernel: WaveletKernel, depth: int, geo: SliceGeometry,
+             out_geometry: PictureGeometry, bitdepth: int, prefix: int,
+             start: int = 0) -> torch.Tensor:
+    """The device half of ``synthesise_payload_to_words``, from the
+    uploaded payload and fields (``upload``): component offsets, unpack,
+    inverse and format, with no host data and no synchronisation."""
+    lanes, q_idx = _unpack_hq(pay, fields, geo, prefix, start)
     planes = synthesise_lanes(lanes, q_idx, qmatrix, kernel, depth, geo)
     return format_planes(planes, out_geometry, bitdepth)
 
@@ -173,12 +220,9 @@ def synthesise_lanes(lanes, q_idx: torch.Tensor, qmatrix,
 
 def upload_ld(payload: np.ndarray, scan: LDScan, device: torch.device):
     """An LD picture's host data to the device, one copy each: the payload
-    bytes (uint8 [P]) and the scan's fields as int32 [5, N] (q, s_bits,
-    len_bits, y_bits, uv_bits)."""
-    with trace.span("dec.upload"):
-        fields = np.concatenate([scan.q[None], scan.fields]).astype(np.int32)
-        pay = torch.from_numpy(np.array(payload, dtype=np.uint8, copy=True))
-        return pay.to(device), torch.from_numpy(fields).to(device)
+    bytes (uint8 [P]) and the scan's fields as int32 [5, N]
+    (``ld_field_rows``)."""
+    return upload_rows(payload, ld_field_rows(scan), device)
 
 
 def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
@@ -188,8 +232,12 @@ def unpack_ld_payload(payload: np.ndarray, scan: LDScan, geo: SliceGeometry,
     span ``dec.ld_dc``; ``scan`` needs only its q indices and fields).
     Returns ((y, u, v) int32 lanes, q indices int32 [N], the three LL
     grids) on ``device`` (default the card), without synchronising."""
-    dev = devices.resolve(device)
-    pay, fields = upload_ld(payload, scan, dev)
+    pay, fields = upload_ld(payload, scan, devices.resolve(device))
+    return _unpack_ld(pay, fields, geo, qmatrix, depth)
+
+
+def _unpack_ld(pay: torch.Tensor, fields: torch.Tensor, geo: SliceGeometry,
+               qmatrix, depth: int):
     with trace.span("dec.unpack"):
         ly = geo.luma_slice[0] * geo.luma_slice[1]
         lc = geo.chroma_slice[0] * geo.chroma_slice[1]
@@ -223,8 +271,19 @@ def synthesise_ld_payload_to_words(payload: np.ndarray, scan: LDScan,
     its host header walk (``slices.ld.ld_fields``, whose bit offsets index
     ``payload``). Returns the output bytes as a uint8 tensor on ``device``
     (default the card), without synchronising."""
-    lanes, q_idx, grids = unpack_ld_payload(payload, scan, geo, qmatrix,
-                                            depth, device)
+    pay, fields = upload_ld(payload, scan, devices.resolve(device))
+    return ld_words(pay, fields, qmatrix, kernel, depth, geo, out_geometry,
+                    bitdepth)
+
+
+def ld_words(pay: torch.Tensor, fields: torch.Tensor, qmatrix,
+             kernel: WaveletKernel, depth: int, geo: SliceGeometry,
+             out_geometry: PictureGeometry, bitdepth: int) -> torch.Tensor:
+    """The device half of ``synthesise_ld_payload_to_words``, from the
+    uploaded payload and fields (``upload_ld``): unpack, LL grids, inverse
+    and format, with no host data and no synchronisation."""
+    lanes, q_idx, grids = _unpack_ld(pay, fields, geo, qmatrix, depth)
     planes = synthesise_lanes(lanes, q_idx, qmatrix, kernel, depth, geo,
                               grids)
     return format_planes(planes, out_geometry, bitdepth)
+

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.quant.quantiser import QUANT_FACTORS_I32, QUANT_OFFSETS
 from vc2tpu_torch.slices import ld as slices_ld
@@ -104,7 +105,7 @@ class Plan:
                              for c in comps])
 
 
-@functools.lru_cache(maxsize=16)
+@capture.device_cache(maxsize=16)
 def plan(geo, depth: int, qmatrix_key: tuple, device: torch.device) -> Plan:
     """The ``Plan`` of a geometry on a device, made once (``qmatrix_key``:
     the quant matrix as a tuple of ints)."""
@@ -131,6 +132,7 @@ def threads_of(llh: int) -> int:
     return min(MAX_THREADS, max(32, -(-llh // 32) * 32))
 
 
+@capture.counted
 def ll_grids(lanes, q: torch.Tensor, plan_: Plan) -> list:
     """The three dequantised LL grids (luma, U, V; int32 [llh, llw] on the
     lanes' device) of a picture from its unpacked lanes (qy [N, ly], qu and
@@ -173,9 +175,6 @@ def ll_grids(lanes, q: torch.Tensor, plan_: Plan) -> list:
         raise RuntimeError(f"ld_dc kernel launch failed: CUDA error {rc}")
     ll_grids.launches += 1
     return out
-
-
-ll_grids.launches = 0
 
 
 def _ll_grids_host(lanes, q: torch.Tensor, plan_: Plan) -> list:

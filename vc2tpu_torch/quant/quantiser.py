@@ -25,11 +25,10 @@ over.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core.intmath import wrap32
 
 # VC-2 quantisation factor table, quant_factor(q) for q in [0, 119]
@@ -83,7 +82,7 @@ def adjust_quant_index(q_index, q_matrix):
     return torch.clamp(q_index - q_matrix, min=0)
 
 
-@functools.lru_cache(maxsize=None)
+@capture.device_cache(maxsize=None)
 def _device_tables(device: torch.device):
     return (torch.as_tensor(QUANT_FACTORS_I32.astype(np.int64), device=device),
             torch.as_tensor(QUANT_OFFSETS.astype(np.int64), device=device))

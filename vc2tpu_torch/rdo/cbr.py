@@ -37,6 +37,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import (MAX_QINDEX, QUANT_FACTORS_I32,
@@ -201,6 +202,7 @@ def launch_search(y, u, v, qm_y, qm_c, budgets, scalar: int, flags=None):
     return out
 
 
+@capture.counted
 def cbr_quant_indices(y, u, v, qm_y, qm_c, budgets, scalar: int,
                       flags=None):
     """The HQ CBR quantisation index of every slice.
@@ -232,6 +234,3 @@ def cbr_quant_indices(y, u, v, qm_y, qm_c, budgets, scalar: int,
     if y.shape[0] == 0:
         return torch.empty(0, dtype=torch.int32, device=y.device)
     return launch_search(y, u, v, qm_y, qm_c, budgets, scalar, flags)
-
-
-cbr_quant_indices.launches = 0

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 from vc2tpu_torch.quant.quantiser import (MAX_QINDEX, QUANT_FACTORS_I32,
@@ -389,7 +390,7 @@ def resident_rows(ly: int, lc: int, ll_y_shape, ll_c_shape,
     return n * props.multi_processor_count
 
 
-@functools.lru_cache(maxsize=64)
+@capture.device_cache(maxsize=64)
 def _lane_tables(qm_key: tuple, bs_y: tuple, bs_c: tuple,
                  device: torch.device):
     return tuple(torch.as_tensor(lane_qm(qm_key, bs), device=device)
@@ -431,6 +432,7 @@ def launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
     return table
 
 
+@capture.counted
 def body_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
     """The body table of ``ld_rate_control``'s arguments (see
     ``body_table_plain``): CUDA lanes through one launch of csrc/ld_rate.cu's
@@ -447,9 +449,6 @@ def body_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c):
     table = launch_table(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c)
     body_table.launches += 1
     return table
-
-
-body_table.launches = 0
 
 
 def launch_rate(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
@@ -490,6 +489,7 @@ def launch_rate(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
     return q, ll[0], ll[1], ll[2]
 
 
+@capture.counted
 def ld_rate_control(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
                     grid_shape, ll_y_shape, ll_c_shape):
     """The LD quantisation index of every slice and its LL lanes.
@@ -521,6 +521,3 @@ def ld_rate_control(lanes_y, lanes_u, lanes_v, qm, bs_y, bs_c, avail,
         if not t.is_contiguous():
             raise ValueError("ld_rate_control: inputs must be contiguous")
     return launch_rate(*args)
-
-
-ld_rate_control.launches = 0

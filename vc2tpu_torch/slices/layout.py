@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core.intmath import rationalise
 
 
@@ -56,14 +57,14 @@ def inverse_lane_order(slice_h: int, slice_w: int, depth: int) -> np.ndarray:
     return inv
 
 
-@functools.lru_cache(maxsize=None)
+@capture.device_cache(maxsize=None)
 def _inverse_index(slice_h: int, slice_w: int, depth: int,
                    device: torch.device) -> torch.Tensor:
     inv = inverse_lane_order(slice_h, slice_w, depth)
     return torch.as_tensor(inv.astype(np.int64), device=device)
 
 
-@functools.lru_cache(maxsize=16)
+@capture.device_cache(maxsize=16)
 def _lane_index(h: int, w: int, y_slices: int, x_slices: int, depth: int,
                 device: torch.device) -> torch.Tensor:
     """Flat plane offset of every lane, int64 (nSlices * L): slice (r, c)'s

@@ -41,6 +41,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32,
                                          adjust_quant_index, quant)
@@ -333,6 +334,7 @@ def _cuda_inputs(name, tensors):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+@capture.counted
 def pack_hq(qy, qu, qv, q_idx, prefix: int, scalar: int, slice_sizes=None):
     """Assemble the HQ slice payload of a picture.
 
@@ -410,9 +412,6 @@ def quant_pack_hq_queued(y, u, v, q_idx, qm_y, qm_c, prefix: int,
     out, scratch = launch_pack((y, u, v), q_idx, prefix, scalar, slice_sizes,
                                (qm_y, qm_c), keep, scratch=scratch)
     return out, scratch[1:3], keep
-
-
-pack_hq.launches = 0
 
 
 # --- LD -------------------------------------------------------------------
@@ -659,6 +658,7 @@ def quant_pack_ld_plain(y, u, v, ll, q_idx, qm_y, qm_c, sizes,
     return buf, tuple(lanes) if keep_lanes else None
 
 
+@capture.counted
 def quant_pack_ld(y, u, v, ll, q_idx, qm_y, qm_c, sizes, starts=None,
                   total=None, keep_lanes: bool = False):
     """Quantise and assemble the LD slice payload of a picture.
@@ -692,6 +692,3 @@ def quant_pack_ld(y, u, v, ll, q_idx, qm_y, qm_c, sizes, starts=None,
         return torch.zeros(4, dtype=torch.uint8, device=y.device), keep
     return launch_ld_pack((y, u, v), ll, q_idx, (qm_y, qm_c), sizes, starts,
                           total, keep), keep
-
-
-quant_pack_ld.launches = 0

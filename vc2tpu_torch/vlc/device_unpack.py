@@ -36,6 +36,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.intmath import wrap32
 
@@ -271,6 +272,7 @@ def _lib():
     return lib
 
 
+@capture.counted
 def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
               clen: torch.Tensor, ly: int, lc: int,
               staged: torch.Tensor | None = None):
@@ -310,9 +312,6 @@ def unpack_hq(payload: torch.Tensor, dstart: torch.Tensor,
         raise RuntimeError(f"hq_unpack kernel launch failed: CUDA error {rc}")
     unpack_hq.launches += 1
     return qy, qu, qv
-
-
-unpack_hq.launches = 0
 
 
 def _kernel_inputs(name: str, payload: torch.Tensor, tensors: tuple, n: int,
@@ -385,6 +384,7 @@ def _ld_lib():
     return lib
 
 
+@capture.counted
 def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
               staged: torch.Tensor | None = None):
     """Decode both regions of every slice of an LD picture.
@@ -422,6 +422,3 @@ def unpack_ld(payload: torch.Tensor, fields: torch.Tensor, ly: int, lc: int,
         raise RuntimeError(f"ld_unpack kernel launch failed: CUDA error {rc}")
     unpack_ld.launches += 1
     return out
-
-
-unpack_ld.launches = 0

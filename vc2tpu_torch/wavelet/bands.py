@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.quant.quantiser import (QUANT_FACTORS_I32, QUANT_OFFSETS,
@@ -331,7 +332,7 @@ def run_maps(geo, depth: int, ll_in_run: bool) -> list:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@capture.device_cache(maxsize=64)
 def _map_tensors(geo, depth: int, ll_in_run: bool,
                  dev: torch.device) -> tuple:
     """``run_maps`` on ``dev``, each an int32 tensor (the kernel reads it
@@ -356,6 +357,7 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@capture.counted
 def inverse_lanes(lanes, q_idx: torch.Tensor, qmatrix, geo,
                   kernel: WaveletKernel, depth: int, ll=None) -> list:
     """Dequantise and inverse-transform a picture's lanes: ``lanes`` the
@@ -414,9 +416,7 @@ def inverse_lanes(lanes, q_idx: torch.Tensor, qmatrix, geo,
     return coarse
 
 
-inverse_lanes.launches = 0
-
-
+@capture.counted
 def forward_lanes(planes, kernel: WaveletKernel, depth: int, geo) -> list:
     """Forward-transform a picture's three planes into their lanes:
     ``planes`` the (y, u, v) samples as uploaded (2-D, int16 or int32, rows
@@ -473,6 +473,3 @@ def forward_lanes(planes, kernel: WaveletKernel, depth: int, geo) -> list:
         forward_lanes.launches += 1
         src = outs
     return lanes
-
-
-forward_lanes.launches = 0

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from vc2tpu_torch.core import build
+from vc2tpu_torch.core import capture
 from vc2tpu_torch.core import device as devices
 from vc2tpu_torch.core.config import WaveletKernel
 from vc2tpu_torch.core.intmath import wrap32
@@ -367,6 +368,7 @@ def _plan(shapes: tuple, stride: int, kernel: int, sms: int) -> tuple:
     return bytes(table), sizes
 
 
+@capture.counted
 def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
                 stride: int = 1, overlays=None) -> list:
     """One 2-D lifting level of each plane's ``plane[::stride, ::stride]``
@@ -419,9 +421,6 @@ def lift_levels(planes, kernel: WaveletKernel, invert: bool = False,
         raise RuntimeError(f"lift_level kernel launch failed: CUDA error {rc}")
     lift_levels.launches += 1
     return outs
-
-
-lift_levels.launches = 0
 
 
 def lift_level(x: torch.Tensor, kernel: WaveletKernel,
